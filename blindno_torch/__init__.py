@@ -2,11 +2,13 @@
 
 Layout mirrors ``blindno/`` (``ops``, ``nn``, ``models``, ``eval``, ``utils``) so each
 module's counterpart is found by name. Public functions keep the JAX package's layouts
-(snapshot sets (B, L, H, W), grids (H, W, 2), outputs (B, H, W, 2), channel-first FNO
-interiors (B, C, H, W)), so the parity tests compare like with like.
+(snapshot sets (B, L, N) or (B, L, H, W), grids (N, 1) or (H, W, 2), outputs
+(B, N, F) or (B, H, W, 2), channel-first FNO interiors (B, C, N) or (B, C, H, W)), so
+the parity tests compare like with like.
 
-The FNO2d layer runs through a hand-written CUDA kernel (``csrc/fno2d_layer.cu``) on a
-CUDA tensor, and through its plain PyTorch version only for a tensor on the CPU.
+The FNO1d and FNO2d layers run through hand-written CUDA kernels (``csrc/fno1d_layer.cu``,
+``csrc/fno2d_layer.cu``) on a CUDA tensor, and through their plain PyTorch versions only
+for a tensor on the CPU.
 This package never imports JAX or anything of ``blindno``.
 """
 from __future__ import annotations

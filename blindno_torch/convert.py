@@ -1,14 +1,19 @@
-"""Flax parameter trees to PyTorch state dicts for the port's 2-D NIO model.
+"""Flax parameter trees to PyTorch state dicts for the port's NIO models.
 
 ``from_flax(params, batch_stats)`` takes the nested dicts of numpy arrays that the JAX
 package's checkpoints hold and returns the state dict of
-:class:`blindno_torch.models.nio2d.NIOFP2D`:
+:class:`blindno_torch.models.nio2d.NIOFP2D`, :class:`blindno_torch.models.nio1d.NIOFP1D`
+or :class:`blindno_torch.models.nio1d.NIOFNO1D`:
 
-- conv kernels go from (kh, kw, cin, cout) to (cout, cin, kh, kw);
+- conv kernels go from (*window, cin, cout) to (cout, cin, *window);
 - dense kernels (also the 1x1 ``PointwiseConv`` and the fusion map) from (in, out) to
   (out, in);
 - BatchNorm scale/bias/mean/var become weight/bias/running_mean/running_var;
-- spectral ``weights_re`` / ``weights_im`` stay (Cin, Cout, 2*m1, m2) planes.
+- spectral ``weights_re`` / ``weights_im`` stay (Cin, Cout, modes) or
+  (Cin, Cout, 2*m1, m2) planes;
+- ``FNO1d_k`` / ``FNO2d_k`` become ``heads.k``, except in the FNO-branch model, whose
+  tree has a fusion map but no DeepONet: there ``FNO1d_0`` is the ``branch`` and
+  ``FNO1d_k`` becomes ``heads.{k-1}``.
 
 Every flax leaf must map to one torch key and every torch module must receive all of
 its tensors: a left-over or missing key raises ``KeyError``.
@@ -22,21 +27,22 @@ import torch
 
 # flax module path -> (torch module prefix, kind); first full match wins
 _RULES = [
-    (r"Encoder2D_0/ConvBlock_(\d+)/TorchConv_0/Conv_0", "deeponet.branch.blocks.{0}.conv", "conv"),
-    (r"Encoder2D_0/ConvBlock_(\d+)/TorchBatchNorm_0/BatchNorm_0", "deeponet.branch.blocks.{0}.bn", "bn"),
-    (r"Encoder2D_0/TorchDense_0/Dense_0", "deeponet.branch.fc", "dense"),
+    (r"Encoder[12]D_0/ConvBlock_(\d+)/TorchConv_0/Conv_0", "deeponet.branch.blocks.{0}.conv", "conv"),
+    (r"Encoder[12]D_0/ConvBlock_(\d+)/TorchBatchNorm_0/BatchNorm_0", "deeponet.branch.blocks.{0}.bn", "bn"),
+    (r"Encoder[12]D_0/TorchDense_0/Dense_0", "deeponet.branch.fc", "dense"),
     (r"FFN_0/Dense_(\d+)", "deeponet.trunk.layers.{0}", "dense"),
     (r"FFN_0/TorchBatchNorm_(\d+)/BatchNorm_0", "deeponet.trunk.norms.{0}", "bn"),
     (r"DeepOnetNoBias_0", "deeponet", "scalar"),
     (r"MeanFieldFusion_0", "fusion", "dense"),
-    (r"FNO2d_(\d+)/TorchDense_([012])/Dense_0", "heads.{0}.fc{1}", "dense"),
-    (r"FNO2d_(\d+)/SpectralConv2d_(\d+)", "heads.{0}.spectral.{1}", "spectral"),
-    (r"FNO2d_(\d+)/PointwiseConv_(\d+)", "heads.{0}.pointwise.{1}", "dense"),
+    (r"FNO[12]d_(\d+)/TorchDense_([012])/Dense_0", "heads.{0}.fc{1}", "dense"),
+    (r"FNO[12]d_(\d+)/SpectralConv[12]d_(\d+)", "heads.{0}.spectral.{1}", "spectral"),
+    (r"FNO[12]d_(\d+)/PointwiseConv_(\d+)", "heads.{0}.pointwise.{1}", "dense"),
 ]
 
 # kind -> {flax leaf (in params, or in batch_stats for "stats:"): (torch name, transform)}
 _KINDS = {
-    "conv": {"kernel": ("weight", lambda a: a.transpose(3, 2, 0, 1)), "bias": ("bias", None)},
+    "conv": {"kernel": ("weight", lambda a: a.transpose(a.ndim - 1, a.ndim - 2, *range(a.ndim - 2))),
+             "bias": ("bias", None)},
     "dense": {"kernel": ("weight", lambda a: a.T), "bias": ("bias", None)},
     "bn": {"scale": ("weight", None), "bias": ("bias", None),
            "stats:mean": ("running_mean", None), "stats:var": ("running_var", None)},
@@ -62,8 +68,18 @@ def _match(module_path):
     raise KeyError(f"flax module {module_path!r} has no torch counterpart")
 
 
+def _fno_branch_names(key):
+    """The FNO-branch model's names: heads.0 is its branch, heads.k its head k-1."""
+    m = re.match(r"heads\.(\d+)\.", key)
+    if not m:
+        return key
+    k = int(m[1])
+    return ("branch." if k == 0 else f"heads.{k - 1}.") + key[m.end():]
+
+
 def from_flax(params, batch_stats) -> dict:
-    """Nested dicts of numpy arrays -> a ``NIOFP2D`` state dict of float32 tensors."""
+    """Nested dicts of numpy arrays -> a state dict of float32 tensors for the model whose
+    flax tree this is (see the module note)."""
     groups = _groups(params, "", {})
     _groups(batch_stats or {}, "stats:", groups)
     state = {}
@@ -79,4 +95,6 @@ def from_flax(params, batch_stats) -> dict:
             state[f"{prefix}.{name}"] = torch.tensor(fn(a) if fn else a)
         if kind == "bn":
             state[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+    if "MeanFieldFusion_0" in params and "DeepOnetNoBias_0" not in params:
+        state = {_fno_branch_names(k): v for k, v in state.items()}
     return state

@@ -43,13 +43,17 @@
 
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
+
+using blindno::allow_smem;
+using blindno::kMaxDevices;
+using blindno::kMaxSmem;
 
 constexpr int kThreads = 256;
 constexpr int kModeChunk = 8;    // stage A: kept W-frequencies per block
 constexpr int kRowChunk = 16;    // stage B: output rows per block
-constexpr size_t kMaxSmem = 232448;  // what one H100 block may use
-constexpr size_t kDefaultSmem = 48 * 1024;
 
 // Stage A: x[b, c] (H, W) -> spectrum[b, c] (K, m2) columns [m0, m0 + mc).
 __global__ void __launch_bounds__(kThreads) forward_transform(
@@ -176,20 +180,6 @@ __global__ void __launch_bounds__(kThreads) inverse_transform(
   }
 }
 
-constexpr int kMaxDevices = 64;
-
-// Raise the kernel's dynamic shared-memory limit to the most a block may use, once per
-// kernel and device (the attribute is the device's, and setting it costs a host call).
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes, int device) {
-  static bool raised[kMaxDevices] = {};
-  if (bytes <= kDefaultSmem || raised[device]) return cudaSuccess;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(kMaxSmem));
-  if (err == cudaSuccess) raised[device] = true;
-  return err;
-}
-
 template <int kEpilogue>
 cudaError_t launch_inverse(dim3 grid, size_t smem, int device, cudaStream_t stream,
                            const float* spec_r, const float* spec_i, const float* wr,
@@ -197,7 +187,8 @@ cudaError_t launch_inverse(dim3 grid, size_t smem, int device, cudaStream_t stre
                            const float* gyre, const float* gyim, const float* x,
                            const float* pk, int pk_si, int pk_so, const float* pb, float* out,
                            int Cin, int Cout, int H, int W, int K, int m2) {
-  cudaError_t err = allow_smem(inverse_transform<kEpilogue>, smem, device);
+  static bool raised[kMaxDevices] = {};
+  cudaError_t err = allow_smem(inverse_transform<kEpilogue>, smem, device, raised);
   if (err != cudaSuccess) return err;
   inverse_transform<kEpilogue><<<grid, kThreads, smem, stream>>>(
       spec_r, spec_i, wr, wi, gxre, gxim, gyre, gyim, x, pk, pk_si, pk_so, pb, out,
@@ -220,7 +211,8 @@ cudaError_t launch_layer(const float* x, const float* fyre, const float* fyim,
   float* spec_r = spec;
   float* spec_i = spec + size_t(B) * Cin * K * m2;
 
-  cudaError_t err = allow_smem(forward_transform, smem_a, device);
+  static bool raised[kMaxDevices] = {};
+  cudaError_t err = allow_smem(forward_transform, smem_a, device, raised);
   if (err != cudaSuccess) return err;
   const dim3 grid_a(B * Cin, (m2 + kModeChunk - 1) / kModeChunk);
   forward_transform<<<grid_a, kThreads, smem_a, s>>>(x, fyre, fyim, fxre, fxim, spec_r,
@@ -248,7 +240,8 @@ extern "C" {
 // pointwise term and bias, 2 also applies the exact gelu (fno2d_layer). `spec` is
 // caller-allocated scratch of 2 * B * Cin * 2*m1 * m2 floats (real plane, then
 // imaginary). The launches go to `device` on `stream`; the calling thread's current
-// device is the same on return. Returns the CUDA error code (0 on success).
+// device is the same on return. Returns the CUDA error code (0 on success; the text is
+// blindno_error_string's).
 int fno2d_layer_forward(const float* x, const float* fyre, const float* fyim,
                         const float* fxre, const float* fxim, const float* gxre,
                         const float* gxim, const float* gyre, const float* gyim,
@@ -256,24 +249,12 @@ int fno2d_layer_forward(const float* x, const float* fyre, const float* fyim,
                         int pk_so, const float* pb, float* spec, float* out, int B, int Cin,
                         int Cout, int H, int W, int m1, int m2, int epilogue, int device,
                         void* stream) {
-  if (epilogue < 0 || epilogue > 2 || device < 0 || device >= kMaxDevices)
-    return cudaErrorInvalidValue;
-  int previous = 0;
-  cudaError_t err = cudaGetDevice(&previous);
-  if (err == cudaSuccess && previous != device) err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  err = launch_layer(x, fyre, fyim, fxre, fxim, gxre, gxim, gyre, gyim, wr, wi, pk, pk_si,
-                     pk_so, pb, spec, out, B, Cin, Cout, H, W, m1, m2, epilogue, device,
-                     static_cast<cudaStream_t>(stream));
-  if (previous != device) {
-    const cudaError_t restored = cudaSetDevice(previous);
-    if (err == cudaSuccess) err = restored;
-  }
-  return err;
-}
-
-const char* fno2d_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  if (epilogue < 0 || epilogue > 2) return cudaErrorInvalidValue;
+  return blindno::on_device(device, [&] {
+    return launch_layer(x, fyre, fyim, fxre, fxim, gxre, gxim, gyre, gyim, wr, wi, pk,
+                        pk_si, pk_so, pb, spec, out, B, Cin, Cout, H, W, m1, m2, epilogue,
+                        device, static_cast<cudaStream_t>(stream));
+  });
 }
 
 }  // extern "C"

@@ -9,7 +9,8 @@ from blindno_torch import default_device
 
 
 def predict_fields(model, inputs_norm, grid, batch: int = 16, device=None):
-    """inputs_norm (M, L, *grid) and grid (*grid, 2), numpy -> (M, *grid, F) numpy.
+    """inputs_norm (M, L, *spatial) and grid (*spatial, d), numpy -> (M, *spatial, F)
+    numpy: the grid is (N, 1) for the 1-D models and (H, W, 2) for the 2-D one.
 
     Runs on ``device`` (CUDA unless the caller passes another), where the model must
     already live, under ``torch.inference_mode``.

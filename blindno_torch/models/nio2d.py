@@ -8,6 +8,7 @@ import torch
 from torch import nn
 
 from blindno_torch import default_device
+from blindno_torch.models import check_eval_only
 from blindno_torch.nn.cnn import Encoder2D
 from blindno_torch.nn.deeponet import FFN, DeepOnetNoBias
 from blindno_torch.nn.fno import FNO2d
@@ -36,10 +37,7 @@ class NIOFP2D(nn.Module):
         self.to(default_device(device))
 
     def forward(self, x, grid, *, training: bool = False):
-        if training or self.training:
-            raise NotImplementedError("NIOFP2D runs in eval mode only; training (set "
-                                      "subsampling, batch-statistics BN, the backward) "
-                                      "comes with the training slice")
+        check_eval_only("NIOFP2D", training, self)
         b, l, nx, ny = x.shape
         fields = self.deeponet(x, grid.reshape(-1, 2)).reshape(b, l, nx, ny)
         grid_feats = grid.unsqueeze(0).expand(b, *grid.shape)

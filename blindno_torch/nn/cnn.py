@@ -1,27 +1,57 @@
-"""The per-snapshot 2-D CNN branch encoder (counterpart of ``blindno/nn/cnn.py``).
+"""The per-snapshot CNN branch encoders (counterpart of ``blindno/nn/cnn.py``).
 
-PyTorch's native channel-first layout; the kernel, stride and padding schedule is the
-JAX package's (``2d_FPE/Baselines.py:186-249`` in the reference).
+PyTorch's native channel-first layout; the kernel, stride and padding schedules are the
+JAX package's (``1d_FPE/Baselines.py:254-287`` and ``2d_FPE/Baselines.py:186-249`` in
+the reference).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from blindno_torch.nn.torch_layers import conv2d, leaky_relu, linear
+from blindno_torch.nn.torch_layers import conv1d, conv2d, leaky_relu, linear
+
+ENC_FPE80 = ((5, 1), (5, 0), (4, 0))           # 1-D FPE, N=80
+ENC_GPE128 = ((5, 1), (5, 0), (7, 0), (4, 0))  # 1-D GPE, N=128
 
 
 class ConvBlock(nn.Module):
-    """Conv2d + BatchNorm2d + LeakyReLU(0.2)."""
+    """Conv + BatchNorm + LeakyReLU(0.2), in 1-D (``ndim=1``) or 2-D."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size, stride, padding,
-                 generator: torch.Generator):
+                 generator: torch.Generator, ndim: int = 2):
         super().__init__()
-        self.conv = conv2d(in_channels, out_channels, kernel_size, stride, padding, generator)
-        self.bn = nn.BatchNorm2d(out_channels)
+        conv, bn = (conv1d, nn.BatchNorm1d) if ndim == 1 else (conv2d, nn.BatchNorm2d)
+        self.conv = conv(in_channels, out_channels, kernel_size, stride, padding, generator)
+        self.bn = bn(out_channels)
 
     def forward(self, x):
         return leaky_relu(self.bn(self.conv(x)), 0.2)
+
+
+class Encoder1D(nn.Module):
+    """(B, L, N) -> (B, L, output_dim). Three stride-2 blocks (64, 128, 256 channels),
+    then ``final_convs`` = ((kernel, padding), ...) at 256 channels, chosen so the grid
+    collapses to one point: :data:`ENC_FPE80` for N=80, :data:`ENC_GPE128` for N=128."""
+
+    def __init__(self, output_dim: int, final_convs=ENC_FPE80,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        g = torch.Generator().manual_seed(0) if generator is None else generator
+        d1, d2, d3 = 64, 128, 256
+        # (in, out, kernel, stride, padding) of the blocks
+        schedule = [(1, d1, 3, 2, 1), (d1, d2, 3, 2, 1), (d2, d3, 3, 2, 1)]
+        schedule += [(d3, d3, k, 1, p) for k, p in final_convs]
+        self.blocks = nn.Sequential(*(ConvBlock(*spec, generator=g, ndim=1) for spec in schedule))
+        self.out_features = d3
+        self.fc = linear(d3, output_dim, g)
+
+    def forward(self, x):
+        b, l, n = x.shape
+        h = self.blocks(x.reshape(b * l, 1, n)).reshape(b, l, -1)
+        if h.shape[-1] != self.out_features:
+            raise ValueError(f"Encoder1D did not collapse the grid: got {h.shape[-1]} features")
+        return self.fc(h)
 
 
 class Encoder2D(nn.Module):

@@ -1,9 +1,10 @@
-"""The 2-D Fourier Neural Operator (counterpart of ``blindno/nn/fno.py``).
+"""The 1-D and 2-D Fourier Neural Operators (counterpart of ``blindno/nn/fno.py``).
 
 lift -> n x (spectral conv + 1x1 conv, gelu between layers) -> project, with 1/4 domain
-padding. Each layer runs through the CUDA kernel ``fno2d_layer_cuda``;
-``SpectralConv2d`` called on its own runs ``spectral_conv2d_cuda``. On a CPU tensor both
-take the kernels' plain versions.
+padding. Each layer runs through the CUDA kernel ``fno1d_layer_cuda`` or
+``fno2d_layer_cuda``; ``SpectralConv1d`` and ``SpectralConv2d`` called on their own run
+``spectral_conv1d_cuda`` and ``spectral_conv2d_cuda``. On a CPU tensor all take the
+kernels' plain versions.
 """
 from __future__ import annotations
 
@@ -12,8 +13,27 @@ import torch.nn.functional as F
 from torch import nn
 
 from blindno_torch.nn.torch_layers import gelu, linear
-from blindno_torch.ops.spectral_cuda import fno2d_layer_cuda, spectral_conv2d_cuda
+from blindno_torch.ops.spectral_cuda import (fno1d_layer_cuda, fno2d_layer_cuda,
+                                             spectral_conv1d_cuda, spectral_conv2d_cuda)
 from blindno_torch.utils import torch_init as tinit
+
+
+class SpectralConv1d(nn.Module):
+    """Mode-truncated 1-D Fourier layer; weights (Cin, Cout, modes) as real and imaginary
+    planes, initialised ``U[0, 1) / (Cin * Cout)``. ``dc_half`` halves the DC
+    coefficient before the mix, the reference's 1-D quirk (on by default, as in JAX)."""
+
+    def __init__(self, in_channels: int, out_channels: int, modes: int,
+                 generator: torch.Generator, dc_half: bool = True):
+        super().__init__()
+        shape = (in_channels, out_channels, modes)
+        scale = 1.0 / (in_channels * out_channels)
+        self.dc_half = dc_half
+        self.weights_re = nn.Parameter(tinit.spectral_uniform_(torch.empty(shape), scale, generator))
+        self.weights_im = nn.Parameter(tinit.spectral_uniform_(torch.empty(shape), scale, generator))
+
+    def forward(self, x):
+        return spectral_conv1d_cuda(x, self.weights_re, self.weights_im, self.dc_half)
 
 
 class SpectralConv2d(nn.Module):
@@ -34,13 +54,43 @@ class SpectralConv2d(nn.Module):
 
 class PointwiseConv(nn.Module):
     """The parameters of a layer's 1x1 convolution: ``weight`` (Cout, Cin) and ``bias``,
-    torch Conv init. ``fno2d_layer_cuda`` applies them inside the layer."""
+    torch Conv init. The layer kernels apply them inside the layer."""
 
     def __init__(self, in_channels: int, out_channels: int, generator: torch.Generator):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels))
         self.bias = nn.Parameter(torch.empty(out_channels))
         tinit.torch_default_(self, in_channels, generator)
+
+
+class FNO1d(nn.Module):
+    """(B, N, input_dim) -> (B, N, output_dim)."""
+
+    def __init__(self, modes: int, width: int, n_layers: int, input_dim: int,
+                 output_dim: int = 1, generator: torch.Generator | None = None):
+        super().__init__()
+        g = torch.Generator().manual_seed(0) if generator is None else generator
+        self.fc0 = linear(input_dim, width, g)
+        self.spectral = nn.ModuleList(
+            SpectralConv1d(width, width, modes, g) for _ in range(n_layers))
+        self.pointwise = nn.ModuleList(PointwiseConv(width, width, g) for _ in range(n_layers))
+        self.fc1 = linear(width, 128, g)
+        self.fc2 = linear(128, output_dim, g)
+
+    def lift(self, x):
+        """(B, N, input_dim) -> the first layer's input (B, width, N + N/4)."""
+        x = self.fc0(x).permute(0, 2, 1)
+        return F.pad(x, (0, int(round(x.shape[-1] * 0.25)))).contiguous()
+
+    def forward(self, x):
+        n = x.shape[1]
+        x = self.lift(x)
+        last = len(self.spectral) - 1
+        for k, (sc, pc) in enumerate(zip(self.spectral, self.pointwise)):
+            x = fno1d_layer_cuda(x, sc.weights_re, sc.weights_im, pc.weight.t(), pc.bias,
+                                 dc_half=sc.dc_half, apply_act=k != last)
+        x = x[..., :n].permute(0, 2, 1)
+        return self.fc2(gelu(self.fc1(x)))
 
 
 class FNO2d(nn.Module):

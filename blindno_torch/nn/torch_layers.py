@@ -30,6 +30,14 @@ def linear(in_features: int, out_features: int, generator, bias: bool = True) ->
     return tinit.torch_default_(m, in_features, generator)
 
 
+def conv1d(in_channels: int, out_channels: int, kernel_size: int, stride: int, padding: int,
+           generator) -> nn.Conv1d:
+    """nn.Conv1d (symmetric integer padding) with torch's default init."""
+    m = skip_init(nn.Conv1d, in_channels, out_channels, kernel_size, stride=stride,
+                  padding=padding)
+    return tinit.torch_default_(m, in_channels * m.kernel_size[0], generator)
+
+
 def conv2d(in_channels: int, out_channels: int, kernel_size, stride, padding,
            generator) -> nn.Conv2d:
     """nn.Conv2d (symmetric integer padding) with torch's default init."""

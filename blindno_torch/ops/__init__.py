@@ -1,1 +1,2 @@
-"""Spectral ops: truncated DFT matrices, the plain FNO2d chain, and its CUDA kernel."""
+"""Spectral ops: truncated DFT matrices, the plain FNO1d and FNO2d chains, and their CUDA
+kernels."""

@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
 The sources under ``blindno_torch/csrc/`` have a plain C interface and include no
-PyTorch header, so one ``nvcc`` call builds them in seconds. The library goes into
-``blindno_torch/_build/<hash of sources and flags>/`` at first use and is reused while
+PyTorch header, so each compiles in seconds. One ``nvcc`` per source runs at the same
+time, and one more links the objects into a single shared library. The library goes
+into ``blindno_torch/_build/<hash of csrc and flags>/`` at first use and is reused while
 the sources are unchanged. A missing ``nvcc`` or a failed build raises: there is no
 fallback to the plain PyTorch versions.
 """
@@ -17,12 +18,16 @@ import subprocess
 from pathlib import Path
 
 PKG = Path(__file__).resolve().parent.parent
-SOURCES = (PKG / "csrc" / "fno2d_layer.cu",)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+CSRC = PKG / "csrc"
+SOURCES = tuple(CSRC / name for name in ("common.cu", "fno1d_layer.cu", "fno2d_layer.cu"))
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 600
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# fno1d_layer_forward(x, wr, wi, pk, pk_si, pk_so, pb, out, B, Cin, Cout, N, M, dc_half,
+#                     epilogue, device, stream)
+FNO1D_ARGTYPES = [_P] * 4 + [_I, _I] + [_P] * 2 + [_I] * 8 + [_P]
 # fno2d_layer_forward(x, fyre, fyim, fxre, fxim, gxre, gxim, gyre, gyim, wr, wi,
 #                     pk, pk_si, pk_so, pb, spec, out, B, Cin, Cout, H, W, m1, m2,
 #                     epilogue, device, stream)
@@ -41,10 +46,25 @@ def find_nvcc() -> str:
 
 def build_dir() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in sorted(p for p in CSRC.iterdir() if p.is_file()):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return PKG / "_build" / h.hexdigest()[:16]
+
+
+def _run_all(cmds):
+    """Run the commands at the same time; return their (returncode, output) in order.
+    Every process is gone when this returns, also on a timeout or an interrupt."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    try:
+        outputs = [p.communicate(timeout=BUILD_TIMEOUT_S)[0] for p in procs]
+        return [(p.returncode, text) for p, text in zip(procs, outputs)]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
 
 
 def build() -> Path:
@@ -54,13 +74,23 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"tmp.{os.getpid()}.so"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=BUILD_TIMEOUT_S)
-    (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{proc.stderr[-4000:]}")
+    nvcc, tag = find_nvcc(), os.getpid()
+    objs = [out_dir / f"{src.stem}.{tag}.o" for src in SOURCES]
+    tmp = out_dir / f"tmp.{tag}.so"
+    steps = [[[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(SOURCES, objs)],
+             [[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)]]]
+    log = []
+    for cmds in steps:
+        results = _run_all(cmds)
+        log += [" ".join(cmd) + "\n" + text for cmd, (_, text) in zip(cmds, results)]
+        (out_dir / "build.log").write_text("\n".join(log))
+        failed = [(cmd, rc, text) for cmd, (rc, text) in zip(cmds, results) if rc != 0]
+        if failed:
+            cmd, rc, text = failed[0]
+            raise RuntimeError(f"nvcc failed (exit {rc}): {' '.join(cmd)}\n{text[-4000:]}")
     os.replace(tmp, lib)
+    for obj in objs:
+        obj.unlink()
     return lib
 
 
@@ -68,8 +98,10 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use, with every signature declared."""
     lib = ctypes.CDLL(str(build()))
+    lib.fno1d_layer_forward.argtypes = FNO1D_ARGTYPES
+    lib.fno1d_layer_forward.restype = ctypes.c_int
     lib.fno2d_layer_forward.argtypes = FNO2D_ARGTYPES
     lib.fno2d_layer_forward.restype = ctypes.c_int
-    lib.fno2d_error_string.argtypes = [ctypes.c_int]
-    lib.fno2d_error_string.restype = ctypes.c_char_p
+    lib.blindno_error_string.argtypes = [ctypes.c_int]
+    lib.blindno_error_string.restype = ctypes.c_char_p
     return lib

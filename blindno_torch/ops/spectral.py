@@ -1,19 +1,52 @@
 """Spectral convolution as a truncated-DFT product chain (counterpart of
 ``blindno/ops/spectral.py``).
 
-- :func:`spectral_conv2d` is the plain PyTorch version of the CUDA kernel
-  ``spectral_conv2d_cuda`` (:mod:`blindno_torch.ops.spectral_cuda`).
-- :func:`spectral_conv2d_fft` restates the same operator with ``torch.fft``; tests and
-  ``chip_smoke.py`` use it as a reference and a yardstick, the port's path never does.
+- :func:`spectral_conv1d` and :func:`spectral_conv2d` are the plain PyTorch versions of
+  the CUDA kernels ``spectral_conv1d_cuda`` and ``spectral_conv2d_cuda``
+  (:mod:`blindno_torch.ops.spectral_cuda`).
+- :func:`spectral_conv1d_fft` and :func:`spectral_conv2d_fft` restate the same operators
+  with ``torch.fft``; tests and ``chip_smoke.py`` use them as references and
+  yardsticks, the port's path never does.
 
-Weights are real and imaginary planes ``wr, wi`` of shape (Cin, Cout, 2*m1, m2), the
-+/- row blocks stacked along axis 2 (rows [0, m1) then [H-m1, H)).
+Weights are real and imaginary planes ``wr, wi``: (Cin, Cout, modes) in 1-D, and
+(Cin, Cout, 2*m1, m2) in 2-D with the +/- row blocks stacked along axis 2 (rows [0, m1)
+then [H-m1, H)).
 """
 from __future__ import annotations
 
 import torch
 
 from blindno_torch.ops.dft import dft_forward_pm, dft_inverse_pm, rdft_forward, rdft_inverse
+
+
+def dft_matrices_1d(n: int, modes: int, dc_half: bool, dtype, device):
+    """The four matrices of the 1-D chain: forward (n, modes) with the DC column halved
+    when ``dc_half``, and inverse (modes, n), each as (re, im)."""
+    return (*rdft_forward(n, modes, dtype, device, dc_half), *rdft_inverse(n, modes, dtype, device))
+
+
+def spectral_conv1d(x, wr, wi, dc_half: bool = True):
+    """x: (B, Cin, N) real; wr/wi: (Cin, Cout, modes). Returns (B, Cout, N).
+
+    ``dc_half`` halves the DC coefficient before the mix, the reference's 1-D quirk."""
+    fre, fim, gre, gim = dft_matrices_1d(x.shape[-1], wr.shape[-1], dc_half, x.dtype, x.device)
+    ein = torch.einsum
+    xr, xi = ein("bcn,nk->bck", x, fre), ein("bcn,nk->bck", x, fim)
+    outr = ein("bik,iok->bok", xr, wr) - ein("bik,iok->bok", xi, wi)
+    outi = ein("bik,iok->bok", xr, wi) + ein("bik,iok->bok", xi, wr)
+    return ein("bok,kn->bon", outr, gre) + ein("bok,kn->bon", outi, gim)
+
+
+def spectral_conv1d_fft(x, wr, wi, dc_half: bool = True):
+    """``torch.fft`` restatement of :func:`spectral_conv1d`: rfft, the DC halved, the
+    first ``modes`` coefficients mixed, irfft."""
+    n, modes = x.shape[-1], wr.shape[-1]
+    xf = torch.fft.rfft(x)[..., :modes]
+    if dc_half:
+        xf = torch.cat([xf[..., :1] * 0.5, xf[..., 1:]], dim=-1)
+    full = torch.zeros(x.shape[0], wr.shape[1], n // 2 + 1, dtype=xf.dtype, device=x.device)
+    full[..., :modes] = torch.einsum("bik,iok->bok", xf, torch.complex(wr, wi))
+    return torch.fft.irfft(full, n=n)
 
 
 def dft_matrices_2d(h: int, w: int, m1: int, m2: int, dtype, device):

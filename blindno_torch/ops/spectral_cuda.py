@@ -1,14 +1,16 @@
-"""The FNO2d layer's CUDA kernel and its wrappers (counterpart of
-``blindno/ops/spectral_pallas.py``'s 2-D kernels).
+"""The FNO layers' CUDA kernels and their wrappers (counterpart of
+``blindno/ops/spectral_pallas.py``).
 
-- :func:`fno2d_layer_cuda` replaces ``fno2d_layer_pallas``: spectral conv, pointwise
-  term, bias and optional exact gelu in one kernel (``csrc/fno2d_layer.cu``).
-- :func:`spectral_conv2d_cuda` replaces ``spectral_conv2d_pallas``: the same kernel
-  with the epilogue switched off.
+- :func:`fno1d_layer_cuda` replaces ``fno1d_layer_pallas`` and :func:`fno2d_layer_cuda`
+  replaces ``fno2d_layer_pallas``: spectral conv, pointwise term, bias and optional
+  exact gelu in one kernel (``csrc/fno1d_layer.cu``, ``csrc/fno2d_layer.cu``).
+- :func:`spectral_conv1d_cuda` and :func:`spectral_conv2d_cuda` replace
+  ``spectral_conv1d_pallas`` and ``spectral_conv2d_pallas``: the same kernels with the
+  epilogue switched off.
 
 A wrapper given a CPU tensor runs the kernel's plain PyTorch version; given a CUDA
 tensor it launches the kernel or raises. Each wrapper counts its kernel launches in
-its ``launches`` attribute. Both are forward only: they raise when autograd would need
+its ``launches`` attribute. All are forward only: they raise when autograd would need
 a gradient through them.
 """
 from __future__ import annotations
@@ -16,8 +18,8 @@ from __future__ import annotations
 import torch
 
 from blindno_torch.ops import _build
-from blindno_torch.ops.fno_layer import fno2d_layer_plain
-from blindno_torch.ops.spectral import dft_matrices_2d, spectral_conv2d
+from blindno_torch.ops.fno_layer import fno1d_layer_plain, fno2d_layer_plain
+from blindno_torch.ops.spectral import dft_matrices_2d, spectral_conv1d, spectral_conv2d
 
 _INT_MAX = 2**31 - 1
 
@@ -29,7 +31,8 @@ def _forward_only(name, *tensors):
                            "torch.inference_mode()")
 
 
-def _check(name, x, wr, wi, pk, pb):
+def _check_tensors(name, x, wr, wi, pk, pb):
+    """Device, dtype and contiguity; ``pk`` may have any strides."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: the kernel takes CUDA tensors, got {x.device}")
     named = {"x": x, "wr": wr, "wi": wi, "pk": pk, "pb": pb}
@@ -41,6 +44,31 @@ def _check(name, x, wr, wi, pk, pb):
                              f"got {t.dtype} on {t.device}")
         if k != "pk" and not t.is_contiguous():
             raise ValueError(f"{name}: {k} must be contiguous")
+
+
+def _check_pointwise(name, c, cout, pk, pb):
+    if pk is not None and (pk.shape != (c, cout) or pb.shape != (cout,)):
+        raise ValueError(f"{name}: want pk ({c}, {cout}) and pb ({cout},), "
+                         f"got {tuple(pk.shape)}, {tuple(pb.shape)}")
+
+
+def _check_indexing(name, *numels):
+    if max(numels) > _INT_MAX:
+        raise ValueError(f"{name}: tensors too large for the kernel's 32-bit indexing")
+
+
+def _raise_on_error(lib, name, err):
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed: CUDA error {err} "
+                           f"({lib.blindno_error_string(err).decode()})")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _check2d(name, x, wr, wi, pk, pb):
+    _check_tensors(name, x, wr, wi, pk, pb)
     if x.dim() != 4 or wr.dim() != 4 or wr.shape != wi.shape:
         raise ValueError(f"{name}: want x (B, C, H, W) and wr, wi (C, Cout, 2*m1, m2) of one "
                          f"shape, got {tuple(x.shape)}, {tuple(wr.shape)}, {tuple(wi.shape)}")
@@ -48,30 +76,70 @@ def _check(name, x, wr, wi, pk, pb):
     if wr.shape[0] != c or wr.shape[2] % 2 or wr.shape[2] == 0 or wr.shape[3] == 0:
         raise ValueError(f"{name}: weights {tuple(wr.shape)} do not fit x {tuple(x.shape)}")
     cout = wr.shape[1]
-    if pk is not None and (pk.shape != (c, cout) or pb.shape != (cout,)):
-        raise ValueError(f"{name}: want pk ({c}, {cout}) and pb ({cout},), "
-                         f"got {tuple(pk.shape)}, {tuple(pb.shape)}")
-    if max(x.numel(), b * cout * h * w, wr.numel(), 2 * b * c * wr.shape[2] * wr.shape[3]) > _INT_MAX:
-        raise ValueError(f"{name}: tensors too large for the kernel's 32-bit indexing")
+    _check_pointwise(name, c, cout, pk, pb)
+    _check_indexing(name, x.numel(), b * cout * h * w, wr.numel(),
+                    2 * b * c * wr.shape[2] * wr.shape[3])
 
 
-def _launch(name, x, wr, wi, pk, pb, epilogue):
-    _check(name, x, wr, wi, pk, pb)
+def _launch2d(name, x, wr, wi, pk, pb, epilogue):
+    _check2d(name, x, wr, wi, pk, pb)
     lib = _build.library()
     b, c, h, w = x.shape
     cout, k, m2 = wr.shape[1:]
     mats = dft_matrices_2d(h, w, k // 2, m2, x.dtype, x.device)
     spec = torch.empty((2, b, c, k, m2), dtype=x.dtype, device=x.device)
     out = torch.empty((b, cout, h, w), dtype=x.dtype, device=x.device)
-    ptr = lambda t: None if t is None else t.data_ptr()
     pk_si, pk_so = pk.stride() if pk is not None else (0, 0)
     err = lib.fno2d_layer_forward(
-        ptr(x), *map(ptr, mats), ptr(wr), ptr(wi), ptr(pk), pk_si, pk_so, ptr(pb),
-        ptr(spec), ptr(out), b, c, cout, h, w, k // 2, m2, epilogue, x.device.index or 0,
+        _ptr(x), *map(_ptr, mats), _ptr(wr), _ptr(wi), _ptr(pk), pk_si, pk_so, _ptr(pb),
+        _ptr(spec), _ptr(out), b, c, cout, h, w, k // 2, m2, epilogue, x.device.index or 0,
         torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed: CUDA error {err} "
-                           f"({lib.fno2d_error_string(err).decode()})")
+    _raise_on_error(lib, name, err)
+    return out
+
+
+def _launch1d(name, x, wr, wi, pk, pb, dc_half, epilogue):
+    _check_tensors(name, x, wr, wi, pk, pb)
+    if x.dim() != 3 or wr.dim() != 3 or wr.shape != wi.shape:
+        raise ValueError(f"{name}: want x (B, C, N) and wr, wi (C, Cout, modes) of one shape, "
+                         f"got {tuple(x.shape)}, {tuple(wr.shape)}, {tuple(wi.shape)}")
+    b, c, n = x.shape
+    cin, cout, modes = wr.shape
+    if cin != c or c == 0 or not 1 <= modes <= n // 2 + 1:
+        raise ValueError(f"{name}: weights {tuple(wr.shape)} do not fit x {tuple(x.shape)} "
+                         f"(want {c} input channels and 1 <= modes <= N//2+1)")
+    _check_pointwise(name, c, cout, pk, pb)
+    _check_indexing(name, x.numel(), b * cout * n, wr.numel())
+    lib = _build.library()
+    out = torch.empty((b, cout, n), dtype=x.dtype, device=x.device)
+    pk_si, pk_so = pk.stride() if pk is not None else (0, 0)
+    err = lib.fno1d_layer_forward(
+        _ptr(x), _ptr(wr), _ptr(wi), _ptr(pk), pk_si, pk_so, _ptr(pb), _ptr(out), b, c, cout,
+        n, modes, int(dc_half), epilogue, x.device.index or 0,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on_error(lib, name, err)
+    return out
+
+
+def fno1d_layer_cuda(x, wr, wi, pk, pb, dc_half: bool = True, apply_act: bool = True):
+    """One FNO1d layer. x: (B, Cin, N) f32; wr/wi: (Cin, Cout, modes); pk: (Cin, Cout)
+    (any strides); pb: (Cout,). ``dc_half`` halves the DC coefficient before the mix.
+    Returns (B, Cout, N)."""
+    _forward_only("fno1d_layer_cuda", x, wr, wi, pk, pb)
+    if x.device.type == "cpu":
+        return fno1d_layer_plain(x, wr, wi, pk, pb, dc_half, apply_act)
+    out = _launch1d("fno1d_layer_cuda", x, wr, wi, pk, pb, dc_half, 2 if apply_act else 1)
+    fno1d_layer_cuda.launches += 1
+    return out
+
+
+def spectral_conv1d_cuda(x, wr, wi, dc_half: bool = True):
+    """Spectral convolution alone. x: (B, Cin, N) f32; wr/wi: (Cin, Cout, modes)."""
+    _forward_only("spectral_conv1d_cuda", x, wr, wi)
+    if x.device.type == "cpu":
+        return spectral_conv1d(x, wr, wi, dc_half)
+    out = _launch1d("spectral_conv1d_cuda", x, wr, wi, None, None, dc_half, 0)
+    spectral_conv1d_cuda.launches += 1
     return out
 
 
@@ -81,7 +149,7 @@ def fno2d_layer_cuda(x, wr, wi, pk, pb, apply_act: bool = True):
     _forward_only("fno2d_layer_cuda", x, wr, wi, pk, pb)
     if x.device.type == "cpu":
         return fno2d_layer_plain(x, wr, wi, pk, pb, apply_act)
-    out = _launch("fno2d_layer_cuda", x, wr, wi, pk, pb, 2 if apply_act else 1)
+    out = _launch2d("fno2d_layer_cuda", x, wr, wi, pk, pb, 2 if apply_act else 1)
     fno2d_layer_cuda.launches += 1
     return out
 
@@ -91,10 +159,12 @@ def spectral_conv2d_cuda(x, wr, wi):
     _forward_only("spectral_conv2d_cuda", x, wr, wi)
     if x.device.type == "cpu":
         return spectral_conv2d(x, wr, wi)
-    out = _launch("spectral_conv2d_cuda", x, wr, wi, None, None, 0)
+    out = _launch2d("spectral_conv2d_cuda", x, wr, wi, None, None, 0)
     spectral_conv2d_cuda.launches += 1
     return out
 
 
+fno1d_layer_cuda.launches = 0
+spectral_conv1d_cuda.launches = 0
 fno2d_layer_cuda.launches = 0
 spectral_conv2d_cuda.launches = 0

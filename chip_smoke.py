@@ -4,21 +4,28 @@
 Run from the repository root with no arguments: ``python3 chip_smoke.py``. It
 
 1. reads the card (``torch.cuda`` and ``nvidia-smi``);
-2. builds the FNO2d-layer kernel from ``blindno_torch/csrc`` with nvcc (timed);
-3. holds each kernel against its plain PyTorch version at the main serving shape and a
-   ragged one, and times kernel, plain version and a ``torch.fft`` restatement on the
-   device (each replayed from a CUDA graph, so host launch costs drop out), the wrapper's
-   host cost per call, and the kernel's two stages in a ``torch.profiler`` trace;
+2. builds the FNO-layer kernels from ``blindno_torch/csrc`` with nvcc (one process per
+   source, all at once; timed);
+3. holds each kernel against its plain PyTorch version at the serving paths' shapes
+   and a ragged one, and times kernel, plain version and a ``torch.fft`` restatement on
+   the device (each replayed from a CUDA graph, so host launch costs drop out), the
+   wrapper's host cost per call, and the kernels' stages in a ``torch.profiler`` trace;
 4. serves the fpe2d NIO model at the width of ``bench.py`` (seeded weights, calibrated
    BatchNorm) through ``predict_fields`` on 8 sets of 100 snapshots of a 61x61 grid,
    counts the kernel launches, checks the result against the CPU plain path, and times
-   it; then drives the served heads' ``SpectralConv2d`` modules (the spectral-conv
+   it; then drives the served heads' ``SpectralConv2d`` modules (the 2-D spectral-conv
    kernel) on the lifted fields of one batch and checks them against the CPU;
-5. prints one JSON line per phase, the nvidia-smi line, the kernels line, and last
+5. serves the fpe1d NIO models (``NIOFP1D`` and the FNO-branch ``NIOFNO1D`` at the
+   suite's width) the same way on 64 sets of 100 snapshots of 80 points, batch 16, and
+   drives the ``NIOFP1D`` heads' ``SpectralConv1d`` modules (the 1-D spectral-conv
+   kernel) on one batch;
+6. prints one JSON line per phase, the nvidia-smi line, the kernels line, and last
    ``{"ok": true, "device": {...}}``.
 
-Any failed check raises, and the script exits non-zero without the last line. TF32 is
-off for matmul and cuDNN throughout, so every comparison is in full float32.
+Every path runs with all four kernels' launch counts set to 0 just before it and read
+just after. Any failed check raises, and the script exits non-zero without the last
+line. TF32 is off for matmul and cuDNN throughout, so every comparison is in full
+float32.
 """
 from __future__ import annotations
 
@@ -34,14 +41,49 @@ import numpy as np
 import torch
 
 KERNEL_TOL = 3e-4   # the 2-D Pallas kernels' tolerance, tests/test_spectral_pallas.py:47,67
-SERVE_TOL = 2e-3    # the 2-D NIO parity tolerance, tests/test_nio2d_torch_parity.py:190
+KERNEL_TOL_1D = 2e-4  # the 1-D Pallas kernels' tolerance, tests/test_spectral_pallas.py:34,59
+SERVE_TOL = 2e-3    # the NIO parity tolerance, tests/test_nio2d_torch_parity.py:190
 MAIN_SHAPE = (4, 12, 76, 76, 32, 32)   # (B, C, H, W, m1, m2) of the serving path's layers
 RAGGED_SHAPE = (3, 5, 40, 36, 7, 9)
+# 1-D (B, C, N, modes, dc_half): the fpe1d heads' layers at batch 16, the FNO-branch
+# model's inner FNO1d over 16 x 100 snapshots, and a ragged shape without DC halving
+HEADS_1D = (16, 30, 100, 15, True)
+BRANCH_1D = (1600, 4, 100, 12, True)
+RAGGED_1D = (3, 5, 37, 7, False)
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): f32 outside the tensor cores, HBM3
 PEAK_F32_FLOP_S = 67e12
 PEAK_BYTES_S = 3.35e12
 SERVE = dict(m=8, l=100, n=61, batch=4, timed_rounds=10)
 MODEL = dict(width=12, modes=32, n_basis=25, neurons=100, fno_layers=3)
+# fpe1d (blindno/suites/registry.py:88-90): 64 sets in batches of 16, the JAX
+# predict_fields default
+SERVE_1D = dict(m=64, l=100, n=80, batch=16, timed_rounds=5)
+MODEL_1D = dict(width=30, modes=15)
+
+
+def kernel_wrappers():
+    from blindno_torch.ops import spectral_cuda as sc
+
+    return {"fno1d_layer": sc.fno1d_layer_cuda, "spectral_conv1d": sc.spectral_conv1d_cuda,
+            "fno2d_layer": sc.fno2d_layer_cuda, "spectral_conv2d": sc.spectral_conv2d_cuda}
+
+
+def counted(fn):
+    """Run ``fn`` with every kernel's launch count set to 0 just before; return the
+    counts just after, and ``fn``'s result."""
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    result = fn()
+    return {name: w.launches for name, w in wrappers.items()}, result
+
+
+def expect_launches(path, counts, **want):
+    """Raise unless ``path`` launched each named kernel the wanted number of times and
+    every other kernel never."""
+    full = {name: want.get(name, 0) for name in counts}
+    if counts != full:
+        raise RuntimeError(f"{path} launched {counts}, want {full}")
 
 
 def emit(phase, **fields):
@@ -123,20 +165,29 @@ def fft_flops(n, real):
 
 
 def layer_bound(shape, epilogue):
-    """Least time for one layer call: the larger of its bytes (inputs read once, output
-    written once) over the memory rate and the least operations that compute it over
-    the f32 peak. The least operations do the truncated transforms as FFTs: the
-    kernel's dense DFT products (``mflop_dense_dft``, reported beside) are its own
-    algorithm, not what the function needs."""
-    b, c, h, w, m1, m2 = shape
-    k = 2 * m1
-    dense = (b * c * h * m2 * w * 4 + b * c * k * m2 * h * 8 + b * c * c * k * m2 * 8
-             + b * c * h * m2 * k * 8 + b * c * h * w * m2 * 4)
-    least = (2 * b * c * h * fft_flops(w, True) + 2 * b * c * m2 * fft_flops(h, False)
-             + b * c * c * k * m2 * 8)
-    floats = 2 * b * c * h * w + 2 * c * c * k * m2
+    """Least time for one layer call, 1-D shape (B, C, N, modes) or 2-D shape
+    (B, C, H, W, m1, m2): the larger of its bytes (inputs read once, output written
+    once) over the memory rate and the least operations that compute it over the f32
+    peak. The least operations do the truncated transforms as FFTs: the kernels' dense
+    DFT products (``mflop_dense_dft``, reported beside) are their own algorithm, not
+    what the function needs."""
+    if len(shape) == 4:
+        b, c, n, m = shape
+        dense = b * c * n * m * 4 + b * c * c * m * 8 + b * c * m * n * 4
+        least = 2 * b * c * fft_flops(n, True) + b * c * c * m * 8
+        floats = 2 * b * c * n + 2 * c * c * m
+        points = b * c * n
+    else:
+        b, c, h, w, m1, m2 = shape
+        k = 2 * m1
+        dense = (b * c * h * m2 * w * 4 + b * c * k * m2 * h * 8 + b * c * c * k * m2 * 8
+                 + b * c * h * m2 * k * 8 + b * c * h * w * m2 * 4)
+        least = (2 * b * c * h * fft_flops(w, True) + 2 * b * c * m2 * fft_flops(h, False)
+                 + b * c * c * k * m2 * 8)
+        floats = 2 * b * c * h * w + 2 * c * c * k * m2
+        points = b * c * h * w
     if epilogue:
-        pointwise = b * c * h * w * (2 * c + 1)
+        pointwise = points * (2 * c + 1)
         dense += pointwise
         least += pointwise
         floats += c * c + c
@@ -148,26 +199,67 @@ def layer_bound(shape, epilogue):
 
 
 def layer_inputs(shape, device):
-    b, c, h, w, m1, m2 = shape
+    """Seeded layer inputs: (x, wr, wi, pk, pb) in 2-D, and dc_half after them in 1-D."""
     rng = np.random.default_rng(0)
     t = lambda *s: torch.tensor(rng.standard_normal(s).astype(np.float32), device=device)
+    if len(shape) == 5:
+        b, c, n, m, dc_half = shape
+        return t(b, c, n), t(c, c, m), t(c, c, m), t(c, c), t(c), dc_half
+    b, c, h, w, m1, m2 = shape
     return t(b, c, h, w), t(c, c, 2 * m1, m2), t(c, c, 2 * m1, m2), t(c, c), t(c)
 
 
+def check_and_time(cases, variants, library, tol, stats):
+    """Hold each variant against its plain version at each (shape, timed, main) case;
+    at a timed case also time kernel, plain version and library call. ``stats`` keeps
+    each kernel's largest error and the gelu variant's numbers at its main shape."""
+    for shape, timed, main in cases:
+        args = layer_inputs(shape, "cuda")
+        bound_shape = shape[:4] if len(shape) == 5 else shape
+        for name, act, kernel, plain in variants:
+            got = kernel(*args)
+            torch.cuda.synchronize()
+            want = plain(*args)
+            err = check_close(f"{name} act={act} {shape}", got, want, tol)
+            row = dict(kernel=name, gelu=act, shape=shape, max_abs_err=err, tol=tol)
+            if timed:
+                lib_fn = library[name]
+                check_close(f"{name} fft restatement", lib_fn(*args, act), want, tol)
+                eager_ms, host_ms = time_ms(lambda: kernel(*args), 200, host=True)
+                row.update(kernel_ms=graph_ms(lambda: kernel(*args)),
+                           plain_ms=graph_ms(lambda: plain(*args)),
+                           library_ms=graph_ms(lambda: lib_fn(*args, act)),
+                           eager_kernel_ms=eager_ms, wrapper_host_ms=host_ms,
+                           stages_ms=stage_ms(lambda: kernel(*args)),
+                           **layer_bound(bound_shape, act is not None))
+            emit("kernels", **row)
+            s = stats.setdefault(name, {"max_abs_err": 0.0})
+            s["max_abs_err"] = max(s["max_abs_err"], err)
+            if main and act is not False:  # the gelu variant: all but the last layer
+                s.update({k: row[k] for k in ("kernel_ms", "plain_ms", "library_ms",
+                                              "bound_ms", "bound_by")})
+
+
 def phase_kernels():
-    from blindno_torch.ops.fno_layer import fno2d_layer_plain
-    from blindno_torch.ops.spectral import spectral_conv2d, spectral_conv2d_fft
-    from blindno_torch.ops.spectral_cuda import fno2d_layer_cuda, spectral_conv2d_cuda
+    from blindno_torch.ops.fno_layer import fno1d_layer_plain, fno2d_layer_plain
+    from blindno_torch.ops.spectral import (spectral_conv1d, spectral_conv1d_fft,
+                                            spectral_conv2d, spectral_conv2d_fft)
+    from blindno_torch.ops.spectral_cuda import (fno1d_layer_cuda, fno2d_layer_cuda,
+                                                 spectral_conv1d_cuda, spectral_conv2d_cuda)
 
     gelu = torch.nn.functional.gelu
+    act_fn = lambda act: gelu if act else (lambda y: y)
     library = {
-        "fno2d_layer": lambda x, wr, wi, pk, pb, act: (
-            (gelu if act else (lambda y: y))(spectral_conv2d_fft(x, wr, wi)
-                                             + torch.einsum("bchw,co->bohw", x, pk)
-                                             + pb.reshape(1, -1, 1, 1))),
+        "fno2d_layer": lambda x, wr, wi, pk, pb, act: act_fn(act)(
+            spectral_conv2d_fft(x, wr, wi) + torch.einsum("bchw,co->bohw", x, pk)
+            + pb.reshape(1, -1, 1, 1)),
         "spectral_conv2d": lambda x, wr, wi, pk, pb, act: spectral_conv2d_fft(x, wr, wi),
+        "fno1d_layer": lambda x, wr, wi, pk, pb, dc, act: act_fn(act)(
+            spectral_conv1d_fft(x, wr, wi, dc) + torch.einsum("bcn,co->bon", x, pk)
+            + pb.reshape(1, -1, 1)),
+        "spectral_conv1d": lambda x, wr, wi, pk, pb, dc, act: spectral_conv1d_fft(x, wr, wi, dc),
     }
-    variants = [
+    variants_2d = [
         ("fno2d_layer", True, lambda x, wr, wi, pk, pb: fno2d_layer_cuda(x, wr, wi, pk, pb, True),
          lambda x, wr, wi, pk, pb: fno2d_layer_plain(x, wr, wi, pk, pb, True)),
         ("fno2d_layer", False, lambda x, wr, wi, pk, pb: fno2d_layer_cuda(x, wr, wi, pk, pb, False),
@@ -175,32 +267,22 @@ def phase_kernels():
         ("spectral_conv2d", None, lambda x, wr, wi, pk, pb: spectral_conv2d_cuda(x, wr, wi),
          lambda x, wr, wi, pk, pb: spectral_conv2d(x, wr, wi)),
     ]
+    layer_1d = lambda act: (
+        ("fno1d_layer", act,
+         lambda x, wr, wi, pk, pb, dc: fno1d_layer_cuda(x, wr, wi, pk, pb, dc, act),
+         lambda x, wr, wi, pk, pb, dc: fno1d_layer_plain(x, wr, wi, pk, pb, dc, act)))
+    spectral_1d = ("spectral_conv1d", None,
+                   lambda x, wr, wi, pk, pb, dc: spectral_conv1d_cuda(x, wr, wi, dc),
+                   lambda x, wr, wi, pk, pb, dc: spectral_conv1d(x, wr, wi, dc))
     stats = {}
     with torch.inference_mode():
-        for shape in (MAIN_SHAPE, RAGGED_SHAPE):
-            args = layer_inputs(shape, "cuda")
-            for name, act, kernel, plain in variants:
-                got = kernel(*args)
-                torch.cuda.synchronize()
-                want = plain(*args)
-                err = check_close(f"{name} act={act} {shape}", got, want, KERNEL_TOL)
-                row = dict(kernel=name, gelu=act, shape=shape, max_abs_err=err, tol=KERNEL_TOL)
-                if shape == MAIN_SHAPE:
-                    lib_fn = library[name]
-                    check_close(f"{name} fft restatement", lib_fn(*args, act), want, KERNEL_TOL)
-                    eager_ms, host_ms = time_ms(lambda: kernel(*args), 200, host=True)
-                    row.update(kernel_ms=graph_ms(lambda: kernel(*args)),
-                               plain_ms=graph_ms(lambda: plain(*args)),
-                               library_ms=graph_ms(lambda: lib_fn(*args, act)),
-                               eager_kernel_ms=eager_ms, wrapper_host_ms=host_ms,
-                               stages_ms=stage_ms(lambda: kernel(*args)),
-                               **layer_bound(shape, act is not None))
-                emit("kernels", **row)
-                s = stats.setdefault(name, {"max_abs_err": 0.0})
-                s["max_abs_err"] = max(s["max_abs_err"], err)
-                if shape == MAIN_SHAPE and act is not False:  # the gelu variant, 2 of 3 layers
-                    s.update({k: row[k] for k in ("kernel_ms", "plain_ms", "library_ms",
-                                                  "bound_ms", "bound_by")})
+        check_and_time([(MAIN_SHAPE, True, True), (RAGGED_SHAPE, False, False)], variants_2d,
+                       library, KERNEL_TOL, stats)
+        check_and_time([(HEADS_1D, True, True), (RAGGED_1D, False, False)],
+                       [layer_1d(True), layer_1d(False), spectral_1d], library,
+                       KERNEL_TOL_1D, stats)
+        check_and_time([(BRANCH_1D, True, False)], [layer_1d(True), layer_1d(False)], library,
+                       KERNEL_TOL_1D, stats)
     return stats
 
 
@@ -208,8 +290,11 @@ def calibrate_bn(model, x, grid, rng):
     """BatchNorm as a trained model has it: affine parameters drawn in the ranges of
     tests/test_nio2d_torch_parity.py, running statistics measured on a calibration batch
     (one train-mode pass of the branch and the trunk). Statistics drawn at random instead
-    leave the untrained ten-block encoder's output all but independent of its input."""
+    leave an untrained encoder's output all but independent of its input. A model
+    without BatchNorm is left as it is."""
     bns = [m for m in model.modules() if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
+    if not bns:
+        return
     with torch.no_grad():
         for m in bns:
             m.weight.copy_(torch.tensor(rng.uniform(0.6, 1.4, m.num_features)))
@@ -219,16 +304,75 @@ def calibrate_bn(model, x, grid, rng):
         deeponet = model.deeponet
         deeponet.train()
         deeponet.branch(torch.as_tensor(x))
-        deeponet.trunk(torch.as_tensor(grid).reshape(-1, 2))
+        deeponet.trunk(torch.as_tensor(grid).reshape(-1, grid.shape[-1]))
         model.eval()
         for m in bns:
             m.momentum = 0.1
 
 
-def phase_serve():
+def serve(label, cpu_model, inputs, grid, batch, rounds, layer, per_forward, min_spread=1e-5):
+    """One model's main path: ``predict_fields`` on the card with every launch counted
+    (``per_forward`` launches of kernel ``layer`` per forward and no other), its output
+    checked against the CPU plain path on the first batch, and its throughput. The
+    outputs of the first two sets must differ by ``min_spread`` at least, so that the
+    output depends on the input. Returns the model on the card, the launch counts and
+    the fields of its phase line."""
     from blindno_torch.eval.field_eval import predict_fields
+
+    model = copy.deepcopy(cpu_model).to("cuda")
+    m = inputs.shape[0]
+    n_batches = -(-m // batch)
+    t0 = time.perf_counter()
+    counts, out = counted(lambda: predict_fields(model, inputs, grid, batch=batch))
+    first_s = time.perf_counter() - t0
+    expect_launches(f"serving {label}", counts, **{layer: per_forward * n_batches})
+    spread = np.abs(out[0] - out[1]).max()
+    want_shape = (m, *grid.shape[:-1], 2)
+    if out.shape != want_shape or not np.isfinite(out).all() or spread < min_spread:
+        raise RuntimeError(f"serving {label}: shape {out.shape} (want {want_shape}), finite "
+                           f"{np.isfinite(out).all()}, difference between two sets {spread:.3g}")
+
+    # the same weights on the CPU plain path; the tolerance scales with the output
+    t0 = time.perf_counter()
+    want = torch.tensor(predict_fields(cpu_model, inputs[:batch], grid, batch=batch, device="cpu"))
+    cpu_s = time.perf_counter() - t0
+    scale = want.abs().max().item()
+    err_cpu = check_close(f"serving {label} vs the CPU plain path", torch.tensor(out[:batch]),
+                          want, SERVE_TOL, scale)
+
+    # throughput of the entry point (numpy in, numpy out), host clock
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(rounds):
+        predict_fields(model, inputs, grid, batch=batch)
+    wall = time.perf_counter() - t0
+    forwards = rounds * n_batches
+    fields = dict(sets=m, snapshots=inputs.shape[1], grid=list(grid.shape), batch=batch,
+                  launches=counts, launches_per_forward=counts[layer] / n_batches,
+                  output_abs_max=scale, output_set_spread=float(spread),
+                  max_abs_err_vs_cpu=err_cpu,
+                  tol=f"rtol {SERVE_TOL}, atol {SERVE_TOL} x output_abs_max",
+                  first_call_s=first_s, cpu_reference_s=cpu_s, timed_forwards=forwards,
+                  forwards_per_s=forwards / wall, ms_per_forward=1e3 * wall / forwards,
+                  sets_per_s=rounds * m / wall)
+    return model, counts, fields
+
+
+def spectral_path(label, model, cpu_model, lifted, kernel, tol):
+    """Each head's SpectralConv modules on that head's lifted fields, launches counted
+    (one per module and no other kernel), against the same modules on the CPU."""
+    counts, spec = counted(lambda: [sc(x) for head, x in zip(model.heads, lifted)
+                                    for sc in head.spectral])
+    expect_launches(label, counts, **{kernel: len(spec)})
+    spec_want = [sc(x.cpu()) for head, x in zip(cpu_model.heads, lifted) for sc in head.spectral]
+    err = max(check_close(f"{label} module {i} vs the CPU", got.cpu(), want, tol)
+              for i, (got, want) in enumerate(zip(spec, spec_want)))
+    emit("spectral_path", path=label, launches=counts, max_abs_err_vs_cpu=err, tol=tol)
+    return counts[kernel]
+
+
+def phase_serve():
     from blindno_torch.models.nio2d import NIOFP2D
-    from blindno_torch.ops.spectral_cuda import fno2d_layer_cuda, spectral_conv2d_cuda
 
     m, l, n, batch = SERVE["m"], SERVE["l"], SERVE["n"], SERVE["batch"]
     inputs = np.random.default_rng(0).standard_normal((m, l, n, n)).astype(np.float32)
@@ -238,41 +382,10 @@ def phase_serve():
     cpu_model = NIOFP2D(**MODEL, generator=torch.Generator().manual_seed(0), device="cpu")
     calib = np.random.default_rng(1).standard_normal((1, l, n, n)).astype(np.float32)
     calibrate_bn(cpu_model, calib, grid, np.random.default_rng(7))
-    model = copy.deepcopy(cpu_model).to("cuda")
-    n_batches = -(-m // batch)
-    want_launches = 2 * MODEL["fno_layers"] * n_batches
-
-    # the main path: the served forward, every layer launch counted
-    fno2d_layer_cuda.launches = spectral_conv2d_cuda.launches = 0
-    t0 = time.perf_counter()
-    out = predict_fields(model, inputs, grid, batch=batch)
-    first_s = time.perf_counter() - t0
-    launches = {"fno2d_layer": fno2d_layer_cuda.launches}
-    if fno2d_layer_cuda.launches != want_launches or spectral_conv2d_cuda.launches != 0:
-        raise RuntimeError(f"serving launched fno2d_layer {fno2d_layer_cuda.launches} times "
-                           f"(want {want_launches}) and spectral_conv2d "
-                           f"{spectral_conv2d_cuda.launches} times (want 0)")
-    spread = np.abs(out[0] - out[1]).max()
-    if out.shape != (m, n, n, 2) or not np.isfinite(out).all() or spread < 1e-5:
-        raise RuntimeError(f"serving output: shape {out.shape}, finite "
-                           f"{np.isfinite(out).all()}, difference between two sets {spread:.3g}")
-
-    # the same weights on the CPU plain path; the tolerance scales with the output
-    t0 = time.perf_counter()
-    want = torch.tensor(predict_fields(cpu_model, inputs[:batch], grid, batch=batch, device="cpu"))
-    cpu_s = time.perf_counter() - t0
-    scale = want.abs().max().item()
-    err_cpu = check_close("serve vs the CPU plain path", torch.tensor(out[:batch]), want,
-                          SERVE_TOL, scale)
-
-    # throughput of the entry point (numpy in, numpy out), host clock
-    rounds = SERVE["timed_rounds"]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(rounds):
-        predict_fields(model, inputs, grid, batch=batch)
-    wall = time.perf_counter() - t0
-    forwards = rounds * n_batches
+    model, counts, fields = serve("NIOFP2D", cpu_model, inputs, grid, batch,
+                                  SERVE["timed_rounds"], "fno2d_layer",
+                                  2 * MODEL["fno_layers"])
+    launches = {"fno2d_layer": counts["fno2d_layer"]}
 
     with torch.inference_mode():
         xb = torch.tensor(inputs[:batch], device="cuda")
@@ -280,22 +393,9 @@ def phase_serve():
         dn = model.deeponet
         feats = model.fusion(g.unsqueeze(0).expand(batch, *g.shape),
                              dn(xb, g.reshape(-1, 2)).reshape(batch, l, n, n))
-
-        # the spectral-conv path: each served head's SpectralConv2d modules on the head's
-        # lifted fields of the first batch, against the same modules on the CPU
-        lifted = [head.lift(feats) for head in model.heads]
-        fno2d_layer_cuda.launches = spectral_conv2d_cuda.launches = 0
-        spec = [sc(x) for head, x in zip(model.heads, lifted) for sc in head.spectral]
-        launches["spectral_conv2d"] = spectral_conv2d_cuda.launches
-        want_spec = 2 * MODEL["fno_layers"]
-        if spectral_conv2d_cuda.launches != want_spec or fno2d_layer_cuda.launches != 0:
-            raise RuntimeError(f"the spectral-conv path launched spectral_conv2d "
-                               f"{spectral_conv2d_cuda.launches} times (want {want_spec}) "
-                               f"and fno2d_layer {fno2d_layer_cuda.launches} times (want 0)")
-        spec_want = [sc(x.cpu()) for head, x in zip(cpu_model.heads, lifted)
-                     for sc in head.spectral]
-        err_spec = max(check_close(f"SpectralConv2d {i} vs the CPU", got.cpu(), want, KERNEL_TOL)
-                       for i, (got, want) in enumerate(zip(spec, spec_want)))
+        launches["spectral_conv2d"] = spectral_path(
+            "SpectralConv2d", model, cpu_model, [head.lift(feats) for head in model.heads],
+            "spectral_conv2d", KERNEL_TOL)
 
         # where one forward's device time goes, by CUDA events
         split = dict(forward_ms=time_ms(lambda: model(xb, g), 10),
@@ -303,15 +403,68 @@ def phase_serve():
                      heads_ms=time_ms(lambda: [h(feats) for h in model.heads], 10),
                      heads_graph_ms=graph_ms(lambda: [h(feats) for h in model.heads], 5),
                      h2d_ms=time_ms(lambda: torch.as_tensor(inputs[:batch]).to("cuda"), 10))
-    emit("serve", model=MODEL, sets=m, snapshots=l, grid=n, batch=batch,
-         fno2d_layer_launches=launches["fno2d_layer"], want_launches=want_launches,
-         output_abs_max=scale, output_set_spread=float(spread),
-         max_abs_err_vs_cpu=err_cpu, tol=f"rtol {SERVE_TOL}, atol {SERVE_TOL} x output_abs_max",
-         first_call_s=first_s, cpu_reference_s=cpu_s, timed_forwards=forwards,
-         forwards_per_s=forwards / wall, ms_per_forward=1e3 * wall / forwards,
-         sets_per_s=rounds * m / wall, device_split=split)
-    emit("spectral_path", spectral_conv2d_launches=launches["spectral_conv2d"],
-         want_launches=want_spec, max_abs_err_vs_cpu=err_spec, tol=KERNEL_TOL)
+    emit("serve", model="NIOFP2D", config=MODEL, **fields, device_split=split)
+    return launches
+
+
+def phase_serve1d():
+    """The fpe1d serving path: NIOFP1D (Encoder1D branch) and NIOFNO1D (inner FNO1d
+    branch), each with two FNO1d heads of three layers, at the suite's width."""
+    from blindno_torch.models.nio1d import NIOFNO1D, NIOFP1D
+
+    m, l, n, batch = SERVE_1D["m"], SERVE_1D["l"], SERVE_1D["n"], SERVE_1D["batch"]
+    # the snapshots of one set share that set's profile, as the snapshots of one
+    # solution do; with independent noise alone, the mean over a set is nearly the same
+    # for every set, and so is the FNO-branch model's output
+    sets = lambda rng, k: (rng.standard_normal((k, 1, n))
+                           + 0.5 * rng.standard_normal((k, l, n))).astype(np.float32)
+    inputs = sets(np.random.default_rng(2), m)
+    grid = np.linspace(0.0, 1.0, n, dtype=np.float32).reshape(n, 1)
+    calib = sets(np.random.default_rng(3), 1)
+    launches = {"fno1d_layer": 0}
+    # (name, class, fno1d_layer launches per forward, least spread between two sets'
+    # outputs): 3 layers in each of 2 heads, and the FNO-branch model's 2 inner layers.
+    # The untrained FNO-branch model's output moves by about 7e-5 of its scale between
+    # sets (3.6e-6 at a scale of 0.054 in a CPU run), so its floor is lower.
+    for label, cls, per_forward, min_spread in (("NIOFP1D", NIOFP1D, 6, 1e-5),
+                                                ("NIOFNO1D", NIOFNO1D, 8, 1e-7)):
+        cpu_model = cls(**MODEL_1D, generator=torch.Generator().manual_seed(0), device="cpu")
+        calibrate_bn(cpu_model, calib, grid, np.random.default_rng(7))
+        model, counts, fields = serve(label, cpu_model, inputs, grid, batch,
+                                      SERVE_1D["timed_rounds"], "fno1d_layer", per_forward,
+                                      min_spread)
+        launches["fno1d_layer"] += counts["fno1d_layer"]
+
+        with torch.inference_mode():
+            xb = torch.tensor(inputs[:batch], device="cuda")
+            g = torch.tensor(grid, device="cuda")
+            # the encoder: Encoder1D over every snapshot, or the inner FNO1d over every
+            # (snapshot, grid) pair
+            if label == "NIOFP1D":
+                encoder = lambda: model.deeponet.branch(xb)
+                snap_fields = model.deeponet(xb, g)
+            else:
+                snaps = torch.cat([xb.reshape(batch * l, n, 1), g.expand(batch * l, n, 1)], -1)
+                encoder = lambda: model.branch(snaps)
+                snap_fields = encoder().reshape(batch, l, n)
+            feats = model.fusion(g.expand(batch, n, 1), snap_fields)
+            if label == "NIOFP1D":
+                launches["spectral_conv1d"] = spectral_path(
+                    "SpectralConv1d", model, cpu_model,
+                    [head.lift(feats) for head in model.heads], "spectral_conv1d",
+                    KERNEL_TOL_1D)
+            # where one forward's device time goes: eager parts by CUDA events, and the
+            # same parts replayed from CUDA graphs, whose device times add up
+            heads = lambda: [h(feats) for h in model.heads]
+            split = dict(forward_ms=time_ms(lambda: model(xb, g), 10),
+                         encoder_ms=time_ms(encoder, 10), heads_ms=time_ms(heads, 10),
+                         forward_graph_ms=graph_ms(lambda: model(xb, g), 5, 5),
+                         encoder_graph_ms=graph_ms(encoder, 5, 5),
+                         heads_graph_ms=graph_ms(heads, 5, 5),
+                         h2d_ms=time_ms(lambda: torch.as_tensor(inputs[:batch]).to("cuda"), 10))
+            split["rest_graph_ms"] = (split["forward_graph_ms"] - split["encoder_graph_ms"]
+                                      - split["heads_graph_ms"])
+        emit("serve1d", model=label, config=MODEL_1D, **fields, device_split=split)
     return launches
 
 
@@ -340,19 +493,24 @@ def main():
          ptxas=[ln.strip() for ln in log if "registers" in ln or "spill" in ln])
 
     stats = phase_kernels()
-    launches = phase_serve()
+    launches = {**phase_serve(), **phase_serve1d()}
 
-    source, replaces = "blindno_torch/csrc/fno2d_layer.cu", "blindno/ops/spectral_pallas.py"
+    csrc, replaces = "blindno_torch/csrc", "blindno/ops/spectral_pallas.py"
     kernels = [
-        {"name": "fno2d_layer", "route": "cuda", "source": source, "replaces": f"{replaces}:165",
-         "launches": launches["fno2d_layer"]},
-        {"name": "spectral_conv2d", "route": "cuda", "source": source,
-         "replaces": f"{replaces}:234", "launches": launches["spectral_conv2d"]},
+        {"name": "fno2d_layer", "route": "cuda", "source": f"{csrc}/fno2d_layer.cu",
+         "replaces": f"{replaces}:165"},
+        {"name": "spectral_conv2d", "route": "cuda", "source": f"{csrc}/fno2d_layer.cu",
+         "replaces": f"{replaces}:234"},
+        {"name": "fno1d_layer", "route": "cuda", "source": f"{csrc}/fno1d_layer.cu",
+         "replaces": f"{replaces}:69"},
+        {"name": "spectral_conv1d", "route": "cuda", "source": f"{csrc}/fno1d_layer.cu",
+         "replaces": f"{replaces}:201"},
     ]
     for k in kernels:
         s = stats[k["name"]]
-        k.update(max_abs_err=s["max_abs_err"], ms=s["kernel_ms"], plain_ms=s["plain_ms"],
-                 bound_ms=s["bound_ms"], bound_by=s["bound_by"], library_ms=s["library_ms"])
+        k.update(launches=launches[k["name"]], max_abs_err=s["max_abs_err"], ms=s["kernel_ms"],
+                 plain_ms=s["plain_ms"], bound_ms=s["bound_ms"], bound_by=s["bound_by"],
+                 library_ms=s["library_ms"])
     emit("done", wall_s=time.perf_counter() - t_start, nvidia_smi=smi_line)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)

@@ -11,10 +11,12 @@ import blindno_torch
 from blindno_torch import default_device
 from blindno_torch.convert import from_flax
 from blindno_torch.eval.field_eval import predict_fields
+from blindno_torch.models.nio1d import NIOFNO1D, NIOFP1D
 from blindno_torch.models.nio2d import NIOFP2D
-from blindno_torch.ops.fno_layer import fno2d_layer_plain
-from blindno_torch.ops.spectral import spectral_conv2d
-from blindno_torch.ops.spectral_cuda import fno2d_layer_cuda, spectral_conv2d_cuda
+from blindno_torch.ops.fno_layer import fno1d_layer_plain, fno2d_layer_plain
+from blindno_torch.ops.spectral import spectral_conv1d, spectral_conv2d
+from blindno_torch.ops.spectral_cuda import (fno1d_layer_cuda, fno2d_layer_cuda,
+                                             spectral_conv1d_cuda, spectral_conv2d_cuda)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "blindno"}
@@ -83,6 +85,53 @@ def test_wrappers_refuse_other_devices():
         fno2d_layer_cuda(x, wr, wi, pk, pb)
     with pytest.raises(ValueError, match="CUDA tensors"):
         spectral_conv2d_cuda(x, wr, wi)
+
+
+def test_1d_models_need_cuda_or_an_explicit_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for cls in (NIOFP1D, NIOFNO1D):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cls(width=4, modes=4, fno_layers=1)
+        model = cls(width=4, modes=4, fno_layers=1, device="cpu")
+        with pytest.raises(RuntimeError):
+            predict_fields(model, np.zeros((1, 2, 80), np.float32), np.zeros((80, 1), np.float32))
+
+
+def _layer_inputs_1d(requires_grad=False):
+    g = torch.Generator().manual_seed(1)
+    t = lambda *s: torch.randn(*s, generator=g).requires_grad_(requires_grad)
+    return t(2, 3, 20), t(3, 4, 6), t(3, 4, 6), t(3, 4), t(4)
+
+
+def test_1d_wrappers_take_the_plain_path_on_cpu():
+    x, wr, wi, pk, pb = _layer_inputs_1d()
+    counts = fno1d_layer_cuda.launches, spectral_conv1d_cuda.launches
+    for dc_half in (True, False):
+        for act in (True, False):
+            torch.testing.assert_close(fno1d_layer_cuda(x, wr, wi, pk, pb, dc_half, act),
+                                       fno1d_layer_plain(x, wr, wi, pk, pb, dc_half, act),
+                                       rtol=0, atol=0)
+        torch.testing.assert_close(spectral_conv1d_cuda(x, wr, wi, dc_half),
+                                   spectral_conv1d(x, wr, wi, dc_half), rtol=0, atol=0)
+    assert (fno1d_layer_cuda.launches, spectral_conv1d_cuda.launches) == counts
+
+
+def test_1d_wrappers_raise_under_autograd():
+    x, wr, wi, pk, pb = _layer_inputs_1d(requires_grad=True)
+    with pytest.raises(RuntimeError, match="forward only"):
+        fno1d_layer_cuda(x, wr, wi, pk, pb)
+    with pytest.raises(RuntimeError, match="forward only"):
+        spectral_conv1d_cuda(x, wr, wi)
+    with torch.no_grad():
+        assert fno1d_layer_cuda(x, wr, wi, pk, pb).shape == (2, 4, 20)
+
+
+def test_1d_wrappers_refuse_other_devices():
+    x, wr, wi, pk, pb = (t.to("meta") for t in _layer_inputs_1d())
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fno1d_layer_cuda(x, wr, wi, pk, pb)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        spectral_conv1d_cuda(x, wr, wi)
 
 
 def _flax_tree():
