@@ -19,7 +19,7 @@ from pathlib import Path
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
-SOURCES = tuple(CSRC / name for name in ("common.cu", "fno1d_layer.cu", "fno2d_layer.cu"))
+SOURCES = ("common.cu", "fno1d_layer.cu", "fno2d_layer.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 600
@@ -29,9 +29,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #                     epilogue, device, stream)
 FNO1D_ARGTYPES = [_P] * 4 + [_I, _I] + [_P] * 2 + [_I] * 8 + [_P]
 # fno2d_layer_forward(x, fyre, fyim, fxre, fxim, gxre, gxim, gyre, gyim, wr, wi,
-#                     pk, pk_si, pk_so, pb, spec, out, B, Cin, Cout, H, W, m1, m2,
+#                     pk, pk_si, pk_so, pb, spec, z, out, B, Cin, Cout, H, W, m1, m2,
 #                     epilogue, device, stream)
-FNO2D_ARGTYPES = [_P] * 12 + [_I, _I] + [_P] * 3 + [_I] * 9 + [_P]
+FNO2D_ARGTYPES = [_P] * 12 + [_I, _I] + [_P] * 4 + [_I] * 9 + [_P]
 
 
 def find_nvcc() -> str:
@@ -44,9 +44,9 @@ def find_nvcc() -> str:
                        "kernels cannot be built")
 
 
-def build_dir() -> Path:
+def build_dir(csrc: Path = CSRC) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(p for p in CSRC.iterdir() if p.is_file()):
+    for src in sorted(p for p in csrc.iterdir() if p.is_file()):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return PKG / "_build" / h.hexdigest()[:16]
@@ -67,17 +67,19 @@ def _run_all(cmds):
                 p.wait()
 
 
-def build() -> Path:
-    """Compile the sources into a shared library (once per source hash); return its path."""
-    out_dir = build_dir()
+def build(csrc: Path = CSRC) -> Path:
+    """Compile the sources in ``csrc`` into a shared library (once per source hash);
+    return its path."""
+    out_dir = build_dir(csrc)
     lib = out_dir / "libblindno_torch_kernels.so"
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc, tag = find_nvcc(), os.getpid()
-    objs = [out_dir / f"{src.stem}.{tag}.o" for src in SOURCES]
+    srcs = [csrc / name for name in SOURCES]
+    objs = [out_dir / f"{src.stem}.{tag}.o" for src in srcs]
     tmp = out_dir / f"tmp.{tag}.so"
-    steps = [[[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(SOURCES, objs)],
+    steps = [[[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(srcs, objs)],
              [[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)]]]
     log = []
     for cmds in steps:
@@ -94,10 +96,9 @@ def build() -> Path:
     return lib
 
 
-@functools.cache
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use, with every signature declared."""
-    lib = ctypes.CDLL(str(build()))
+def load(path: Path) -> ctypes.CDLL:
+    """Load a built kernel library and declare every signature."""
+    lib = ctypes.CDLL(str(path))
     lib.fno1d_layer_forward.argtypes = FNO1D_ARGTYPES
     lib.fno1d_layer_forward.restype = ctypes.c_int
     lib.fno2d_layer_forward.argtypes = FNO2D_ARGTYPES
@@ -105,3 +106,9 @@ def library() -> ctypes.CDLL:
     lib.blindno_error_string.argtypes = [ctypes.c_int]
     lib.blindno_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The kernel library of ``csrc/``, built on first use."""
+    return load(build())

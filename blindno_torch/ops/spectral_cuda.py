@@ -22,6 +22,9 @@ from blindno_torch.ops.fno_layer import fno1d_layer_plain, fno2d_layer_plain
 from blindno_torch.ops.spectral import dft_matrices_2d, spectral_conv1d, spectral_conv2d
 
 _INT_MAX = 2**31 - 1
+_CUDA_ERROR_INVALID_VALUE = 1
+_INVALID_2D_HINT = ("; a stage of this shape may need more shared memory than a block has "
+                    "(the limits are in the source note of csrc/fno2d_layer.cu)")
 
 
 def _forward_only(name, *tensors):
@@ -57,10 +60,10 @@ def _check_indexing(name, *numels):
         raise ValueError(f"{name}: tensors too large for the kernel's 32-bit indexing")
 
 
-def _raise_on_error(lib, name, err):
+def _raise_on_error(lib, name, err, hint=""):
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed: CUDA error {err} "
-                           f"({lib.blindno_error_string(err).decode()})")
+                           f"({lib.blindno_error_string(err).decode()}){hint}")
 
 
 def _ptr(t):
@@ -78,7 +81,7 @@ def _check2d(name, x, wr, wi, pk, pb):
     cout = wr.shape[1]
     _check_pointwise(name, c, cout, pk, pb)
     _check_indexing(name, x.numel(), b * cout * h * w, wr.numel(),
-                    2 * b * c * wr.shape[2] * wr.shape[3])
+                    2 * b * c * wr.shape[2] * wr.shape[3], 2 * b * cout * h * wr.shape[3])
 
 
 def _launch2d(name, x, wr, wi, pk, pb, epilogue):
@@ -87,14 +90,18 @@ def _launch2d(name, x, wr, wi, pk, pb, epilogue):
     b, c, h, w = x.shape
     cout, k, m2 = wr.shape[1:]
     mats = dft_matrices_2d(h, w, k // 2, m2, x.dtype, x.device)
-    spec = torch.empty((2, b, c, k, m2), dtype=x.dtype, device=x.device)
+    # scratch of the kernel's three stages: the spectrum (m2, B*C, 2*m1, re/im) and the
+    # inverse-H output Z (B, Cout, H, m2, re/im)
+    spec = torch.empty((m2, b * c, k, 2), dtype=x.dtype, device=x.device)
+    z = torch.empty((b, cout, h, m2, 2), dtype=x.dtype, device=x.device)
     out = torch.empty((b, cout, h, w), dtype=x.dtype, device=x.device)
     pk_si, pk_so = pk.stride() if pk is not None else (0, 0)
     err = lib.fno2d_layer_forward(
         _ptr(x), *map(_ptr, mats), _ptr(wr), _ptr(wi), _ptr(pk), pk_si, pk_so, _ptr(pb),
-        _ptr(spec), _ptr(out), b, c, cout, h, w, k // 2, m2, epilogue, x.device.index or 0,
+        _ptr(spec), _ptr(z), _ptr(out), b, c, cout, h, w, k // 2, m2, epilogue,
+        x.device.index or 0,
         torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on_error(lib, name, err)
+    _raise_on_error(lib, name, err, _INVALID_2D_HINT if err == _CUDA_ERROR_INVALID_VALUE else "")
     return out
 
 

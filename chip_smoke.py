@@ -6,10 +6,12 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``. It
 1. reads the card (``torch.cuda`` and ``nvidia-smi``);
 2. builds the FNO-layer kernels from ``blindno_torch/csrc`` with nvcc (one process per
    source, all at once; timed);
-3. holds each kernel against its plain PyTorch version at the serving paths' shapes
-   and a ragged one, and times kernel, plain version and a ``torch.fft`` restatement on
-   the device (each replayed from a CUDA graph, so host launch costs drop out), the
-   wrapper's host cost per call, and the kernels' stages in a ``torch.profiler`` trace;
+3. holds each kernel against its plain PyTorch version at the serving paths' shapes,
+   a ragged one and, in 2-D, the ncfpe2d heads' and the NIOFNO2D inner branch's shapes,
+   and times kernel, plain version and a ``torch.fft`` restatement on
+   the device (each replayed from a CUDA graph, so host launch costs drop out; the
+   kernel's replayed output is held against the plain version too), the wrapper's host
+   cost per call, and the kernels' stages in a ``torch.profiler`` trace;
 4. serves the fpe2d NIO model at the width of ``bench.py`` (seeded weights, calibrated
    BatchNorm) through ``predict_fields`` on 8 sets of 100 snapshots of a 61x61 grid,
    counts the kernel launches, checks the result against the CPU plain path, and times
@@ -45,6 +47,10 @@ KERNEL_TOL_1D = 2e-4  # the 1-D Pallas kernels' tolerance, tests/test_spectral_p
 SERVE_TOL = 2e-3    # the NIO parity tolerance, tests/test_nio2d_torch_parity.py:190
 MAIN_SHAPE = (4, 12, 76, 76, 32, 32)   # (B, C, H, W, m1, m2) of the serving path's layers
 RAGGED_SHAPE = (3, 5, 40, 36, 7, 9)
+# the ncfpe2d heads (blindno/suites/registry.py:233: an 80x80 grid padded by a quarter),
+# and the NIOFNO2D inner FNO2d over B*L = 4 x 100 snapshots (blindno/models/nio2d.py:74-86)
+NCFPE2D_HEADS = (4, 12, 100, 100, 32, 32)
+NIOFNO2D_INNER = (400, 4, 76, 76, 12, 12)
 # 1-D (B, C, N, modes, dc_half): the fpe1d heads' layers at batch 16, the FNO-branch
 # model's inner FNO1d over 16 x 100 snapshots, and a ragged shape without DC halving
 HEADS_1D = (16, 30, 100, 15, True)
@@ -118,10 +124,11 @@ def time_ms(fn, iters, host=False):
     return (device_ms, host_ms) if host else device_ms
 
 
-def graph_ms(fn, calls=20, replays=10):
+def graph_ms(fn, calls=20, replays=10, result=False):
     """Device time of one call: ``calls`` calls captured in one CUDA graph, replayed
     ``replays`` times and timed by CUDA events, so no host launch cost is in the figure.
-    Inputs stay in L2 between calls, as a layer's input does on the serving path."""
+    Inputs stay in L2 between calls, as a layer's input does on the serving path. With
+    ``result``, also the last call's output after the last replay."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -131,7 +138,7 @@ def graph_ms(fn, calls=20, replays=10):
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(calls):
-            fn()
+            out = fn()
     graph.replay()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -140,7 +147,8 @@ def graph_ms(fn, calls=20, replays=10):
         graph.replay()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / (calls * replays)
+    ms = start.elapsed_time(end) / (calls * replays)
+    return (ms, out) if result else ms
 
 
 def stage_ms(fn, iters=20):
@@ -226,7 +234,11 @@ def check_and_time(cases, variants, library, tol, stats):
                 lib_fn = library[name]
                 check_close(f"{name} fft restatement", lib_fn(*args, act), want, tol)
                 eager_ms, host_ms = time_ms(lambda: kernel(*args), 200, host=True)
-                row.update(kernel_ms=graph_ms(lambda: kernel(*args)),
+                # the kernels' launches replayed from a graph hold to the plain version too
+                kernel_ms, replayed = graph_ms(lambda: kernel(*args), result=True)
+                row.update(max_abs_err_graph=check_close(f"{name} act={act} {shape} replayed",
+                                                         replayed, want, tol))
+                row.update(kernel_ms=kernel_ms,
                            plain_ms=graph_ms(lambda: plain(*args)),
                            library_ms=graph_ms(lambda: lib_fn(*args, act)),
                            eager_kernel_ms=eager_ms, wrapper_host_ms=host_ms,
@@ -234,7 +246,7 @@ def check_and_time(cases, variants, library, tol, stats):
                            **layer_bound(bound_shape, act is not None))
             emit("kernels", **row)
             s = stats.setdefault(name, {"max_abs_err": 0.0})
-            s["max_abs_err"] = max(s["max_abs_err"], err)
+            s["max_abs_err"] = max(s["max_abs_err"], err, row.get("max_abs_err_graph", 0.0))
             if main and act is not False:  # the gelu variant: all but the last layer
                 s.update({k: row[k] for k in ("kernel_ms", "plain_ms", "library_ms",
                                               "bound_ms", "bound_by")})
@@ -276,8 +288,9 @@ def phase_kernels():
                    lambda x, wr, wi, pk, pb, dc: spectral_conv1d(x, wr, wi, dc))
     stats = {}
     with torch.inference_mode():
-        check_and_time([(MAIN_SHAPE, True, True), (RAGGED_SHAPE, False, False)], variants_2d,
-                       library, KERNEL_TOL, stats)
+        check_and_time([(MAIN_SHAPE, True, True), (RAGGED_SHAPE, False, False),
+                        (NCFPE2D_HEADS, False, False), (NIOFNO2D_INNER, True, False)],
+                       variants_2d, library, KERNEL_TOL, stats)
         check_and_time([(HEADS_1D, True, True), (RAGGED_1D, False, False)],
                        [layer_1d(True), layer_1d(False), spectral_1d], library,
                        KERNEL_TOL_1D, stats)

@@ -5,7 +5,8 @@ mode, and the torch ``FNO2d`` (weights moved over with the converter's rules) ag
 the flax ``FNO2d`` under the impl that reaches the fused Pallas kernel and under the
 plain impl. ``SpectralConv2d`` on its own is held against the flax module (the flax
 ``pallas`` impl runs only on a TPU; the spectral kernel itself is held against the
-Pallas one in ``test_torch_spectral.py``).
+Pallas one in ``test_torch_spectral.py``). Last, the CUDA kernel's choice of 3xTF32
+tensor-core products is checked by emulating TF32 rounding on the CPU.
 """
 import jax
 import jax.numpy as jnp
@@ -20,6 +21,7 @@ from blindno.ops.spectral_pallas import fno2d_layer_pallas
 from blindno_torch.convert import from_flax
 from blindno_torch.nn.fno import FNO2d, SpectralConv2d
 from blindno_torch.ops.fno_layer import fno2d_layer_plain
+from blindno_torch.ops.spectral import dft_matrices_2d, spectral_conv2d
 
 SHAPES = [(2, 4, 24, 20, 6, 5), (3, 5, 40, 36, 7, 9)]
 
@@ -89,3 +91,53 @@ def test_fno2d_lift_pads_a_quarter():
     assert lifted.shape == (2, 5, 26, 24) and lifted.is_contiguous()
     torch.testing.assert_close(lifted[:, :, :21, :19], model.fc0(x).permute(0, 3, 1, 2))
     assert not lifted[:, :, 21:].any() and not lifted[..., 19:].any()
+
+
+def _tf32(a):
+    """Round float32 to TF32 as ``cvt.rna.tf32.f32`` does: nearest at 10 mantissa bits,
+    ties away from zero (the sign is apart from the magnitude bits, so adding half of the
+    last kept bit and clearing the 13 dropped bits rounds the magnitude)."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _emulated_chain(x, wr, wi, split):
+    """The dense chain of ``spectral_conv2d`` with each of its four transforms' products
+    rounded as the CUDA kernel's tensor cores would: single-pass TF32 operands, or 3xTF32
+    (a_hi b_lo + a_lo b_hi + a_hi b_hi, with a_lo = tf32(a - a_hi)). The mode mix stays in
+    float32, as in the kernel."""
+    def prod(eq, a, b):
+        ah, bh = _tf32(a), _tf32(b)
+        if not split:
+            return torch.einsum(eq, ah, bh)
+        al, bl = _tf32(a - ah), _tf32(b - bh)
+        return torch.einsum(eq, ah, bl) + torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bh)
+
+    h, w = x.shape[-2:]
+    fyre, fyim, fxre, fxim, gxre, gxim, gyre, gyim = dft_matrices_2d(
+        h, w, wr.shape[2] // 2, wr.shape[3], torch.float32, "cpu")
+    yr, yi = prod("bchw,wm->bchm", x, fyre), prod("bchw,wm->bchm", x, fyim)
+    xr = prod("bchm,hk->bckm", yr, fxre) - prod("bchm,hk->bckm", yi, fxim)
+    xi = prod("bchm,hk->bckm", yr, fxim) + prod("bchm,hk->bckm", yi, fxre)
+    ein = torch.einsum
+    outr = ein("bikm,iokm->bokm", xr, wr) - ein("bikm,iokm->bokm", xi, wi)
+    outi = ein("bikm,iokm->bokm", xr, wi) + ein("bikm,iokm->bokm", xi, wr)
+    zr = prod("bokm,kh->bohm", outr, gxre) - prod("bokm,kh->bohm", outi, gxim)
+    zi = prod("bokm,kh->bohm", outr, gxim) + prod("bokm,kh->bohm", outi, gxre)
+    return prod("bohm,mw->bohw", zr, gyre) + prod("bohm,mw->bohw", zi, gyim)
+
+
+def test_tensor_core_numerics_need_the_3xtf32_correction():
+    """Why the CUDA kernel splits every transform operand into two TF32 parts: at the main
+    serving shape and unit-normal inputs, 3xTF32 stays within the kernels' 3e-4 of the
+    float64 chain, and single-pass TF32 does not."""
+    b, c, h, w, m1, m2 = 4, 12, 76, 76, 32, 32
+    rng = np.random.default_rng(7)
+    x = torch.tensor(rng.standard_normal((b, c, h, w)).astype(np.float32))
+    wr, wi = (torch.tensor(rng.standard_normal((c, c, 2 * m1, m2)).astype(np.float32))
+              for _ in range(2))
+    want = spectral_conv2d(x.double(), wr.double(), wi.double())
+    split = _emulated_chain(x, wr, wi, split=True).double()
+    single = _emulated_chain(x, wr, wi, split=False).double()
+    torch.testing.assert_close(split, want, rtol=3e-4, atol=3e-4)
+    assert not torch.allclose(single, want, rtol=3e-4, atol=3e-4)

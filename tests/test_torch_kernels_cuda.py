@@ -14,8 +14,12 @@ from blindno_torch.ops.spectral_cuda import (fno1d_layer_cuda, fno2d_layer_cuda,
 
 pytestmark = pytest.mark.cuda
 
-# the main serving shape and a ragged one: (B, C, H, W, m1, m2)
-SHAPES = [(4, 12, 76, 76, 32, 32), (3, 5, 40, 36, 7, 9)]
+# (B, C, H, W, m1, m2): the main serving shape, a ragged one, the ncfpe2d heads (an
+# 80x80 grid padded by a quarter), the NIOFNO2D inner branch over 4 x 100 snapshots, one
+# smaller than every tile of the kernel, and one whose +-H matrix must take the x plane's
+# place in shared memory and whose 2*m1 mode rows outnumber the first stage's warps
+SHAPES = [(4, 12, 76, 76, 32, 32), (3, 5, 40, 36, 7, 9), (4, 12, 100, 100, 32, 32),
+          (400, 4, 76, 76, 12, 12), (1, 1, 9, 11, 2, 3), (1, 2, 130, 132, 65, 20)]
 # 1-D (B, C, N, modes, dc_half): the fpe1d heads, the FNO-branch model's inner FNO1d,
 # the GPE width, and a ragged shape without the DC halving
 SHAPES_1D = [(16, 30, 100, 15, True), (1600, 4, 100, 12, True), (8, 25, 160, 32, True),
@@ -81,6 +85,19 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
             fno2d_layer_cuda(x.double(), wr, wi, pk, pb)
         with pytest.raises(ValueError):
             spectral_conv2d_cuda(x, wr[:, :, :-1], wi[:, :, :-1])
+
+
+def test_kernel_refuses_a_grid_beyond_its_shared_memory(cuda_device):
+    """A 200x200 grid at 64x64 modes (the PR 5 kernel took it) needs more shared memory
+    in the first stage than a block has: the wrapper raises and counts no launch."""
+    x, wr, wi, pk, pb = _inputs((1, 1, 200, 200, 64, 64), cuda_device)
+    before = fno2d_layer_cuda.launches, spectral_conv2d_cuda.launches
+    with torch.inference_mode():
+        with pytest.raises(RuntimeError, match="shared memory"):
+            fno2d_layer_cuda(x, wr, wi, pk, pb)
+        with pytest.raises(RuntimeError, match="shared memory"):
+            spectral_conv2d_cuda(x, wr, wi)
+    assert (fno2d_layer_cuda.launches, spectral_conv2d_cuda.launches) == before
 
 
 def _inputs_1d(shape, device):
