@@ -80,7 +80,7 @@
 // traffic of the staged planes and matrix; S2 at 2 batch elements or 8 mode rows a
 // block (384 blocks) was tried and not kept (that probe is not in the repo). Registers, shared memory and spills of each
 // kernel are printed by `-Xptxas -v` into the build log (chip_smoke.py phase `build`).
-// Measured on an NVIDIA H100 80GB HBM3 at 700.00 W by blindno_torch/tools/ab_fno2d.py,
+// Measured on an NVIDIA H100 80GB HBM3 at 700.00 W by blindno_torch/tools/ab_fno.py,
 // which times variants of this source against each other in one process (medians of 10
 // alternating rounds of CUDA-graph replays, main shape; PERF.md section 6): the layer
 // with gelu 30.9 us, the spectral conv alone 27.7 us. With plain launches instead of
@@ -116,8 +116,16 @@ namespace cg = cooperative_groups;
 namespace {
 
 using blindno::allow_smem;
+using blindno::cp_async16;
+using blindno::cp_async4;
+using blindno::cp_async_commit;
+using blindno::cp_async_wait;
 using blindno::kMaxDevices;
 using blindno::kMaxSmem;
+using blindno::launch_clusters;
+using blindno::launch_dependents;
+using blindno::smem_addr;
+using blindno::wait_prerequisites;
 
 constexpr int kThreads1 = 256;  // threads of an S1, S2 and S3 block
 constexpr int kThreads2 = 128;
@@ -146,41 +154,6 @@ struct Shape {
 };
 
 // ---- cp.async staging ------------------------------------------------------------------
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Programmatic dependent launch: S2 and S3 are launched so that they may start while the
-// stage before them runs. The stage before lets them be scheduled from here on ...
-__device__ __forceinline__ void release_next_stage() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
-// ... and they stage only what the layer's caller gave (matrices, weights, x) until
-// they wait here for the stage before to finish and its writes to be visible. Nothing
-// is written to global memory before the wait. S1 is launched plainly, so it starts
-// after all earlier work on the stream.
-__device__ __forceinline__ void wait_previous_stage() {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-}
 
 // Copy rows [0, rows) x columns [0, cols) of a row-major global matrix (row stride
 // `ss`) into shared memory (row stride `ds`), zero-filling up to rows_pad x cols_pad
@@ -385,7 +358,7 @@ __global__ void __launch_bounds__(kThreads1) fno2d_forward_transform(
   constexpr int kWarps1 = kThreads1 / 32;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 
-  release_next_stage();
+  launch_dependents();
   stage_rows(xs, L.xs_s, x + size_t(plane) * s.H * s.W, s.W, s.H, s.W, s.Hp16, s.Wp8);
   stage_rows(fy, kS1, fyre + m0, s.m2, s.W, mc, s.Wp8, kCols1);
   stage_rows(fy + kCols1, kS1, fyim + m0, s.m2, s.W, mc, s.Wp8, kCols1);
@@ -532,8 +505,8 @@ __global__ void __launch_bounds__(kThreads2) fno2d_mix_inverse_h(
     }
   }
   cp_async_commit();
-  release_next_stage();
-  wait_previous_stage();  // the spectrum is S1's
+  launch_dependents();
+  wait_prerequisites();  // the spectrum is S1's
   cp_async_wait<0>();
   __syncthreads();
 
@@ -676,7 +649,7 @@ __global__ void __launch_bounds__(kThreads3) fno2d_inverse_w(
     stage_rows(gy, 2 * gy_s, gyre, s.W, s.m2, s.W, s.m2, s.Wp8);
     stage_rows(gy + gy_s, 2 * gy_s, gyim, s.W, s.m2, s.W, s.m2, s.Wp8);
   }
-  wait_previous_stage();  // Z is S2's
+  wait_prerequisites();  // Z is S2's
   stage_rows(zraw, z_s, z + (size_t(bo) * s.H + h0) * 2 * s.m2, 2 * s.m2, rows, 2 * s.m2,
              kRows3, s.J);
   cp_async_commit();
@@ -762,30 +735,6 @@ __global__ void __launch_bounds__(kThreads3) fno2d_inverse_w(
     else
       op[0] = v[0];
   }
-}
-
-// Launch `kernel` as clusters of cluster_dims blocks that may start before the previous
-// kernel on `stream` ends (see wait_previous_stage); returns the first error of the
-// launch.
-template <typename... Params, typename... Args>
-cudaError_t launch_clusters(void (*kernel)(Params...), dim3 grid, int threads, size_t smem,
-                            dim3 cluster_dims, cudaStream_t stream, Args... args) {
-  cudaLaunchAttribute attrs[2];
-  attrs[0].id = cudaLaunchAttributeClusterDimension;
-  attrs[0].val.clusterDim.x = cluster_dims.x;
-  attrs[0].val.clusterDim.y = cluster_dims.y;
-  attrs[0].val.clusterDim.z = cluster_dims.z;
-  attrs[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attrs[1].val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = attrs;
-  cfg.numAttrs = 2;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
-  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <int kEpilogue>

@@ -22,6 +22,7 @@ from blindno_torch.ops.fno_layer import fno1d_layer_plain, fno2d_layer_plain
 from blindno_torch.ops.spectral import dft_matrices_2d, spectral_conv1d, spectral_conv2d
 
 _INT_MAX = 2**31 - 1
+_F32 = torch.float32
 _CUDA_ERROR_INVALID_VALUE = 1
 _INVALID_2D_HINT = ("; a stage of this shape may need more shared memory than a block has "
                     "(the limits are in the source note of csrc/fno2d_layer.cu)")
@@ -35,18 +36,20 @@ def _forward_only(name, *tensors):
 
 
 def _check_tensors(name, x, wr, wi, pk, pb):
-    """Device, dtype and contiguity; ``pk`` may have any strides."""
-    if x.device.type != "cuda":
+    """Device, dtype and contiguity; ``pk`` may have any strides. Returns x's device
+    index. Called on every launch, so it asks each tensor as little as it can."""
+    if not x.is_cuda:
         raise ValueError(f"{name}: the kernel takes CUDA tensors, got {x.device}")
-    named = {"x": x, "wr": wr, "wi": wi, "pk": pk, "pb": pb}
-    for k, t in named.items():
+    dev = x.get_device()
+    for k, t in (("x", x), ("wr", wr), ("wi", wi), ("pk", pk), ("pb", pb)):
         if t is None:
             continue
-        if t.device != x.device or t.dtype != torch.float32:
+        if t.dtype is not _F32 or t.get_device() != dev:
             raise ValueError(f"{name}: {k} must be float32 on {x.device}, "
                              f"got {t.dtype} on {t.device}")
         if k != "pk" and not t.is_contiguous():
             raise ValueError(f"{name}: {k} must be contiguous")
+    return dev
 
 
 def _check_pointwise(name, c, cout, pk, pb):
@@ -71,7 +74,8 @@ def _ptr(t):
 
 
 def _check2d(name, x, wr, wi, pk, pb):
-    _check_tensors(name, x, wr, wi, pk, pb)
+    """The 2-D kernel's checks; returns x's device index."""
+    dev = _check_tensors(name, x, wr, wi, pk, pb)
     if x.dim() != 4 or wr.dim() != 4 or wr.shape != wi.shape:
         raise ValueError(f"{name}: want x (B, C, H, W) and wr, wi (C, Cout, 2*m1, m2) of one "
                          f"shape, got {tuple(x.shape)}, {tuple(wr.shape)}, {tuple(wi.shape)}")
@@ -82,49 +86,55 @@ def _check2d(name, x, wr, wi, pk, pb):
     _check_pointwise(name, c, cout, pk, pb)
     _check_indexing(name, x.numel(), b * cout * h * w, wr.numel(),
                     2 * b * c * wr.shape[2] * wr.shape[3], 2 * b * cout * h * wr.shape[3])
+    return dev
 
 
 def _launch2d(name, x, wr, wi, pk, pb, epilogue):
-    _check2d(name, x, wr, wi, pk, pb)
+    dev = _check2d(name, x, wr, wi, pk, pb)
     lib = _build.library()
     b, c, h, w = x.shape
     cout, k, m2 = wr.shape[1:]
     mats = dft_matrices_2d(h, w, k // 2, m2, x.dtype, x.device)
     # scratch of the kernel's three stages: the spectrum (m2, B*C, 2*m1, re/im) and the
     # inverse-H output Z (B, Cout, H, m2, re/im)
-    spec = torch.empty((m2, b * c, k, 2), dtype=x.dtype, device=x.device)
-    z = torch.empty((b, cout, h, m2, 2), dtype=x.dtype, device=x.device)
-    out = torch.empty((b, cout, h, w), dtype=x.dtype, device=x.device)
+    spec = x.new_empty((m2, b * c, k, 2))
+    z = x.new_empty((b, cout, h, m2, 2))
+    out = x.new_empty((b, cout, h, w))
     pk_si, pk_so = pk.stride() if pk is not None else (0, 0)
     err = lib.fno2d_layer_forward(
         _ptr(x), *map(_ptr, mats), _ptr(wr), _ptr(wi), _ptr(pk), pk_si, pk_so, _ptr(pb),
-        _ptr(spec), _ptr(z), _ptr(out), b, c, cout, h, w, k // 2, m2, epilogue,
-        x.device.index or 0,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        _ptr(spec), _ptr(z), _ptr(out), b, c, cout, h, w, k // 2, m2, epilogue, dev,
+        torch.cuda.current_stream(dev).cuda_stream)
     _raise_on_error(lib, name, err, _INVALID_2D_HINT if err == _CUDA_ERROR_INVALID_VALUE else "")
     return out
 
 
 def _launch1d(name, x, wr, wi, pk, pb, dc_half, epilogue):
-    _check_tensors(name, x, wr, wi, pk, pb)
-    if x.dim() != 3 or wr.dim() != 3 or wr.shape != wi.shape:
+    dev = _check_tensors(name, x, wr, wi, pk, pb)
+    xs, ws = x.shape, wr.shape
+    if len(xs) != 3 or len(ws) != 3 or ws != wi.shape:
         raise ValueError(f"{name}: want x (B, C, N) and wr, wi (C, Cout, modes) of one shape, "
-                         f"got {tuple(x.shape)}, {tuple(wr.shape)}, {tuple(wi.shape)}")
-    b, c, n = x.shape
-    cin, cout, modes = wr.shape
+                         f"got {tuple(xs)}, {tuple(ws)}, {tuple(wi.shape)}")
+    b, c, n = xs
+    cin, cout, modes = ws
     if cin != c or c == 0 or not 1 <= modes <= n // 2 + 1:
-        raise ValueError(f"{name}: weights {tuple(wr.shape)} do not fit x {tuple(x.shape)} "
+        raise ValueError(f"{name}: weights {tuple(ws)} do not fit x {tuple(xs)} "
                          f"(want {c} input channels and 1 <= modes <= N//2+1)")
     _check_pointwise(name, c, cout, pk, pb)
-    _check_indexing(name, x.numel(), b * cout * n, wr.numel())
+    _check_indexing(name, b * c * n, b * cout * n, cin * cout * modes)
+    out = torch.empty_like(x) if cout == c else x.new_empty((b, cout, n))
+    if pk is None:
+        pk_ptr = pb_ptr = pk_si = pk_so = 0
+    else:
+        pk_ptr, pb_ptr = pk.data_ptr(), pb.data_ptr()
+        pk_si, pk_so = pk.stride()
     lib = _build.library()
-    out = torch.empty((b, cout, n), dtype=x.dtype, device=x.device)
-    pk_si, pk_so = pk.stride() if pk is not None else (0, 0)
     err = lib.fno1d_layer_forward(
-        _ptr(x), _ptr(wr), _ptr(wi), _ptr(pk), pk_si, pk_so, _ptr(pb), _ptr(out), b, c, cout,
-        n, modes, int(dc_half), epilogue, x.device.index or 0,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on_error(lib, name, err)
+        x.data_ptr(), wr.data_ptr(), wi.data_ptr(), pk_ptr, pk_si, pk_so, pb_ptr,
+        out.data_ptr(), b, c, cout, n, modes, 1 if dc_half else 0, epilogue, dev,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        _raise_on_error(lib, name, err)
     return out
 
 

@@ -6,12 +6,14 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``. It
 1. reads the card (``torch.cuda`` and ``nvidia-smi``);
 2. builds the FNO-layer kernels from ``blindno_torch/csrc`` with nvcc (one process per
    source, all at once; timed);
-3. holds each kernel against its plain PyTorch version at the serving paths' shapes,
-   a ragged one and, in 2-D, the ncfpe2d heads' and the NIOFNO2D inner branch's shapes,
+3. holds each kernel against its plain PyTorch version at the serving paths' shapes
+   (in 1-D the gpe1d heads' among them), a ragged one and, in 2-D, the ncfpe2d heads'
+   and the NIOFNO2D inner branch's shapes,
    and times kernel, plain version and a ``torch.fft`` restatement on
    the device (each replayed from a CUDA graph, so host launch costs drop out; the
    kernel's replayed output is held against the plain version too), the wrapper's host
-   cost per call, and the kernels' stages in a ``torch.profiler`` trace;
+   cost per call beside that of one ``torch.add`` on the same input, and the kernels'
+   stages in a ``torch.profiler`` trace;
 4. serves the fpe2d NIO model at the width of ``bench.py`` (seeded weights, calibrated
    BatchNorm) through ``predict_fields`` on 8 sets of 100 snapshots of a 61x61 grid,
    counts the kernel launches, checks the result against the CPU plain path, and times
@@ -20,7 +22,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``. It
 5. serves the fpe1d NIO models (``NIOFP1D`` and the FNO-branch ``NIOFNO1D`` at the
    suite's width) the same way on 64 sets of 100 snapshots of 80 points, batch 16, and
    drives the ``NIOFP1D`` heads' ``SpectralConv1d`` modules (the 1-D spectral-conv
-   kernel) on one batch;
+   kernel) on one batch; then serves the gpe1d NIO (``NIOFP1D`` at the GPE suite's
+   width) on 64 sets of 101 snapshots of 128 points;
 6. prints one JSON line per phase, the nvidia-smi line, the kernels line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -52,9 +55,12 @@ RAGGED_SHAPE = (3, 5, 40, 36, 7, 9)
 NCFPE2D_HEADS = (4, 12, 100, 100, 32, 32)
 NIOFNO2D_INNER = (400, 4, 76, 76, 12, 12)
 # 1-D (B, C, N, modes, dc_half): the fpe1d heads' layers at batch 16, the FNO-branch
-# model's inner FNO1d over 16 x 100 snapshots, and a ragged shape without DC halving
+# model's inner FNO1d over 16 x 100 snapshots, the gpe1d NIO heads (width 20, 40 modes,
+# 128 points padded to 160; blindno/suites/registry.py:139-141), and a ragged shape
+# without DC halving
 HEADS_1D = (16, 30, 100, 15, True)
 BRANCH_1D = (1600, 4, 100, 12, True)
+GPE_HEADS_1D = (16, 20, 160, 40, True)
 RAGGED_1D = (3, 5, 37, 7, False)
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): f32 outside the tensor cores, HBM3
 PEAK_F32_FLOP_S = 67e12
@@ -65,6 +71,9 @@ MODEL = dict(width=12, modes=32, n_basis=25, neurons=100, fno_layers=3)
 # predict_fields default
 SERVE_1D = dict(m=64, l=100, n=80, batch=16, timed_rounds=5)
 MODEL_1D = dict(width=30, modes=15)
+# gpe1d (blindno/suites/registry.py:132-141): 101 snapshots of 128 points a set
+SERVE_GPE = dict(m=64, l=101, n=128, batch=16, timed_rounds=5)
+MODEL_GPE = dict(width=20, modes=40, head_dims=(1,))
 
 
 def kernel_wrappers():
@@ -234,6 +243,8 @@ def check_and_time(cases, variants, library, tol, stats):
                 lib_fn = library[name]
                 check_close(f"{name} fft restatement", lib_fn(*args, act), want, tol)
                 eager_ms, host_ms = time_ms(lambda: kernel(*args), 200, host=True)
+                # the host's cost of one plain PyTorch call, as a yardstick beside it
+                op_host_ms = time_ms(lambda: torch.add(args[0], 1.0), 200, host=True)[1]
                 # the kernels' launches replayed from a graph hold to the plain version too
                 kernel_ms, replayed = graph_ms(lambda: kernel(*args), result=True)
                 row.update(max_abs_err_graph=check_close(f"{name} act={act} {shape} replayed",
@@ -242,6 +253,7 @@ def check_and_time(cases, variants, library, tol, stats):
                            plain_ms=graph_ms(lambda: plain(*args)),
                            library_ms=graph_ms(lambda: lib_fn(*args, act)),
                            eager_kernel_ms=eager_ms, wrapper_host_ms=host_ms,
+                           torch_add_host_ms=op_host_ms,
                            stages_ms=stage_ms(lambda: kernel(*args)),
                            **layer_bound(bound_shape, act is not None))
             emit("kernels", **row)
@@ -296,6 +308,9 @@ def phase_kernels():
                        KERNEL_TOL_1D, stats)
         check_and_time([(BRANCH_1D, True, False)], [layer_1d(True), layer_1d(False)], library,
                        KERNEL_TOL_1D, stats)
+        check_and_time([(GPE_HEADS_1D, True, False)],
+                       [layer_1d(True), layer_1d(False), spectral_1d], library, KERNEL_TOL_1D,
+                       stats)
     return stats
 
 
@@ -323,10 +338,12 @@ def calibrate_bn(model, x, grid, rng):
             m.momentum = 0.1
 
 
-def serve(label, cpu_model, inputs, grid, batch, rounds, layer, per_forward, min_spread=1e-5):
+def serve(label, cpu_model, inputs, grid, batch, rounds, layer, per_forward, min_spread=1e-5,
+          out_dim=2):
     """One model's main path: ``predict_fields`` on the card with every launch counted
     (``per_forward`` launches of kernel ``layer`` per forward and no other), its output
-    checked against the CPU plain path on the first batch, and its throughput. The
+    of ``out_dim`` fields checked against the CPU plain path on the first batch, and its
+    throughput. The
     outputs of the first two sets must differ by ``min_spread`` at least, so that the
     output depends on the input. Returns the model on the card, the launch counts and
     the fields of its phase line."""
@@ -340,7 +357,7 @@ def serve(label, cpu_model, inputs, grid, batch, rounds, layer, per_forward, min
     first_s = time.perf_counter() - t0
     expect_launches(f"serving {label}", counts, **{layer: per_forward * n_batches})
     spread = np.abs(out[0] - out[1]).max()
-    want_shape = (m, *grid.shape[:-1], 2)
+    want_shape = (m, *grid.shape[:-1], out_dim)
     if out.shape != want_shape or not np.isfinite(out).all() or spread < min_spread:
         raise RuntimeError(f"serving {label}: shape {out.shape} (want {want_shape}), finite "
                            f"{np.isfinite(out).all()}, difference between two sets {spread:.3g}")
@@ -421,31 +438,39 @@ def phase_serve():
 
 
 def phase_serve1d():
-    """The fpe1d serving path: NIOFP1D (Encoder1D branch) and NIOFNO1D (inner FNO1d
-    branch), each with two FNO1d heads of three layers, at the suite's width."""
+    """The 1-D serving paths: the fpe1d NIOFP1D (Encoder1D branch) and NIOFNO1D (inner
+    FNO1d branch), each with two FNO1d heads of three layers at the suite's width, and
+    the gpe1d NIOFP1D with one head at the GPE suite's width."""
     from blindno_torch.models.nio1d import NIOFNO1D, NIOFP1D
+    from blindno_torch.nn.cnn import ENC_GPE128
 
-    m, l, n, batch = SERVE_1D["m"], SERVE_1D["l"], SERVE_1D["n"], SERVE_1D["batch"]
     # the snapshots of one set share that set's profile, as the snapshots of one
     # solution do; with independent noise alone, the mean over a set is nearly the same
     # for every set, and so is the FNO-branch model's output
-    sets = lambda rng, k: (rng.standard_normal((k, 1, n))
-                           + 0.5 * rng.standard_normal((k, l, n))).astype(np.float32)
-    inputs = sets(np.random.default_rng(2), m)
-    grid = np.linspace(0.0, 1.0, n, dtype=np.float32).reshape(n, 1)
-    calib = sets(np.random.default_rng(3), 1)
+    def sets(rng, k, l, n):
+        return (rng.standard_normal((k, 1, n))
+                + 0.5 * rng.standard_normal((k, l, n))).astype(np.float32)
+
     launches = {"fno1d_layer": 0}
-    # (name, class, fno1d_layer launches per forward, least spread between two sets'
-    # outputs): 3 layers in each of 2 heads, and the FNO-branch model's 2 inner layers.
-    # The untrained FNO-branch model's output moves by about 7e-5 of its scale between
-    # sets (3.6e-6 at a scale of 0.054 in a CPU run), so its floor is lower.
-    for label, cls, per_forward, min_spread in (("NIOFP1D", NIOFP1D, 6, 1e-5),
-                                                ("NIOFNO1D", NIOFNO1D, 8, 1e-7)):
-        cpu_model = cls(**MODEL_1D, generator=torch.Generator().manual_seed(0), device="cpu")
-        calibrate_bn(cpu_model, calib, grid, np.random.default_rng(7))
+    # (label, class, config, serving sizes, fno1d_layer launches per forward, least
+    # spread between two sets' outputs, output fields): 3 layers in each head, and the
+    # FNO-branch model's 2 inner layers. The untrained FNO-branch model's output moves
+    # by about 7e-5 of its scale between sets (3.6e-6 at a scale of 0.054 in a CPU run),
+    # so its floor is lower.
+    paths = (("NIOFP1D", NIOFP1D, MODEL_1D, SERVE_1D, 6, 1e-5, 2),
+             ("NIOFNO1D", NIOFNO1D, MODEL_1D, SERVE_1D, 8, 1e-7, 2),
+             ("NIOFP1D gpe1d", NIOFP1D, dict(MODEL_GPE, encoder_final_convs=ENC_GPE128),
+              SERVE_GPE, 3, 1e-5, 1))
+    for label, cls, config, sizes, per_forward, min_spread, out_dim in paths:
+        m, l, n, batch = sizes["m"], sizes["l"], sizes["n"], sizes["batch"]
+        inputs = sets(np.random.default_rng(2), m, l, n)
+        grid = np.linspace(0.0, 1.0, n, dtype=np.float32).reshape(n, 1)
+        cpu_model = cls(**config, generator=torch.Generator().manual_seed(0), device="cpu")
+        calibrate_bn(cpu_model, sets(np.random.default_rng(3), 1, l, n), grid,
+                     np.random.default_rng(7))
         model, counts, fields = serve(label, cpu_model, inputs, grid, batch,
-                                      SERVE_1D["timed_rounds"], "fno1d_layer", per_forward,
-                                      min_spread)
+                                      sizes["timed_rounds"], "fno1d_layer", per_forward,
+                                      min_spread, out_dim)
         launches["fno1d_layer"] += counts["fno1d_layer"]
 
         with torch.inference_mode():
@@ -453,7 +478,7 @@ def phase_serve1d():
             g = torch.tensor(grid, device="cuda")
             # the encoder: Encoder1D over every snapshot, or the inner FNO1d over every
             # (snapshot, grid) pair
-            if label == "NIOFP1D":
+            if cls is NIOFP1D:
                 encoder = lambda: model.deeponet.branch(xb)
                 snap_fields = model.deeponet(xb, g)
             else:
@@ -477,7 +502,7 @@ def phase_serve1d():
                          h2d_ms=time_ms(lambda: torch.as_tensor(inputs[:batch]).to("cuda"), 10))
             split["rest_graph_ms"] = (split["forward_graph_ms"] - split["encoder_graph_ms"]
                                       - split["heads_graph_ms"])
-        emit("serve1d", model=label, config=MODEL_1D, **fields, device_split=split)
+        emit("serve1d", model=label, config=config, **fields, device_split=split)
     return launches
 
 

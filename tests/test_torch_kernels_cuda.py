@@ -20,10 +20,14 @@ pytestmark = pytest.mark.cuda
 # place in shared memory and whose 2*m1 mode rows outnumber the first stage's warps
 SHAPES = [(4, 12, 76, 76, 32, 32), (3, 5, 40, 36, 7, 9), (4, 12, 100, 100, 32, 32),
           (400, 4, 76, 76, 12, 12), (1, 1, 9, 11, 2, 3), (1, 2, 130, 132, 65, 20)]
-# 1-D (B, C, N, modes, dc_half): the fpe1d heads, the FNO-branch model's inner FNO1d,
-# the GPE width, and a ragged shape without the DC halving
+# 1-D (B, C, N, modes, dc_half[, Cout], Cout = C unless given): the fpe1d heads, the
+# FNO-branch model's inner FNO1d, the GPE width, a ragged shape without the DC halving,
+# the gpe1d heads, an even N that keeps its Nyquist mode, one batch row with more output
+# than input channels, a long row that the kernel takes in tiles along N, and modes so
+# many that it reads its twiddles from the table alone
 SHAPES_1D = [(16, 30, 100, 15, True), (1600, 4, 100, 12, True), (8, 25, 160, 32, True),
-             (3, 5, 37, 7, False)]
+             (3, 5, 37, 7, False), (16, 20, 160, 40, True), (4, 6, 64, 33, True),
+             (1, 6, 50, 9, True, 11), (2, 8, 4096, 64, False), (2, 1, 2000, 1001, False)]
 TOL_1D = 2e-4  # the 1-D Pallas kernels' tolerance, tests/test_spectral_pallas.py
 
 
@@ -101,17 +105,33 @@ def test_kernel_refuses_a_grid_beyond_its_shared_memory(cuda_device):
 
 
 def _inputs_1d(shape, device):
-    b, c, n, modes, _ = shape
+    b, c, n, modes = shape[:4]
+    cout = shape[5] if len(shape) > 5 else c
     rng = np.random.default_rng(1)
     t = lambda *s: torch.tensor(rng.standard_normal(s).astype(np.float32), device=device)
-    return t(b, c, n), t(c, c, modes), t(c, c, modes), t(c, c), t(c)
+    return t(b, c, n), t(c, cout, modes), t(c, cout, modes), t(c, cout), t(cout)
+
+
+def _replayed(fn):
+    """``fn()``'s output after capturing the call in a CUDA graph and replaying it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return out
 
 
 @pytest.mark.parametrize("apply_act", [True, False])
 @pytest.mark.parametrize("shape", SHAPES_1D)
 def test_fno1d_layer_kernel_matches_plain(cuda_device, shape, apply_act):
     x, wr, wi, pk, pb = _inputs_1d(shape, cuda_device)
-    dc_half = shape[-1]
+    dc_half = shape[4]
     before = fno1d_layer_cuda.launches
     with torch.inference_mode():
         got = fno1d_layer_cuda(x, wr, wi, pk, pb, dc_half, apply_act)
@@ -119,6 +139,9 @@ def test_fno1d_layer_kernel_matches_plain(cuda_device, shape, apply_act):
     torch.cuda.synchronize()
     assert fno1d_layer_cuda.launches == before + 1
     torch.testing.assert_close(got, want, rtol=TOL_1D, atol=TOL_1D)
+    with torch.inference_mode():
+        replayed = _replayed(lambda: fno1d_layer_cuda(x, wr, wi, pk, pb, dc_half, apply_act))
+    torch.testing.assert_close(replayed, want, rtol=TOL_1D, atol=TOL_1D)
 
 
 @pytest.mark.parametrize("dc_half", [True, False])
@@ -132,6 +155,9 @@ def test_spectral_conv1d_kernel_matches_plain(cuda_device, shape, dc_half):
     torch.cuda.synchronize()
     assert spectral_conv1d_cuda.launches == before + 1
     torch.testing.assert_close(got, want, rtol=TOL_1D, atol=TOL_1D)
+    with torch.inference_mode():
+        replayed = _replayed(lambda: spectral_conv1d_cuda(x, wr, wi, dc_half))
+    torch.testing.assert_close(replayed, want, rtol=TOL_1D, atol=TOL_1D)
 
 
 def test_1d_kernel_takes_a_transposed_pointwise_kernel(cuda_device):
@@ -153,3 +179,88 @@ def test_1d_kernel_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
             spectral_conv1d_cuda(x[..., :10].contiguous(), wr, wi)  # 7 modes > 10//2+1
         with pytest.raises(ValueError):
             fno1d_layer_cuda(x, wr, wi, pk[:, :-1], pb)
+
+
+def test_1d_layer_chain_matches_plain_eagerly_and_from_a_graph(cuda_device):
+    """Three consecutive layer calls as a head runs them. Each call may start while the
+    one before it still runs (programmatic dependent launch), and the intermediates are
+    freed between calls, so the allocator hands the third call's output the buffer that
+    the second call reads: a call that read its input or wrote its output before waiting
+    for the call before it would show here. Eagerly, and replayed from one CUDA graph on
+    a new input, against the plain chain."""
+    b, c, n, modes, dc_half = SHAPES_1D[0]
+    rng = np.random.default_rng(3)
+    t = lambda *s, scale=1.0: torch.tensor((scale * rng.standard_normal(s)).astype(np.float32),
+                                           device=cuda_device)
+    layers = [(t(c, c, modes, scale=c ** -0.5), t(c, c, modes, scale=c ** -0.5),
+               t(c, c, scale=c ** -0.5), t(c)) for _ in range(3)]
+
+    def chain(layer, h):
+        for i, (wr, wi, pk, pb) in enumerate(layers):
+            h = layer(h, wr, wi, pk, pb, dc_half, i < 2)
+        return h
+
+    x, x_new = t(b, c, n), t(b, c, n)
+    before = fno1d_layer_cuda.launches
+    with torch.inference_mode():
+        torch.testing.assert_close(chain(fno1d_layer_cuda, x), chain(fno1d_layer_plain, x),
+                                   rtol=TOL_1D, atol=TOL_1D)
+        static_x = x.clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            chain(fno1d_layer_cuda, static_x)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = chain(fno1d_layer_cuda, static_x)
+        static_x.copy_(x_new)
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, chain(fno1d_layer_plain, x_new), rtol=TOL_1D,
+                                   atol=TOL_1D)
+    assert fno1d_layer_cuda.launches == before + 9  # eager, warm-up and capture
+
+
+def test_1d_layer_reads_weights_written_just_before_each_call(cuda_device):
+    """Weights, pk and pb written by a device kernel right before each layer call, as a
+    caller that scales, copies or updates them in place does. Each call may start while
+    the kernel before it still runs (programmatic dependent launch): a call that read
+    its weights before waiting for that kernel would mix in the weights of the call
+    before. In a loop with new weights for every call, made by a kernel into new tensors
+    eagerly and copied into the same buffers in a CUDA graph, against the plain
+    version."""
+    b, c, n, modes, dc_half = SHAPES_1D[0]
+    rng = np.random.default_rng(4)
+    t = lambda *s: torch.tensor(rng.standard_normal(s).astype(np.float32), device=cuda_device)
+    x = t(b, c, n)
+    sets = [(t(c, c, modes), t(c, c, modes), t(c, c), t(c)) for _ in range(4)]
+    with torch.inference_mode():
+        wants = [fno1d_layer_plain(x, *w, dc_half) for w in sets]
+        for i in range(12):
+            wr, wi, pk, pb = (torch.mul(w, 1.0) for w in sets[i % 4])
+            got = fno1d_layer_cuda(x, wr, wi, pk, pb, dc_half)
+            torch.testing.assert_close(got, wants[i % 4], rtol=TOL_1D, atol=TOL_1D)
+        bufs = [torch.empty_like(w) for w in sets[0]]
+
+        def loop():
+            outs = []
+            for i in range(8):
+                for buf, w in zip(bufs, sets[i % 4]):
+                    buf.copy_(w)
+                outs.append(fno1d_layer_cuda(x, *bufs, dc_half))
+            return outs
+
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            loop()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs = loop()
+        for _ in range(3):
+            graph.replay()
+        torch.cuda.synchronize()
+    for i, got in enumerate(outs):
+        torch.testing.assert_close(got, wants[i % 4], rtol=TOL_1D, atol=TOL_1D)

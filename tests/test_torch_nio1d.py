@@ -35,14 +35,25 @@ SMALL = {
     "nio": (JNIOFP1D, NIOFP1D, dict(width=6, modes=8, n_basis=7, neurons=16, fno_layers=2)),
     "fno": (JNIOFNO1D, NIOFNO1D, dict(width=6, modes=8, fno_layers=2)),
 }
+# (JAX model, port model, config, grid points, output fields) of the committed
+# full-width checkpoints: fpe1d on 80 points, the GPE suites on 128
+# (blindno/suites/registry.py:88-90,111-173). Both packages' encoder schedules are the
+# same tuples (test_encoder_schedules_match_jax).
+_GPE_NIO = dict(head_dims=(1,), encoder_final_convs=ENC_GPE128)
 FULL = {
-    "fpe1d_nio": (JNIOFP1D, NIOFP1D, dict(width=30, modes=15)),
-    "fpe1d_fno": (JNIOFNO1D, NIOFNO1D, dict(width=30, modes=15)),
+    "fpe1d_nio": (JNIOFP1D, NIOFP1D, dict(width=30, modes=15), N, 2),
+    "fpe1d_fno": (JNIOFNO1D, NIOFNO1D, dict(width=30, modes=15), N, 2),
+    "schrodinger1d_nio": (JNIOFP1D, NIOFP1D, dict(width=10, modes=30, **_GPE_NIO), 128, 1),
+    "schrodinger1d_fno": (JNIOFNO1D, NIOFNO1D, dict(width=10, modes=30, head_dims=(1,)), 128, 1),
+    "gpe1d_nio": (JNIOFP1D, NIOFP1D, dict(width=20, modes=40, **_GPE_NIO), 128, 1),
+    "gpe1d_fno": (JNIOFNO1D, NIOFNO1D, dict(width=20, modes=40, head_dims=(1,)), 128, 1),
+    "gpe1d_vgk_nio": (JNIOFP1D, NIOFP1D, dict(width=25, modes=32, fno_layers=4, head_dims=(1, 2),
+                                              encoder_final_convs=ENC_GPE128), 128, 3),
 }
 
 
 def _grid(n=N):
-    """The fpe1d grid, ``blindno/suites/registry.py:_grid_1d``."""
+    """A 1-D suite's grid of n points, ``blindno/suites/registry.py:_grid_1d``."""
     return np.linspace(0.0, 1.0, n, dtype=np.float32).reshape(n, 1)
 
 
@@ -89,21 +100,22 @@ def test_small_nio1d_matches_flax(small_flax, impl):
 
 @pytest.mark.parametrize("name", sorted(FULL))
 def test_full_width_checkpoint_matches_jax_predict_fields(name):
-    """The committed fpe1d checkpoints at full width (``runs/RESULTS.md``)."""
+    """The committed fpe1d, schrodinger1d and gpe1d checkpoints at full width
+    (``runs/RESULTS.md``), each on its suite's grid."""
     from blindno.train.checkpoint import load_best
 
-    jcls, cls, cfg = FULL[name]
+    jcls, cls, cfg, n, fields = FULL[name]
     ckpt = load_best(os.path.join(CKPT, name))
     variables = {"params": ckpt["params"], "batch_stats": ckpt.get("batch_stats") or {}}
-    x = np.random.default_rng(5).standard_normal((3, 10, N)).astype(np.float32)
+    x = np.random.default_rng(5).standard_normal((3, 10, n)).astype(np.float32)
     want = jax_predict_fields(jcls(**cfg), variables["params"], variables["batch_stats"], x,
-                              _grid(), batch=2)
-    got = predict_fields(_torch_model(cls, variables, **cfg), x, _grid(), batch=2, device="cpu")
-    assert got.shape == want.shape == (3, N, 2)
+                              _grid(n), batch=2)
+    got = predict_fields(_torch_model(cls, variables, **cfg), x, _grid(n), batch=2, device="cpu")
+    assert got.shape == want.shape == (3, n, fields)
     assert np.isfinite(got).all() and np.std(want) > 1e-3
     np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
     err = relative_l2_per_field(torch.tensor(got), torch.tensor(want)).numpy()
-    assert err.shape == (3, 2) and err.max() < TOL
+    assert err.shape == (3, fields) and err.max() < TOL
 
 
 @pytest.mark.parametrize("n,final_convs", [(128, ENC_GPE128), (80, ENC_FPE80)])
