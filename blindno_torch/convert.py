@@ -16,7 +16,9 @@ or :class:`blindno_torch.models.nio1d.NIOFNO1D`:
   ``FNO1d_k`` becomes ``heads.{k-1}``.
 
 Every flax leaf must map to one torch key and every torch module must receive all of
-its tensors: a left-over or missing key raises ``KeyError``.
+its tensors: a left-over or missing key raises ``KeyError``. A tree with no statistics at
+all, such as a gradient tree, goes in with ``batch_stats=None``: its BatchNorm modules
+then give weight and bias only.
 """
 from __future__ import annotations
 
@@ -79,13 +81,16 @@ def _fno_branch_names(key):
 
 def from_flax(params, batch_stats) -> dict:
     """Nested dicts of numpy arrays -> a state dict of float32 tensors for the model whose
-    flax tree this is (see the module note)."""
+    flax tree this is (see the module note); ``batch_stats=None`` for a tree without
+    statistics."""
     groups = _groups(params, "", {})
     _groups(batch_stats or {}, "stats:", groups)
     state = {}
     for module_path, leaves in groups.items():
         prefix, kind = _match(module_path)
         table = _KINDS[kind]
+        if batch_stats is None:
+            table = {k: v for k, v in table.items() if not k.startswith("stats:")}
         missing, extra = table.keys() - leaves.keys(), leaves.keys() - table.keys()
         if missing or extra:
             raise KeyError(f"flax module {module_path!r}: missing {sorted(missing)}, "
@@ -93,7 +98,7 @@ def from_flax(params, batch_stats) -> dict:
         for leaf, (name, fn) in table.items():
             a = np.asarray(leaves[leaf], np.float32)
             state[f"{prefix}.{name}"] = torch.tensor(fn(a) if fn else a)
-        if kind == "bn":
+        if kind == "bn" and batch_stats is not None:
             state[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
     if "MeanFieldFusion_0" in params and "DeepOnetNoBias_0" not in params:
         state = {_fno_branch_names(k): v for k, v in state.items()}

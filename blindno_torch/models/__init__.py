@@ -2,9 +2,8 @@
 
 
 def check_eval_only(name, training, module):
-    """The models run in eval mode only until the training slice lands: raise when asked
-    to train or when ``module`` is in train mode."""
+    """The 1-D models run in eval mode only until 1-D training lands (the FNO1d layer's
+    backward): raise when asked to train or when ``module`` is in train mode."""
     if training or module.training:
-        raise NotImplementedError(f"{name} runs in eval mode only; training (set "
-                                  "subsampling, batch-statistics BN, the backward) comes "
-                                  "with the training slice")
+        raise NotImplementedError(f"{name} runs in eval mode only; 1-D training (the FNO1d "
+                                  "layer's backward) comes with a later training slice")

@@ -9,7 +9,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from blindno_torch.nn.torch_layers import conv1d, conv2d, leaky_relu, linear
+from blindno_torch.nn.torch_layers import (BatchNorm1d, BatchNorm2d, conv1d, conv2d,
+                                           leaky_relu, linear)
 
 ENC_FPE80 = ((5, 1), (5, 0), (4, 0))           # 1-D FPE, N=80
 ENC_GPE128 = ((5, 1), (5, 0), (7, 0), (4, 0))  # 1-D GPE, N=128
@@ -21,7 +22,7 @@ class ConvBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, kernel_size, stride, padding,
                  generator: torch.Generator, ndim: int = 2):
         super().__init__()
-        conv, bn = (conv1d, nn.BatchNorm1d) if ndim == 1 else (conv2d, nn.BatchNorm2d)
+        conv, bn = (conv1d, BatchNorm1d) if ndim == 1 else (conv2d, BatchNorm2d)
         self.conv = conv(in_channels, out_channels, kernel_size, stride, padding, generator)
         self.bn = bn(out_channels)
 
@@ -56,7 +57,13 @@ class Encoder1D(nn.Module):
 
 class Encoder2D(nn.Module):
     """(B, L, H, W) -> (B, L, n_out). ``final_kernel`` collapses the last map to 1x1:
-    (2, 1) for 61x61 grids, (3, 2) for 80x80."""
+    (2, 1) for 61x61 grids, (3, 2) for 80x80.
+
+    It computes in the snapshots' dtype. bfloat16 snapshots (the training step's
+    ``encoder_bn32`` mode) run the convs and ``fc`` in bfloat16 under ``torch.autocast``
+    scoped to this module, with the weights kept in float32; BatchNorm computes in
+    float32 and hands bfloat16 on. The output is then bfloat16.
+    """
 
     def __init__(self, n_out: int, final_kernel=(2, 1), generator: torch.Generator | None = None):
         super().__init__()
@@ -77,7 +84,8 @@ class Encoder2D(nn.Module):
 
     def forward(self, x):
         b, l, hh, ww = x.shape
-        h = self.blocks(x.reshape(b * l, 1, hh, ww)).reshape(b, l, -1)
-        if h.shape[-1] != self.out_features:
-            raise ValueError(f"Encoder2D did not collapse the grid: got {h.shape[-1]} features")
-        return self.fc(h)
+        with torch.autocast(x.device.type, torch.bfloat16, enabled=x.dtype == torch.bfloat16):
+            h = self.blocks(x.reshape(b * l, 1, hh, ww)).reshape(b, l, -1)
+            if h.shape[-1] != self.out_features:
+                raise ValueError(f"Encoder2D did not collapse the grid: got {h.shape[-1]} features")
+            return self.fc(h)

@@ -8,7 +8,7 @@ import torch
 from torch import nn
 from torch.nn.utils import skip_init
 
-from blindno_torch.nn.torch_layers import leaky_relu
+from blindno_torch.nn.torch_layers import BatchNorm1d, leaky_relu
 from blindno_torch.utils import torch_init as tinit
 
 
@@ -25,7 +25,7 @@ class FFN(nn.Module):
         for layer in self.layers:
             tinit.kaiming_uniform_leaky_(layer.weight, 0.01, g)
             nn.init.zeros_(layer.bias)
-        self.norms = nn.ModuleList(nn.BatchNorm1d(neurons) for _ in range(n_hidden_layers - 1))
+        self.norms = nn.ModuleList(BatchNorm1d(neurons) for _ in range(n_hidden_layers - 1))
 
     def forward(self, x):
         x = leaky_relu(self.layers[0](x))
@@ -36,7 +36,9 @@ class FFN(nn.Module):
 
 class DeepOnetNoBias(nn.Module):
     """``(branch(u) . trunk(x)^T + b0) / sqrt(p)``: branch (B, L, p), trunk (N, p),
-    result (B, L, N)."""
+    result (B, L, N) in the trunk's dtype. A bfloat16 branch output goes to the trunk's
+    float32 before the contraction, where JAX promotes it
+    (``blindno/nn/deeponet.py:111-116``)."""
 
     def __init__(self, branch: nn.Module, trunk: nn.Module):
         super().__init__()
@@ -47,4 +49,5 @@ class DeepOnetNoBias(nn.Module):
     def forward(self, u, x):
         weights = self.branch(u)
         basis = self.trunk(x)
-        return (torch.einsum("blp,np->bln", weights, basis) + self.b0) / math.sqrt(basis.shape[-1])
+        return ((torch.einsum("blp,np->bln", weights.to(basis.dtype), basis) + self.b0)
+                / math.sqrt(basis.shape[-1]))

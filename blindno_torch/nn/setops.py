@@ -1,12 +1,42 @@
-"""Set operations of the NIO family (counterpart of ``blindno/nn/setops.py``): masked
-means and the frozen mean-field fusion. Train-time set subsampling comes with the
-training slice."""
+"""Set operations of the NIO family (counterpart of ``blindno/nn/setops.py``): train-time
+set subsampling, masked means and the frozen mean-field fusion."""
 from __future__ import annotations
 
 import torch
 from torch import nn
 
 from blindno_torch.utils import torch_init as tinit
+
+
+def subsample_set(x, l_min: int = 50, generator: torch.Generator | None = None,
+                  indices=None, mask=None):
+    """Train-time random set subsample with the JAX package's semantics
+    (``blindno/nn/setops.py:33-54``): L_max indices drawn with replacement, an effective
+    length L ~ U{l_min, ..., L_max-1} (L = l_min where l_min >= L_max, as JAX clamps), and
+    the mask ``arange(L_max) < L``. All L_max gathered snapshots go on to the encoder, so
+    BatchNorm's batch statistics cover all of them; only the means are masked.
+
+    x: (B, L_max, ...). Returns the gathered x and the (L_max,) float32 mask, both on x's
+    device. The draw is taken from ``generator`` on its own device. A caller that must
+    reproduce another framework's draw passes ``indices`` (L_max,) and ``mask`` (L_max,)
+    instead.
+    """
+    l_max = x.shape[1]
+    if indices is None:
+        if generator is None or mask is not None:
+            raise ValueError("subsample_set: pass a torch.Generator, or both indices and mask")
+        dev = generator.device
+        l_eff = torch.randint(l_min, max(l_max, l_min + 1), (), generator=generator, device=dev)
+        indices = torch.randint(0, l_max, (l_max,), generator=generator, device=dev)
+        mask = (torch.arange(l_max, device=dev) < l_eff).float()
+    elif mask is None:
+        raise ValueError("subsample_set: injected indices need their mask")
+    indices = torch.as_tensor(indices, device=x.device)
+    mask = torch.as_tensor(mask, dtype=torch.float32, device=x.device)
+    if indices.shape != (l_max,) or mask.shape != (l_max,):
+        raise ValueError(f"subsample_set: want indices and mask of shape ({l_max},), got "
+                         f"{tuple(indices.shape)} and {tuple(mask.shape)}")
+    return x.index_select(1, indices), mask
 
 
 def masked_mean(x, mask, axis: int = 1):

@@ -2,17 +2,61 @@
 (counterpart of ``blindno/nn/torch_layers.py``).
 
 Builders draw their initial weights from an explicit generator; ``skip_init`` keeps
-the module constructors from touching the global RNG. BatchNorm is ``nn.BatchNorm1d``
-/ ``nn.BatchNorm2d`` with torch's defaults, eps 1e-5 and momentum 0.1, which are the JAX
-package's (flax's momentum 0.9 is the same running average).
+the module constructors from touching the global RNG. :class:`BatchNorm1d` and
+:class:`BatchNorm2d` are the counterparts of ``TorchBatchNorm``: torch's eps 1e-5 and
+momentum 0.1, which are the JAX package's (flax's momentum 0.9 is the same running
+average), with flax's running-variance update in train mode.
 """
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.nn.utils import skip_init
 
 from blindno_torch.utils import torch_init as tinit
+
+
+class _FlaxRunningVar:
+    """Train-mode BatchNorm as flax computes it (``blindno/nn/torch_layers.py:88-107``).
+
+    Both normalize with the biased batch variance, but torch updates ``running_var``
+    with the unbiased one, n/(n-1) times larger, where flax takes the biased one. Train
+    mode therefore runs torch's own batch norm on copies of the running statistics (its
+    backward keeps them, so they must not change after it) and then takes the factor out
+    of the update: torch added ``m * n/(n-1) * var`` to ``(1-m) * running_var``, and that
+    term is scaled by (n-1)/n. This costs a few operations on C-sized vectors and no pass
+    over the input. The normalization runs in float32 whatever the input's dtype (torch's
+    batch norm takes a bfloat16 input with float32 parameters and statistics), and the
+    result has the input's dtype, as flax's ``dtype=float32`` plus the cast back gives.
+    Eval mode is torch's, unchanged.
+    """
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        self.num_batches_tracked.add_(1)
+        # torch's factor: the momentum, or a cumulative average without one
+        m = (self.momentum if self.momentum is not None
+             else 1.0 / float(self.num_batches_tracked))
+        mean, var = self.running_mean.clone(), self.running_var.clone()
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, m, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            kept = self.running_var * (1.0 - m)
+            self.running_var.copy_(kept + (var - kept) * ((n - 1) / n))
+            self.running_mean.copy_(mean)
+        return y.to(x.dtype)
+
+
+class BatchNorm1d(_FlaxRunningVar, nn.BatchNorm1d):
+    """``nn.BatchNorm1d`` with flax's train-mode running variance (see
+    :class:`_FlaxRunningVar`); the state-dict keys are torch's."""
+
+
+class BatchNorm2d(_FlaxRunningVar, nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with flax's train-mode running variance (see
+    :class:`_FlaxRunningVar`); the state-dict keys are torch's."""
 
 
 def gelu(x):
@@ -21,6 +65,12 @@ def gelu(x):
 
 
 def leaky_relu(x, slope: float = 0.01):
+    """``x`` where ``x >= 0``, else ``slope * x``, with the JAX package's gradient: 1 at
+    0, where ``F.leaky_relu``'s is ``slope``. The two differ only at exact zeros, as the
+    trunk's first layers have at grid point (0, 0) while their biases are zero. Without
+    a gradient to take, ``F.leaky_relu``'s one kernel computes the same values."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return torch.where(x >= 0, x, slope * x)
     return F.leaky_relu(x, slope)
 
 

@@ -4,7 +4,8 @@ An FNO keeps only ``modes << n`` frequencies, so each transform needs just the f
 ``modes`` columns of the DFT matrix (or the ``2*modes`` +/- rows along a full complex
 axis). The spectral layer then becomes a chain of small dense products with explicit
 real and imaginary planes. Every matrix is built in float64 numpy, cast to the target
-dtype, and cached per (n, modes, dtype, device).
+dtype, and cached per (n, modes, dtype, device), as a normal tensor even when first asked
+for under ``torch.inference_mode``.
 """
 from __future__ import annotations
 
@@ -17,8 +18,12 @@ __all__ = ["rdft_forward", "rdft_inverse", "dft_forward_pm", "dft_inverse_pm"]
 
 
 def _pair(re, im, dtype, device):
-    as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=device).contiguous()
-    return as_t(re), as_t(im)
+    # the cached matrices serve inference and autograd alike: never inference tensors,
+    # which autograd refuses to save, even when the first call comes under
+    # torch.inference_mode()
+    with torch.inference_mode(False):
+        as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=device).contiguous()
+        return as_t(re), as_t(im)
 
 
 def _check_rdft(n, modes):

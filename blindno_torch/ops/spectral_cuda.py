@@ -10,15 +10,21 @@
 
 A wrapper given a CPU tensor runs the kernel's plain PyTorch version; given a CUDA
 tensor it launches the kernel or raises. Each wrapper counts its kernel launches in
-its ``launches`` attribute. All are forward only: they raise when autograd would need
-a gradient through them.
+its ``launches`` attribute. :func:`fno2d_layer_cuda` is differentiable: where autograd
+needs a gradient through it, its linear part runs as :class:`FNO2dLinear` (the kernel
+with no activation forward, ``fno2d_layer_backward_plain`` backward) and gelu follows
+outside, as ``blindno/ops/fno_layer.py:137-142`` has it. The other three are forward
+only, the two spectral convolutions as in JAX and the 1-D layer until 1-D training
+lands: they raise when autograd would need a gradient through them.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from blindno_torch.ops import _build
-from blindno_torch.ops.fno_layer import fno1d_layer_plain, fno2d_layer_plain
+from blindno_torch.ops.fno_layer import (fno1d_layer_plain, fno2d_layer_backward_plain,
+                                         fno2d_layer_plain)
 from blindno_torch.ops.spectral import dft_matrices_2d, spectral_conv1d, spectral_conv2d
 
 _INT_MAX = 2**31 - 1
@@ -28,11 +34,14 @@ _INVALID_2D_HINT = ("; a stage of this shape may need more shared memory than a 
                     "(the limits are in the source note of csrc/fno2d_layer.cu)")
 
 
+def _needs_grad(*tensors):
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def _forward_only(name, *tensors):
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(f"{name} is forward only and has no backward yet (the training "
-                           "slice adds it); call it under torch.no_grad() or "
-                           "torch.inference_mode()")
+    if _needs_grad(*tensors):
+        raise RuntimeError(f"{name} is forward only and has no backward yet; call it under "
+                           "torch.no_grad() or torch.inference_mode()")
 
 
 def _check_tensors(name, x, wr, wi, pk, pb):
@@ -160,15 +169,41 @@ def spectral_conv1d_cuda(x, wr, wi, dc_half: bool = True):
     return out
 
 
-def fno2d_layer_cuda(x, wr, wi, pk, pb, apply_act: bool = True):
-    """One FNO2d layer. x: (B, Cin, H, W) f32; wr/wi: (Cin, Cout, 2*m1, m2);
-    pk: (Cin, Cout) (any strides); pb: (Cout,). Returns (B, Cout, H, W)."""
-    _forward_only("fno2d_layer_cuda", x, wr, wi, pk, pb)
+def _fno2d_layer(x, wr, wi, pk, pb, apply_act):
     if x.device.type == "cpu":
         return fno2d_layer_plain(x, wr, wi, pk, pb, apply_act)
     out = _launch2d("fno2d_layer_cuda", x, wr, wi, pk, pb, 2 if apply_act else 1)
     fno2d_layer_cuda.launches += 1
     return out
+
+
+class FNO2dLinear(torch.autograd.Function):
+    """The FNO2d layer's linear part ``spectral_conv2d(x) + pk^T x + pb`` with its
+    gradient (counterpart of ``_linear2d``, ``blindno/ops/fno_layer.py:88-135``): the
+    kernel with no activation forward (its plain version on the CPU), and
+    :func:`fno2d_layer_backward_plain` backward. ``dpk`` comes back in the layout of the
+    ``pk`` it was given, so a transposed view gets its gradient through autograd."""
+
+    @staticmethod
+    def forward(ctx, x, wr, wi, pk, pb):
+        ctx.save_for_backward(x, wr, wi, pk)
+        return _fno2d_layer(x, wr, wi, pk, pb, apply_act=False)
+
+    @staticmethod
+    def backward(ctx, du):
+        return fno2d_layer_backward_plain(*ctx.saved_tensors, du.contiguous())
+
+
+def fno2d_layer_cuda(x, wr, wi, pk, pb, apply_act: bool = True):
+    """One FNO2d layer. x: (B, Cin, H, W) f32; wr/wi: (Cin, Cout, 2*m1, m2);
+    pk: (Cin, Cout) (any strides); pb: (Cout,). Returns (B, Cout, H, W).
+
+    Under no_grad or inference_mode, one call with gelu fused into the kernel's
+    epilogue; where autograd needs a gradient, :class:`FNO2dLinear` and gelu after it."""
+    if _needs_grad(x, wr, wi, pk, pb):
+        u = FNO2dLinear.apply(x, wr, wi, pk, pb)
+        return F.gelu(u) if apply_act else u
+    return _fno2d_layer(x, wr, wi, pk, pb, apply_act)
 
 
 def spectral_conv2d_cuda(x, wr, wi):

@@ -1,0 +1,84 @@
+"""Training throughput of the fpe2d NIO on a CUDA card (counterpart of ``bench.py``'s
+timed loop, which stays as it is).
+
+``python3 -m blindno_torch.tools.bench_train`` builds ``NIOFP2D`` at ``bench.py``'s
+config (width 12, 32 modes, 25 basis functions, 100 neurons, 3 layers; weights from seed
+0), draws its batch as ``bench.py:128-139`` does (B=4 sets of L=100 snapshots of a 61x61
+grid, targets and inputs standard normal from numpy seed 0, the grid on [-1, 1]^2), and
+times the training step of :mod:`blindno_torch.train.step` in float32 and in bfloat16
+``encoder_bn32``: each mode from fresh weights, 3 warm-up steps and then the timed steps
+with a synchronize before each clock read, every step with a fresh set subsample. TF32
+stays off, as the reference runs its products at float32 HIGHEST. It prints one JSON
+line. ``chip_smoke.py`` calls :func:`steps_per_sec` and :func:`bench_batch`.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+CONFIG = dict(width=12, modes=32, n_basis=25, neurons=100, fno_layers=3)  # bench.py:127
+BATCH = dict(b=4, l=100, n=61)                                            # bench.py:133-135
+MODES = {"f32": None, "bf16_encoder_bn32": "bfloat16"}
+WARMUP, STEPS = 3, 20
+
+
+def bench_batch(device):
+    """``bench.py``'s batch: x (B, L, n, n), y (B, n, n, 2), grid (n, n, 2)."""
+    b, l, n = BATCH["b"], BATCH["l"], BATCH["n"]
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((b, l, n, n)).astype(np.float32)
+    y = rng.standard_normal((b, n, n, 2)).astype(np.float32)
+    gx, gy = np.meshgrid(np.linspace(-1, 1, n), np.linspace(-1, 1, n), indexing="ij")
+    grid = np.stack([gx, gy], 2).astype(np.float32)
+    return tuple(torch.tensor(a, device=device) for a in (x, y, grid))
+
+
+def fresh_model(device):
+    """``NIOFP2D`` at the bench config, weights from seed 0, in train mode."""
+    from blindno_torch.models.nio2d import NIOFP2D
+
+    return NIOFP2D(**CONFIG, generator=torch.Generator().manual_seed(0), device=device).train()
+
+
+def steps_per_sec(compute_dtype=None):
+    """Training steps per second on the card in one mode, from fresh weights: WARMUP
+    steps, then STEPS timed on the host clock between two synchronizes."""
+    from blindno_torch.train.step import make_optimizer, train_step
+
+    model = fresh_model("cuda")
+    opt = make_optimizer(model)
+    x, y, grid = bench_batch("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    step = lambda: train_step(model, opt, x, y, grid, generator=gen, compute_dtype=compute_dtype)
+    for _ in range(WARMUP):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(STEPS):
+        loss = step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not torch.isfinite(loss):
+        raise RuntimeError(f"bench_train: {compute_dtype or 'float32'} loss is {loss.item()}")
+    return STEPS / wall
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("bench_train: needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    name, power = (s.strip() for s in smi.stdout.strip().splitlines()[0].split(","))
+    result = {f"steps_per_sec_{mode}": steps_per_sec(cdtype) for mode, cdtype in MODES.items()}
+    print(json.dumps({**result, "config": CONFIG, "batch": BATCH, "timed_steps": STEPS,
+                      "device": name, "power_limit": power}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -24,7 +24,14 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``. It
    drives the ``NIOFP1D`` heads' ``SpectralConv1d`` modules (the 1-D spectral-conv
    kernel) on one batch; then serves the gpe1d NIO (``NIOFP1D`` at the GPE suite's
    width) on 64 sets of 101 snapshots of 128 points;
-6. prints one JSON line per phase, the nvidia-smi line, the kernels line, and last
+6. trains the fpe2d NIO at the ``bench.py`` config (4 sets of 100 snapshots of 61x61):
+   one float32 step on the card against the same step on the CPU plain path (same
+   seeded weights, batch and injected set subsample), its launches counted; a bfloat16
+   ``encoder_bn32`` step from the same weights; twenty float32 steps on one batch with
+   fresh draws, whose loss must fall; steps per second in both modes
+   (``blindno_torch.tools.bench_train``), the step's split, the FNO2d layer's backward
+   per call, the BatchNorm correction's cost and the peak memory;
+7. prints one JSON line per phase, the nvidia-smi line, the kernels line, and last
    ``{"ok": true, "device": {...}}``.
 
 Every path runs with all four kernels' launch counts set to 0 just before it and read
@@ -48,6 +55,14 @@ import torch
 KERNEL_TOL = 3e-4   # the 2-D Pallas kernels' tolerance, tests/test_spectral_pallas.py:47,67
 KERNEL_TOL_1D = 2e-4  # the 1-D Pallas kernels' tolerance, tests/test_spectral_pallas.py:34,59
 SERVE_TOL = 2e-3    # the NIO parity tolerance, tests/test_nio2d_torch_parity.py:190
+# the training step against the CPU, relative L2 per tensor as tests/test_torch_train.py
+# holds the port to JAX: 2e-3, and 1e-2 for the Encoder2D's gradients, below ten leaky
+# ReLU kinks, and for its parameters after the step (its BatchNorm biases start at zero,
+# so after one step they are Adam's update lr * g / (|g| + eps) itself, whose error
+# follows the gradient's where |g| is not far above eps); the bf16 step's loss within
+# 5e-2 of the f32 step's
+TRAIN_TOL, ENCODER_TOL, BF16_LOSS_TOL = 2e-3, 1e-2, 5e-2
+TRAIN_STEPS = 20
 MAIN_SHAPE = (4, 12, 76, 76, 32, 32)   # (B, C, H, W, m1, m2) of the serving path's layers
 RAGGED_SHAPE = (3, 5, 40, 36, 7, 9)
 # the ncfpe2d heads (blindno/suites/registry.py:233: an 80x80 grid padded by a quarter),
@@ -506,6 +521,159 @@ def phase_serve1d():
     return launches
 
 
+def rel_l2(got, want):
+    return float((got.double() - want.double()).norm() / want.double().norm())
+
+
+def train_tol(key):
+    """The tolerance of one entry of :func:`train_errors`: the encoder's gradients and
+    parameters take ENCODER_TOL, its running statistics and everything else TRAIN_TOL."""
+    encoder = key.startswith(("deeponet.branch.", "state deeponet.branch."))
+    return ENCODER_TOL if encoder and "running_" not in key else TRAIN_TOL
+
+
+def train_errors(card, cpu):
+    """Relative L2 errors of the card's step against the CPU's: the loss, each gradient,
+    each parameter and running statistic after the step. The conv biases' gradients (a
+    BatchNorm follows each conv) are zero but for rounding: both must stay below 1e-6 of
+    the largest gradient. Raises naming every tensor out of its tolerance."""
+    (loss, grads, state), (want_loss, want_grads, want_state) = card, cpu
+    top = max(float(g.abs().max()) for g in want_grads.values())
+    zero = [k for k in want_grads if k.endswith("conv.bias")]
+    worst_zero = max(float(g.abs().max()) for k in zero for g in (grads[k], want_grads[k]))
+    if worst_zero >= 1e-6 * top:
+        raise RuntimeError(f"train: a conv bias's gradient is {worst_zero:.3g}, want < 1e-6 x {top:.3g}")
+    errs = {"loss": abs(loss - want_loss) / abs(want_loss)}
+    errs.update({k: rel_l2(grads[k], want_grads[k]) for k in want_grads if k not in zero})
+    errs.update({f"state {k}": rel_l2(state[k], want_state[k]) for k in want_state})
+    bad = {k: e for k, e in errs.items() if not e <= train_tol(k)}
+    if bad:
+        raise RuntimeError(f"train: on the card, relative L2 from the CPU beyond "
+                           f"{TRAIN_TOL} ({ENCODER_TOL} for the encoder): "
+                           f"{bad}; worst ten: {sorted(errs.items(), key=lambda kv: -kv[1])[:10]}")
+    return errs
+
+
+def one_step(model, x, y, grid, draw, compute_dtype=None):
+    """One ``train_step`` from a fresh optimizer; the loss, the gradients and the state
+    after it, on the CPU."""
+    from blindno_torch.train.step import make_optimizer, train_step
+
+    loss = train_step(model, make_optimizer(model), x, y, grid, subsample=draw,
+                      compute_dtype=compute_dtype)
+    grads = {k: p.grad.cpu() for k, p in model.named_parameters() if p.grad is not None}
+    state = {k: v.cpu() for k, v in model.state_dict().items()
+             if not k.endswith("num_batches_tracked")}
+    return float(loss), grads, state
+
+
+def phase_train(kernel_ms, smi_line):
+    """The main path, training: ``train_step`` on NIOFP2D at the ``bench.py`` config.
+    ``kernel_ms`` is the forward kernel's time from phase ``kernels``, printed beside
+    the layer's backward; ``smi_line`` the card's name and power limit."""
+    from blindno_torch.nn.torch_layers import BatchNorm2d
+    from blindno_torch.ops.fno_layer import fno2d_layer_backward_plain
+    from blindno_torch.tools import bench_train
+    from blindno_torch.train.step import make_optimizer, train_step
+
+    b, l = bench_train.BATCH["b"], bench_train.BATCH["l"]
+    rng = np.random.default_rng(5)
+    draw = (rng.integers(0, l, l), (np.arange(l) < rng.integers(50, l)).astype(np.float32))
+    cpu_model = bench_train.fresh_model("cpu")
+    initial = copy.deepcopy(cpu_model.state_dict())
+    x, y, grid = bench_train.bench_batch("cuda")
+
+    # 1-2. one f32 step on the card, its launches counted, against the CPU plain path
+    model = copy.deepcopy(cpu_model).to("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    counts, card = counted(lambda: one_step(model, x, y, grid, draw))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expect_launches("training step", counts, fno2d_layer=6)
+    t0 = time.perf_counter()
+    cpu = one_step(cpu_model, x.cpu(), y.cpu(), grid.cpu(), draw)
+    cpu_s = time.perf_counter() - t0
+    errs = train_errors(card, cpu)
+    encoder = {k: e for k, e in errs.items() if train_tol(k) == ENCODER_TOL}
+    rest = {k: e for k, e in errs.items() if k not in encoder}
+
+    # 3. a bf16 encoder_bn32 step from the same weights
+    model.load_state_dict(initial)
+    loss16, grads16, state16 = one_step(model, x, y, grid, draw, "bfloat16")
+    bf16_gap = abs(loss16 - card[0]) / card[0]
+    # the bf16 encoder's gradients lie this far from the f32 ones (relative L2): bf16 ran
+    bf16_grad_gap = max(rel_l2(grads16[k], card[1][k]) for k in card[1]
+                        if k.startswith("deeponet.branch.") and not k.endswith("conv.bias"))
+    if not (all(torch.isfinite(g).all() for g in grads16.values()) and bf16_gap <= BF16_LOSS_TOL):
+        raise RuntimeError(f"train: bf16 step loss {loss16} against f32 {card[0]} "
+                           f"(gap {bf16_gap:.3g}, want <= {BF16_LOSS_TOL}) or a non-finite gradient")
+
+    # 4. twenty f32 steps on the one batch, a fresh draw each: the loss must fall
+    model.load_state_dict(initial)
+    opt = make_optimizer(model)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    losses = [float(train_step(model, opt, x, y, grid, generator=gen)) for _ in range(TRAIN_STEPS)]
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"train: loss did not fall over {TRAIN_STEPS} steps: {losses}")
+
+    # 5. throughput, the step's split, the layer's backward, the BatchNorm correction
+    sps = {mode: bench_train.steps_per_sec(cdtype) for mode, cdtype in bench_train.MODES.items()}
+    ev = lambda: torch.cuda.Event(enable_timing=True)
+    split = {k: 0.0 for k in ("forward_ms", "backward_ms", "optimizer_ms", "encoder_fwd_bwd_ms",
+                             "heads_fwd_bwd_ms")}
+    rounds = 5
+    dn, xg = model.deeponet, x[:, torch.as_tensor(draw[0], device="cuda")]
+    mask = torch.as_tensor(draw[1], device="cuda")
+    for r in range(rounds + 1):
+        e = [ev() for _ in range(4)]
+        opt.zero_grad(set_to_none=True)
+        e[0].record()
+        out = model(x, grid, subsample=draw)
+        loss = torch.mean((out - y) ** 2)
+        e[1].record()
+        loss.backward()
+        e[2].record()
+        opt.step()
+        e[3].record()
+        # the parts: the encoder over all B x L snapshots, the heads on the fused fields
+        p = [ev() for _ in range(4)]
+        p[0].record()
+        dn.branch(xg).sum().backward()
+        p[1].record()
+        with torch.no_grad():
+            fields = dn(xg, grid.reshape(-1, 2)).reshape(b, l, *grid.shape[:2])
+            feats = model.fusion(grid.unsqueeze(0).expand(b, *grid.shape), fields, mask)
+        p[2].record()
+        sum(h(feats).sum() for h in model.heads).backward()
+        p[3].record()
+        torch.cuda.synchronize()
+        if r:  # round 0 warms up
+            for k, (i, j) in zip(split, ((e, 0), (e, 1), (e, 2), (p, 0), (p, 2))):
+                split[k] += i[j].elapsed_time(i[j + 1]) / rounds
+    lx, wr, wi, pk, pb = layer_inputs(MAIN_SHAPE, "cuda")
+    du = torch.randn_like(lx)
+    backward_ms = graph_ms(lambda: fno2d_layer_backward_plain(lx, wr, wi, pk, du), calls=5)
+    backward_eager_ms = time_ms(lambda: fno2d_layer_backward_plain(lx, wr, wi, pk, du), 50)
+    act = torch.randn(b * l, 64, 61, 31, device="cuda")  # the first block's output
+    bn_ms = {}
+    for label, cls in (("flax_running_var", BatchNorm2d), ("torch_batchnorm2d", torch.nn.BatchNorm2d)):
+        bn = cls(64).to("cuda").train()
+        bn_ms[label] = time_ms(lambda: bn(act), 20)
+    del act
+    emit("train", model="NIOFP2D", config=bench_train.CONFIG, batch=bench_train.BATCH,
+         launches=counts, loss_card=card[0], loss_cpu=cpu[0],
+         worst_rel_l2_encoder=max(encoder.items(), key=lambda kv: kv[1]),
+         worst_rel_l2_rest=max(rest.items(), key=lambda kv: kv[1]),
+         tol=f"relative L2: {TRAIN_TOL}, encoder gradients and parameters {ENCODER_TOL}",
+         cpu_step_s=cpu_s, loss_bf16=loss16, bf16_loss_gap=bf16_gap,
+         bf16_encoder_grad_rel_l2_from_f32=bf16_grad_gap,
+         losses_20_steps=[losses[0], losses[-1]], steps_per_sec=sps, step_split=split,
+         fno2d_layer_backward_ms=backward_ms, fno2d_layer_backward_eager_ms=backward_eager_ms,
+         fno2d_layer_forward_ms=kernel_ms, layer_shape=MAIN_SHAPE,
+         batchnorm_forward_ms_400x64x61x31=bn_ms, peak_memory_gb_f32_step=peak_gb,
+         nvidia_smi=smi_line)
+    return counts["fno2d_layer"]
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -532,6 +700,7 @@ def main():
 
     stats = phase_kernels()
     launches = {**phase_serve(), **phase_serve1d()}
+    launches["fno2d_layer"] += phase_train(stats["fno2d_layer"]["kernel_ms"], smi_line)
 
     csrc, replaces = "blindno_torch/csrc", "blindno/ops/spectral_pallas.py"
     kernels = [

@@ -264,3 +264,95 @@ def test_1d_layer_reads_weights_written_just_before_each_call(cuda_device):
         torch.cuda.synchronize()
     for i, got in enumerate(outs):
         torch.testing.assert_close(got, wants[i % 4], rtol=TOL_1D, atol=TOL_1D)
+
+
+def _train_loop(layer, params, x, target, steps, graph=False):
+    """``steps`` steps of forward, backward and ``Adam.step()`` through a chain of three
+    FNO2d layers (gelu between them) whose weights, pk and pb a device kernel writes
+    (``torch.mul``) right before each layer call, pk as the transposed view ``FNO2d``
+    passes. With ``graph``, three eager warm-up steps on a side stream, then the rest
+    replayed from one captured CUDA graph. Returns the losses of the eager steps and
+    the parameters after the last step."""
+    params = [[p.clone().requires_grad_() for p in layer_params] for layer_params in params]
+    opt = torch.optim.Adam([p for lp in params for p in lp], lr=5e-4, capturable=graph)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        h = x
+        for i, (wr, wi, pk_t, pb) in enumerate(params):
+            wr_, wi_, pk_, pb_ = (torch.mul(p, 1.0) for p in (wr, wi, pk_t, pb))
+            h = layer(h, wr_, wi_, pk_.t(), pb_, i < 2)
+        loss = torch.mean((h - target) ** 2)
+        loss.backward()
+        opt.step()
+        return loss
+
+    if not graph:
+        return [float(step()) for _ in range(steps)], params
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        losses = [float(step()) for _ in range(3)]
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    opt.zero_grad(set_to_none=True)
+    with torch.cuda.graph(g):
+        step()
+    for _ in range(steps - 3):
+        g.replay()
+    torch.cuda.synchronize()
+    return losses, params
+
+
+def test_2d_layer_trains_with_weights_written_just_before_each_call(cuda_device):
+    """The 2-D counterpart of the test above, in training: Adam's kernels and then a
+    ``torch.mul`` write every weight right before each forward layer call, and the
+    kernel's later stages may start while the stage before still runs (programmatic
+    dependent launch) but its first stage is a plain launch, which waits for them. Eight
+    steps of the kernel, eagerly and replayed from a CUDA graph, against eight steps of
+    the plain layer (torch autograd) from the same start: losses and parameters."""
+    b, c, h, w, m1, m2 = SHAPES[0]
+    rng = np.random.default_rng(5)
+    t = lambda *s, scale=1.0: torch.tensor((scale * rng.standard_normal(s)).astype(np.float32),
+                                           device=cuda_device)
+    params = [(t(c, c, 2 * m1, m2, scale=0.1), t(c, c, 2 * m1, m2, scale=0.1),
+               t(c, c, scale=c ** -0.5), t(c)) for _ in range(3)]
+    x, target = t(b, c, h, w), t(b, c, h, w)
+    want_losses, want = _train_loop(fno2d_layer_plain, params, x, target, 8)
+    before = fno2d_layer_cuda.launches
+    losses, got = _train_loop(fno2d_layer_cuda, params, x, target, 8)
+    assert fno2d_layer_cuda.launches == before + 8 * 3
+    np.testing.assert_allclose(losses, want_losses, rtol=3e-4)
+    _, got_graph = _train_loop(fno2d_layer_cuda, params, x, target, 8, graph=True)
+    # relative L2 per tensor: Adam's step is about lr * sign(g), so a gradient within
+    # rounding of zero may move its element the other way; weights read before the
+    # kernel that wrote them would move whole tensors
+    rel = lambda a, b: float((a - b).norm() / b.norm())
+    for a, g_, p in zip((p for lp in got for p in lp), (p for lp in got_graph for p in lp),
+                        (p for lp in want for p in lp)):
+        assert rel(a, p) <= 3e-4 and rel(g_, p) <= 3e-4, (rel(a, p), rel(g_, p))
+
+
+def test_2d_layer_backward_on_the_card_matches_its_cpu_run(cuda_device):
+    """The differentiable layer's ``dx, dwr, dwi, dpk, dpb`` on the card (the kernel
+    forward, the transpose chain in cuBLAS backward) against the same call on the CPU,
+    at the main shape, gelu outside and not, at the gradient tolerance of
+    tests/test_fno_layer_fused.py:64. Weights scaled by 0.1 as that test draws them, and
+    the loss ``sum(out * g)`` with g standard normal, so that each gradient is O(1)."""
+    b, c, h, w, m1, m2 = SHAPES[0]
+    rng = np.random.default_rng(6)
+    r = lambda *s, scale=1.0: (scale * rng.standard_normal(s)).astype(np.float32)
+    args = (r(b, c, h, w), r(c, c, 2 * m1, m2, scale=0.1), r(c, c, 2 * m1, m2, scale=0.1),
+            r(c, c, scale=c ** -0.5), r(c))
+    g = r(b, c, h, w)
+    for apply_act in (True, False):
+        def grads(device):
+            ts = [torch.tensor(a, device=device, requires_grad=True) for a in args]
+            torch.sum(fno2d_layer_cuda(*ts, apply_act) * torch.tensor(g, device=device)).backward()
+            return [t.grad.cpu() for t in ts]
+
+        before = fno2d_layer_cuda.launches
+        got = grads(cuda_device)
+        assert fno2d_layer_cuda.launches == before + 1
+        for name, a, want in zip(("dx", "dwr", "dwi", "dpk", "dpb"), got, grads("cpu")):
+            torch.testing.assert_close(a, want, rtol=5e-4, atol=5e-5, msg=name)

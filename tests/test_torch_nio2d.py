@@ -126,7 +126,20 @@ def test_masked_mean_and_fusion_match_jax():
 
 
 def test_training_forward_raises():
-    model = NIOFP2D(width=4, modes=4, n_basis=3, neurons=8, fno_layers=1, device="cpu")
-    x, grid = torch.zeros(1, 2, NX, NX), torch.tensor(_grid())
-    with torch.inference_mode(), pytest.raises(NotImplementedError, match="training slice"):
-        model(x, grid, training=True)
+    """NIOFP2D trains: in train mode every trainable parameter gets a finite gradient and
+    the frozen fusion none. The 1-D models still refuse train mode until 1-D training."""
+    from blindno_torch.models.nio1d import NIOFP1D
+
+    model = NIOFP2D(width=4, modes=4, n_basis=3, neurons=8, fno_layers=1, l_min=2,
+                    device="cpu").train()
+    x = torch.tensor(np.random.default_rng(0).standard_normal((2, 3, NX, NX)).astype(np.float32))
+    out = model(x, torch.tensor(_grid()), generator=torch.Generator().manual_seed(0))
+    (out ** 2).mean().backward()
+    for name, p in model.named_parameters():
+        if name.startswith("fusion."):
+            assert not p.requires_grad and p.grad is None, name
+        else:
+            assert p.grad is not None and torch.isfinite(p.grad).all(), name
+    model_1d = NIOFP1D(width=4, modes=4, fno_layers=1, device="cpu").train()
+    with pytest.raises(NotImplementedError, match="training slice"):
+        model_1d(torch.zeros(1, 2, 80), torch.zeros(80, 1))

@@ -1,5 +1,6 @@
-"""Package rules of the port: no JAX imports, the device rule, forward-only wrappers that
-take the plain path only for CPU tensors, and a converter that refuses partial trees."""
+"""Package rules of the port: no JAX imports, the device rule, wrappers that take the plain
+path only for CPU tensors (forward only but for the FNO2d layer), and a converter that
+refuses partial trees."""
 import ast
 import pathlib
 
@@ -70,11 +71,14 @@ def test_wrappers_take_the_plain_path_on_cpu():
 
 
 def test_wrappers_raise_under_autograd():
+    """``spectral_conv2d_cuda`` stays forward only, as in JAX; ``fno2d_layer_cuda``
+    gives gradients under autograd (held against JAX in ``test_torch_train.py``)."""
     x, wr, wi, pk, pb = _layer_inputs(requires_grad=True)
     with pytest.raises(RuntimeError, match="forward only"):
-        fno2d_layer_cuda(x, wr, wi, pk, pb)
-    with pytest.raises(RuntimeError, match="forward only"):
         spectral_conv2d_cuda(x, wr, wi)
+    fno2d_layer_cuda(x, wr, wi, pk, pb).sum().backward()
+    for t in (x, wr, wi, pk, pb):
+        assert t.grad is not None and t.grad.shape == t.shape and torch.isfinite(t.grad).all()
     with torch.no_grad():
         assert fno2d_layer_cuda(x, wr, wi, pk, pb).shape == (2, 4, 12, 10)
 
@@ -156,6 +160,16 @@ def test_from_flax_maps_layouts():
     assert sd["heads.0.pointwise.0.weight"].shape == (5, 3)
     assert sd["heads.0.spectral.0.weights_re"].shape == (3, 3, 4, 2)
     assert sd["deeponet.b0"].shape == ()
+
+
+def test_from_flax_maps_a_tree_without_statistics():
+    """A gradient tree has no batch statistics: with ``batch_stats=None`` its BatchNorm
+    modules give weight and bias only, and nothing else changes."""
+    params, stats = _flax_tree()
+    full, grads = from_flax(params, stats), from_flax(params, None)
+    assert grads.keys() == {k for k in full if not k.endswith(
+        ("running_mean", "running_var", "num_batches_tracked"))}
+    assert all(torch.equal(grads[k], full[k]) for k in grads)
 
 
 @pytest.mark.parametrize("fault", ["missing_stat", "missing_bias", "extra_leaf", "extra_module",
