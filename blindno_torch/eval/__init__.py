@@ -1,1 +1,1 @@
-"""Field-space evaluation: metrics and batched prediction."""
+"""Field-space evaluation: metrics, batched and symmetry-averaged prediction, and the suite eval."""

@@ -1,11 +1,42 @@
-"""Batched eval-mode field prediction, the port's serving entry point (counterpart of
-``blindno/eval/field_eval.py:predict_fields``)."""
+"""Field-space evaluation (counterpart of ``blindno/eval/field_eval.py``): batched
+eval-mode prediction, the port's serving entry point; its symmetry test-time average;
+and the suite eval, which loads the best checkpoint, predicts the test set's fields,
+and writes per-sample metrics and denormalized predictions.
+
+Eval inputs are normalized with the *train-set* statistics, kept in a sidecar npz next
+to the train archive (:func:`cached_train_stats`; the JAX package writes the same
+file). Only the fpe2d suite's targets are handled so far; the comparison figures
+(``blindno/eval/plots.py``) are not ported yet (``ROADMAP.md`` A.9).
+"""
 from __future__ import annotations
+
+import csv
+import os
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from blindno_torch import default_device
+from blindno_torch.data.datasets import FieldStats
+from blindno_torch.eval.metrics import relative_l2_per_field
+from blindno_torch.train.checkpoint import load_best
+
+FIGURES_NOT_PORTED = ("not made: the comparison plots (blindno/eval/plots.py) are not "
+                      "ported yet, ROADMAP.md A.9")
+
+
+def _device_of(model, device):
+    dev = default_device(device)
+    model_dev = next(model.parameters()).device
+    if model_dev.type != dev.type:
+        raise ValueError(f"the model lives on {model_dev}, not on {dev}; move it first")
+    return model_dev
+
+
+def _batches(inputs_norm, batch, dev):
+    for s in range(0, inputs_norm.shape[0], batch):
+        yield torch.as_tensor(np.asarray(inputs_norm[s:s + batch], np.float32)).to(dev)
 
 
 def predict_fields(model, inputs_norm, grid, batch: int = 16, device=None):
@@ -15,14 +46,181 @@ def predict_fields(model, inputs_norm, grid, batch: int = 16, device=None):
     Runs on ``device`` (CUDA unless the caller passes another), where the model must
     already live, under ``torch.inference_mode``.
     """
-    dev = default_device(device)
-    model_dev = next(model.parameters()).device
-    if model_dev.type != dev.type:
-        raise ValueError(f"the model lives on {model_dev}, not on {dev}; move it first")
-    g = torch.as_tensor(np.asarray(grid, np.float32), device=model_dev)
+    dev = _device_of(model, device)
+    g = torch.as_tensor(np.asarray(grid, np.float32), device=dev)
+    with torch.inference_mode():
+        return np.concatenate([model(xb, g).cpu().numpy()
+                               for xb in _batches(inputs_norm, batch, dev)])
+
+
+def tta_indices(kind: str):
+    """Inverse-element index per group element of ``make_augment(kind)``.
+
+    D4 element i<4 is the rotation r^i (inverse r^{(4-i)%4}); i>=4 is the
+    reflection r^k s, an involution (its own inverse). C4: (4-i)%4. flip1d:
+    both elements are involutions.
+    """
+    if kind == "flip1d":
+        return [0, 1]
+    if kind == "c4_vector":
+        return [(4 - i) % 4 for i in range(4)]
+    if kind == "d4_scalar":
+        return [(4 - i) % 4 if i < 4 else i for i in range(8)]
+    raise ValueError(f"unknown augment kind: {kind!r}")
+
+
+def predict_fields_tta(model, inputs_norm, grid, kind: str, batch: int = 16, device=None):
+    """Symmetry test-time ensembling: the mean of T_i^{-1}(model(T_i(x))) over the group
+    used for training augmentation (TrainConfig.augment), with :func:`predict_fields`'s
+    arguments and device rule. One forward per group element and batch."""
+    from blindno_torch.train.loop import make_augment
+
+    fns = make_augment(kind)
+    inv = tta_indices(kind)
+    dev = _device_of(model, device)
+    g = torch.as_tensor(np.asarray(grid, np.float32), device=dev)
     outs = []
     with torch.inference_mode():
-        for s in range(0, inputs_norm.shape[0], batch):
-            xb = torch.as_tensor(np.asarray(inputs_norm[s:s + batch], np.float32)).to(model_dev)
-            outs.append(model(xb, g).cpu().numpy())
+        for xb in _batches(inputs_norm, batch, dev):
+            # 2 channels: the c4 vector rule indexes components 0 and 1
+            dummy_y = xb.new_zeros(xb.shape[:1] + xb.shape[2:] + (2,))
+            dummy_x = xb[:, :1]
+            canon = []
+            for i, f in enumerate(fns):
+                xt, _ = f(xb, dummy_y)
+                _, out = fns[inv[i]](dummy_x, model(xt.contiguous(), g))
+                canon.append(out)
+            outs.append(torch.stack(canon).mean(0).cpu().numpy())
     return np.concatenate(outs)
+
+
+@dataclass
+class TrainStats:
+    """The two things eval needs from a train archive: normalization statistics and
+    the target field count."""
+
+    stats: dict
+    n_fields: int
+
+
+def _load_npz(path):
+    with np.load(path, allow_pickle=True) as z:
+        return {k: z[k] for k in z.files}
+
+
+def cached_train_stats(spec, workdir: str) -> TrainStats:
+    """Train-set normalization stats from a sidecar npz next to the train archive,
+    keyed on the archive's (mtime, size), so regenerating a dataset invalidates it."""
+    src = os.path.join(workdir, "data", spec.train_file)
+    sidecar = os.path.join(workdir, "data", f"{spec.name}.stats.npz")
+    mtime, size = os.path.getmtime(src), os.path.getsize(src)
+    if os.path.exists(sidecar):
+        with np.load(sidecar, allow_pickle=False) as z:
+            if float(z["src_mtime"]) == mtime and int(z["src_size"]) == size:
+                return _stats_from_arrays({k: z[k] for k in z.files})
+    train_ds = spec.loader(_load_npz(src))
+    ts = TrainStats(train_ds.stats, int(train_ds.targets.shape[-1]))
+    np.savez(sidecar, **_stats_to_arrays(ts, mtime, size))
+    return ts
+
+
+def _stats_to_arrays(ts: TrainStats, mtime: float, size: int) -> dict:
+    out = {"src_mtime": np.float64(mtime), "src_size": np.int64(size),
+           "n_fields": np.int64(ts.n_fields)}
+    for name, s in ts.stats.items():
+        out[f"scale__{name}"] = np.float64(s.scale)
+        out[f"mean__{name}"] = s.mean
+        out[f"std__{name}"] = s.std
+    return out
+
+
+def _stats_from_arrays(arrs: dict) -> TrainStats:
+    stats = {k[7:]: FieldStats(float(v), arrs[f"mean__{k[7:]}"], arrs[f"std__{k[7:]}"])
+             for k, v in arrs.items() if k.startswith("scale__")}
+    return TrainStats(stats, int(arrs["n_fields"]))
+
+
+def _check_fpe2d(stats: dict):
+    if not {"potential", "drag"} <= stats.keys():
+        raise ValueError(f"only the fpe2d suite's targets are ported; got stats for "
+                         f"{sorted(stats)}")
+
+
+def _normalized_test_targets(spec, train_ds: TrainStats, test):
+    """Normalize the raw test targets with train statistics, shaped like model output
+    (the fpe2d branch: (M, Nx, Ny, 2))."""
+    stats = train_ds.stats
+    _check_fpe2d(stats)
+    pot = stats["potential"].normalize(np.asarray(test["potential"]))
+    drag = stats["drag"].normalize(np.asarray(test["drag"]))
+    return np.stack([pot, drag], axis=3)
+
+
+def denormalize_predictions(spec, train_ds: TrainStats, preds_norm):
+    """Model-output space -> physical units (the fpe2d branch)."""
+    stats = train_ds.stats
+    _check_fpe2d(stats)
+    out = np.empty_like(preds_norm)
+    out[..., 0] = stats["potential"].denormalize(preds_norm[..., 0])
+    out[..., 1] = stats["drag"].denormalize(preds_norm[..., 1])
+    return out
+
+
+def _rel_l2(preds, targets):
+    return relative_l2_per_field(torch.from_numpy(preds), torch.from_numpy(targets), True).numpy()
+
+
+def evaluate_suite_model(spec, model_name: str, workdir: str, batch: int = 16,
+                         save_predictions: bool = True, make_figures: bool = True,
+                         device=None):
+    """Returns a report dict; writes metrics.csv and predictions.npy under
+    ``{workdir}/eval/{suite}_{model}/``. The model runs on ``device`` (CUDA unless the
+    caller passes another). With ``make_figures`` the report's ``figures`` entry says
+    that the figures are not made yet."""
+    dev = default_device(device)
+    train_ds = cached_train_stats(spec, workdir)
+    test = _load_npz(os.path.join(workdir, "data", spec.test_file))
+    inputs = train_ds.stats["traj"].normalize(np.asarray(test["trajectories"]))
+
+    ckpt = load_best(os.path.join(workdir, "ckpt", f"{spec.name}_{model_name}"), dev)
+    model = spec.models[model_name](device=dev)
+    model.load_state_dict({**ckpt["params"], **ckpt["batch_stats"]})
+    model.eval()
+    preds_norm = predict_fields(model, inputs, spec.grid, batch, dev)
+
+    out_dir = os.path.join(workdir, "eval", f"{spec.name}_{model_name}")
+    os.makedirs(out_dir, exist_ok=True)
+
+    # normalized-space per-sample metrics against the test targets
+    test_ds = _normalized_test_targets(spec, train_ds, test)
+    errs = _rel_l2(preds_norm, test_ds)  # (M, F)
+    with open(os.path.join(out_dir, "metrics.csv"), "w", newline="") as fh:
+        w = csv.writer(fh)
+        w.writerow(["sample"] + [f"rel_l2_field{i}" for i in range(errs.shape[1])] + ["sum"])
+        for i, row in enumerate(errs):
+            w.writerow([i] + [f"{v:.6f}" for v in row] + [f"{row.sum():.6f}"])
+
+    if save_predictions:
+        np.save(os.path.join(out_dir, "predictions.npy"),
+                denormalize_predictions(spec, train_ds, preds_norm))
+
+    report = {
+        "suite": spec.name,
+        "model": model_name,
+        "n_test": int(errs.shape[0]),
+        "mean_rel_l2_per_field": errs.mean(axis=0).tolist(),
+        "mean_rel_l2_sum": float(errs.sum(axis=1).mean()),
+        "ckpt_epoch": int(ckpt.get("epoch", -1)),
+        "ckpt_test_loss": float(ckpt.get("test_loss", float("nan"))),
+    }
+    # symmetry test-time ensembling for augmentation-trained suites, reported as an
+    # EXTRA column; the headline metrics above stay the plain single-pass numbers
+    aug_kind = getattr(getattr(spec, "train_cfg", None), "augment", None)
+    if aug_kind:
+        errs_tta = _rel_l2(predict_fields_tta(model, inputs, spec.grid, aug_kind, batch, dev),
+                           test_ds)
+        report["mean_rel_l2_per_field_tta"] = errs_tta.mean(axis=0).tolist()
+        report["mean_rel_l2_sum_tta"] = float(errs_tta.sum(axis=1).mean())
+    if make_figures:
+        report["figures"] = FIGURES_NOT_PORTED
+    return report

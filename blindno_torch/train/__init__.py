@@ -1,1 +1,1 @@
-"""Training: the step of ``bench.py`` and its mixed-precision mode."""
+"""Training: the step of ``bench.py``, the epoch loop, its schedule and augmentation, and checkpoints."""

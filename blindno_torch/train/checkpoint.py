@@ -1,0 +1,134 @@
+"""Checkpointing: best-by-metric retention plus full resume state (counterpart of
+``blindno/train/checkpoint.py``), in a torch-native format.
+
+A checkpoint is one ``torch.save`` file of state dicts, read back with
+``torch.load(..., weights_only=True)``: ``best_{loss:.6f}_e{epoch}`` holds the params and
+batch statistics of the best eval so far, ``resume.pt`` the params, batch statistics,
+the optimizer's ``state_dict()``, the epoch and the best loss. ``params`` are the
+model's named parameters and ``batch_stats`` its named buffers (the BatchNorm running
+statistics). The JAX package's orbax and msgpack files are not read; the committed
+flax checkpoints go through :func:`blindno_torch.convert.from_flax`.
+"""
+from __future__ import annotations
+
+import glob
+import os
+
+import torch
+
+RESUME = "resume.pt"
+
+
+def _best_loss_of(path: str) -> float:
+    """Parse the loss out of a ``best_{loss:.6f}[_e{epoch}]`` name."""
+    try:
+        return float(os.path.basename(path).split("_")[1])
+    except (IndexError, ValueError):
+        return float("inf")
+
+
+def _save_atomic(obj, path: str):
+    """Write to a hidden temporary file beside ``path``, then rename it into place, so a
+    crash mid-write never leaves a partial file under ``path``'s name."""
+    tmp = os.path.join(os.path.dirname(path), f".{os.path.basename(path)}.tmp")
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
+
+
+def _detached(tree: dict) -> dict:
+    return {k: v.detach() for k, v in tree.items()}
+
+
+def save_best(ckpt_dir: str, params: dict, batch_stats: dict, epoch: int, test_loss: float):
+    """Save best params/batch_stats to ``{dir}/best_{loss:.6f}_e{epoch}``.
+
+    The epoch suffix keeps names unique when two improvements round to the same
+    6-decimal loss. The new checkpoint is written BEFORE older ``best_*`` files are
+    deleted, so a crash mid-save never leaves the directory without one (and
+    :func:`load_best` picks the numerically best if more than one survives)."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    olds = glob.glob(os.path.join(ckpt_dir, "best_*"))
+    path = os.path.abspath(os.path.join(ckpt_dir, f"best_{test_loss:.6f}_e{epoch}"))
+    if os.path.exists(path):
+        # same loss AND epoch: a resume replay. Move the old file ASIDE (it still parses
+        # as a valid fallback for load_best) and delete it only after the new save lands
+        aside = path + ".old"
+        os.replace(path, aside)
+        olds = [aside if os.path.abspath(o) == path else o for o in olds]
+    _save_atomic({"params": _detached(params), "batch_stats": _detached(batch_stats),
+                  "epoch": int(epoch), "test_loss": float(test_loss)}, path)
+    for old in olds:
+        if os.path.abspath(old) != path and os.path.exists(old):
+            os.remove(old)
+    return path
+
+
+def load_best(ckpt_dir: str, map_location="cpu"):
+    """Load the numerically-best checkpoint in ``ckpt_dir`` (smallest parsed loss:
+    lexicographic order would pick the WORST if several ``best_*`` survive a crash)."""
+    matches = glob.glob(os.path.join(os.path.abspath(ckpt_dir), "best_*"))
+    if not matches:
+        raise FileNotFoundError(f"no best_* checkpoint under {ckpt_dir}")
+    return torch.load(min(matches, key=_best_loss_of), map_location=map_location,
+                      weights_only=True)
+
+
+def _finite(tree: dict) -> bool:
+    return all(torch.isfinite(v).all() for v in tree.values() if v.is_floating_point())
+
+
+def load_best_as_warm_restart(ckpt_dir: str, params_target: dict, batch_stats_target: dict):
+    """Best-checkpoint fallback for when ``resume.pt`` is gone.
+
+    Returns ``{"params", "batch_stats", "epoch", "test_loss"}``, or ``None`` when no
+    ``best_*`` exists, its keys or shapes differ from the targets' (a different model),
+    or its params are non-finite. Optimizer state is NOT recoverable from a best
+    checkpoint: the caller performs a warm restart (fresh moments, advanced step count)."""
+    try:
+        raw = load_best(ckpt_dir)
+    except FileNotFoundError:
+        return None
+    params, stats = raw["params"], raw.get("batch_stats") or {}
+    for got, want in ((params, params_target), (stats, batch_stats_target)):
+        if got.keys() != want.keys():
+            print(f"[checkpoint] best-checkpoint warm restart: keys differ "
+                  f"({sorted(got.keys() ^ want.keys())[:4]}...); starting fresh")
+            return None
+        if any(got[k].shape != want[k].shape for k in want):
+            print("[checkpoint] best checkpoint shapes mismatch the model; starting fresh")
+            return None
+    if not _finite(params):
+        print("[checkpoint] best checkpoint has non-finite params; starting fresh")
+        return None
+    return {"params": params, "batch_stats": stats,
+            "epoch": int(raw["epoch"]), "test_loss": float(raw["test_loss"])}
+
+
+def save_resume(ckpt_dir: str, params: dict, batch_stats: dict, opt_state: dict, epoch: int,
+                best_loss: float):
+    """Full resume state (params, batch statistics, ``optimizer.state_dict()``, epoch,
+    best loss), written atomically to ``{dir}/resume.pt``."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, RESUME)
+    _save_atomic({"params": _detached(params), "batch_stats": _detached(batch_stats),
+                  "opt_state": opt_state, "epoch": int(epoch), "best_loss": float(best_loss)},
+                 path)
+    return path
+
+
+def load_resume(ckpt_dir: str):
+    """The state :func:`save_resume` wrote, read to the host, or ``None`` when there is
+    none.
+
+    Rejects non-finite restored params: the file is moved aside as
+    ``resume.pt.poisoned`` so that a diverged run does not silently seed the next."""
+    path = os.path.join(ckpt_dir, RESUME)
+    if not os.path.exists(path):
+        return None
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if not _finite(state["params"]):
+        quarantine = path + ".poisoned"
+        os.replace(path, quarantine)
+        print(f"[checkpoint] resume state has non-finite params; quarantined -> {quarantine}")
+        return None
+    return state

@@ -1,0 +1,382 @@
+"""The training loop (counterpart of ``blindno/train/loop.py``): Adam with StepLR(100
+epochs, x0.5) on the global step, MSE, symmetry augmentation, periodic per-field rel-L2
+test metrics, best and resume checkpoints, early stop, preemption and a divergence
+guard.
+
+The train and test splits live on the device as whole tensors (bfloat16 inputs under
+``compress_inputs``; targets float32); each batch is an ``index_select`` on the device,
+cast back to float32. Nothing is copied from the host inside an epoch and nothing is
+read back before its end: the epoch's order and its group elements are drawn at its
+start from a CPU generator, the set subsamples from a generator on the device, and
+the step losses are stacked and read once. Each step's body is
+:func:`blindno_torch.train.step.train_step`.
+"""
+from __future__ import annotations
+
+import os
+import time
+from dataclasses import dataclass, field as dc_field
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from blindno_torch import default_device
+from blindno_torch.data.datasets import SetToFieldData, eval_batches, train_test_split
+from blindno_torch.eval.metrics import relative_l2_per_field
+from blindno_torch.train import checkpoint
+from blindno_torch.train.step import make_optimizer, train_step
+from blindno_torch.utils.logging import MetricsLogger, trace
+
+
+@dataclass
+class TrainConfig:
+    """The JAX package's fields and defaults (``blindno/train/loop.py:38-139``, where
+    each field's note is). The port refuses ``epoch_scan=True`` (a JAX-only fusion),
+    ``tp > 1`` (multi-GPU, ``ROADMAP.md`` A.10) and any mixed precision other than
+    ``compute_dtype="bfloat16"`` with ``amp_policy="encoder_bn32"``."""
+
+    epochs: int = 400
+    batch_size: int = 32
+    lr: float = 1e-3
+    lr_step_epochs: int = 100
+    lr_gamma: float = 0.5
+    save_interval: int = 10
+    seed: int = 0
+    split_seed: int = 0
+    train_frac: float = 0.8
+    reference_denominator: bool = True
+    log_path: str | None = None
+    ckpt_dir: str | None = None
+    epoch_scan: bool = False
+    # resume from {ckpt_dir}/resume.pt when present, else warm-restart from best_*
+    resume: bool = True
+    # graceful preemption: if this file appears, finish the epoch, save resume state
+    # and return
+    stop_file: str | None = None
+    # store the device-resident input snapshots in bfloat16 (targets stay float32;
+    # every batch is cast back to float32 right after the gather)
+    compress_inputs: bool = False
+    tp: int = 1
+    # "d4_scalar", "c4_vector" or "flip1d": one random group element per step
+    # (uniform, identity included); eval is never augmented
+    augment: str | None = None
+    compute_dtype: str | None = None
+    amp_policy: str = "all"
+    # end the run when the best test loss has not improved for this many epochs
+    early_stop_patience: int | None = None
+    # write one torch.profiler trace of epoch start_epoch+2 under this directory
+    profile_dir: str | None = None
+
+
+@dataclass
+class TrainResult:
+    """``params`` are the model's named parameters, ``batch_stats`` its named buffers
+    (the BatchNorm running statistics), each a dict of detached tensors."""
+
+    params: Any
+    batch_stats: Any
+    best_params: Any
+    best_batch_stats: Any
+    best_test_loss: float
+    history: list = dc_field(default_factory=list)
+    # True when the run ended on its own terms (all epochs, or early-stop patience
+    # exhausted) rather than by preemption or divergence
+    finished: bool = False
+
+
+def _rotate_vec2(y, k: int):
+    """Rotate the last-axis (vx, vy) components by k * 90 deg CCW: (vx,vy)->(-vy,vx)."""
+    for _ in range(k % 4):
+        y = torch.stack([-y[..., 1], y[..., 0]], dim=-1)
+    return y
+
+
+def make_augment(kind: str | None):
+    """Batch-transform branches for TrainConfig.augment, one per group element, in the
+    JAX package's order (``blindno/eval/field_eval.py:tta_indices`` depends on it).
+
+    Returns a list of fns (x: (B,L,H,W), y: (B,H,W,F)) -> (x, y). Orientation
+    convention: grid axis 0 is x, axis 1 is y; a +90 deg rotation is ``torch.rot90``
+    with k=1 on the spatial axes and mixes vector components by (vx, vy) -> (-vy, vx).
+    D4 element i is rot^(i % 4) after a reflection y -> -y when i >= 4.
+    """
+    if kind is None:
+        return None
+
+    def mk(k: int, flip: bool, vector: bool):
+        def f(x, y):
+            if flip:  # reflection y -> -y (axis 1 of the grid)
+                x = torch.flip(x, (3,))
+                y = torch.flip(y, (2,))
+            x = torch.rot90(x, k, (2, 3))
+            y = torch.rot90(y, k, (1, 2))
+            if vector:
+                y = _rotate_vec2(y, k)
+            return x, y
+
+        return f
+
+    if kind == "d4_scalar":
+        return [mk(k, fl, False) for fl in (False, True) for k in range(4)]
+    if kind == "c4_vector":
+        return [mk(k, False, True) for k in range(4)]
+    if kind == "flip1d":
+        return [
+            lambda x, y: (x, y),
+            lambda x, y: (torch.flip(x, (2,)), torch.flip(y, (1,))),
+        ]
+    raise ValueError(f"unknown augment kind: {kind!r}")
+
+
+def step_lr(lr: float, gamma: float, step_epochs: int, steps_per_epoch: int):
+    """torch StepLR(step_size, gamma) as a function of the global step."""
+
+    def schedule(step):
+        epoch = step // max(steps_per_epoch, 1)
+        return lr * gamma ** (epoch // step_epochs)
+
+    return schedule
+
+
+def _check_config(cfg: TrainConfig):
+    if cfg.epoch_scan:
+        raise ValueError("epoch_scan=True is a JAX-only fusion (one lax.scan per epoch); "
+                         "the port runs the per-step loop")
+    if cfg.tp > 1:
+        raise ValueError(f"tp={cfg.tp}: tensor-parallel training is not ported yet "
+                         "(ROADMAP.md A.10)")
+    if cfg.compute_dtype is not None and (cfg.compute_dtype, cfg.amp_policy) != (
+            "bfloat16", "encoder_bn32"):
+        raise ValueError(f"compute_dtype={cfg.compute_dtype!r} with amp_policy="
+                         f"{cfg.amp_policy!r} is not ported: the one mixed-precision mode "
+                         "is compute_dtype='bfloat16' with amp_policy='encoder_bn32'")
+
+
+def _split_to_device(arr, idx, dtype, device):
+    """``arr[idx]`` as one tensor of ``dtype`` on ``device``, copied 64 samples at a time
+    so that neither side holds a second float32 copy of the split."""
+    out = torch.empty((len(idx), *arr.shape[1:]), dtype=dtype, device=device)
+    for s in range(0, len(idx), 64):
+        out[s:s + 64].copy_(torch.from_numpy(np.ascontiguousarray(arr[idx[s:s + 64]], np.float32)))
+    return out
+
+
+def _state(model):
+    """(params, batch_stats) of ``model``: its named parameters and named buffers."""
+    return (dict(model.named_parameters()), dict(model.named_buffers()))
+
+
+def _copy(tree: dict) -> dict:
+    return {k: v.detach().clone() for k, v in tree.items()}
+
+
+def _segment_seed(seed: int, start_epoch: int) -> int:
+    """The run's seed, folded with ``start_epoch`` for a resumed segment, as JAX folds
+    its key (``blindno/train/loop.py:334``)."""
+    if start_epoch == 1:
+        return seed
+    return int(np.random.SeedSequence([seed, start_epoch]).generate_state(1)[0])
+
+
+def _seeded_draws(host: torch.Generator, n_train: int, batch_size: int, n_elements: int):
+    """The loop's default source of draws: per epoch, a permutation of the train split
+    cut into full batches, and one group element per step, from the CPU generator
+    ``host``. The set subsamples are left to the model (``None``): it draws them from
+    the loop's device generator."""
+
+    def draw(epoch: int, steps: int):
+        perm = torch.randperm(n_train, generator=host)
+        batch_idx = perm[: steps * batch_size].reshape(steps, batch_size)
+        elements = (torch.randint(0, n_elements, (steps,), generator=host).tolist()
+                    if n_elements else None)
+        return batch_idx, elements, None
+
+    return draw
+
+
+def train_model(model, data: SetToFieldData, grid, cfg: TrainConfig, *,
+                progress: Callable | None = None, device=None,
+                draws: Callable | None = None) -> TrainResult:
+    """Full training run of ``model`` (an ``nn.Module`` taking ``(x, grid, generator=...,
+    subsample=...)`` in train mode, such as ``NIOFP2D``), which moves to ``device``
+    (CUDA unless the caller passes another) and is trained in place; it is left in eval
+    mode.
+
+    ``draws(epoch, steps)`` may replace the seeded draws (:func:`_seeded_draws`): it
+    returns the epoch's batches as train-split positions (steps, batch_size), each
+    step's group element (or ``None`` without augmentation) and each step's set
+    subsample ``(indices, mask)`` (or ``None``, for the model to draw).
+    """
+    _check_config(cfg)
+    aug_fns = make_augment(cfg.augment)
+    if cfg.augment == "flip1d":
+        if data.inputs.ndim != 3:
+            raise ValueError(
+                f"augment='flip1d' needs (B, L, Nx) inputs, got {data.inputs.shape}")
+    elif aug_fns is not None and (
+        data.inputs.ndim != 4 or data.inputs.shape[2] != data.inputs.shape[3]
+    ):
+        raise ValueError(
+            f"augment={cfg.augment!r} needs square (B, L, H, W) inputs, "
+            f"got {data.inputs.shape}")
+    dev = default_device(device)
+    model.to(dev)
+    n = data.inputs.shape[0]
+    train_idx, test_idx = train_test_split(n, cfg.train_frac, cfg.split_seed)
+    in_dtype = torch.bfloat16 if cfg.compress_inputs else torch.float32
+    x_train = _split_to_device(data.inputs, train_idx, in_dtype, dev)
+    y_train = _split_to_device(data.targets, train_idx, torch.float32, dev)
+    x_test = _split_to_device(data.inputs, test_idx, in_dtype, dev)
+    y_test = _split_to_device(data.targets, test_idx, torch.float32, dev)
+    grid = torch.as_tensor(np.asarray(grid, np.float32), device=dev)
+
+    steps_per_epoch = train_idx.shape[0] // cfg.batch_size
+    if steps_per_epoch == 0:
+        raise ValueError(
+            f"batch_size={cfg.batch_size} exceeds the train split "
+            f"({train_idx.shape[0]} samples) — no steps would run; lower batch_size or add data"
+        )
+    schedule = step_lr(cfg.lr, cfg.lr_gamma, cfg.lr_step_epochs, steps_per_epoch)
+    opt = make_optimizer(model, cfg.lr)
+
+    start_epoch = 1
+    best_loss = float("inf")
+    if cfg.resume and cfg.ckpt_dir:
+        # read to the host: ``load_state_dict`` copies the params and moves Adam's
+        # moments to the parameters' device, and leaves each ``step`` where it is read,
+        # on the host as Adam keeps it (on the card, Adam would read it back with a
+        # synchronization per parameter and step); ``step`` carries the schedule on
+        restored = checkpoint.load_resume(cfg.ckpt_dir)
+        if restored is not None:
+            model.load_state_dict({**restored["params"], **restored["batch_stats"]})
+            opt.load_state_dict(restored["opt_state"])
+            start_epoch = int(restored["epoch"]) + 1
+            best_loss = float(restored["best_loss"])
+        else:
+            # resume.pt lost (only best_* survives): warm restart from the best
+            # checkpoint with zero Adam moments and the step count advanced, so the
+            # StepLR schedule and Adam's bias correction continue where the run was
+            best = checkpoint.load_best_as_warm_restart(cfg.ckpt_dir, *_state(model))
+            if best is not None and best["epoch"] >= 1:
+                model.load_state_dict({**best["params"], **best["batch_stats"]})
+                start_epoch = best["epoch"] + 1
+                best_loss = best["test_loss"]
+                done_steps = (start_epoch - 1) * steps_per_epoch
+                for group in opt.param_groups:
+                    for p in group["params"]:
+                        opt.state[p] = {"step": torch.tensor(float(done_steps)),
+                                        "exp_avg": torch.zeros_like(p),
+                                        "exp_avg_sq": torch.zeros_like(p)}
+                print(f"[train] {checkpoint.RESUME} absent; warm restart from best_* at "
+                      f"epoch {best['epoch']} (best {best_loss:.6f}; Adam moments "
+                      f"reset, lr schedule advanced to step {done_steps})")
+
+    seed = _segment_seed(cfg.seed, start_epoch)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if draws is None:
+        draws = _seeded_draws(torch.Generator().manual_seed(seed), train_idx.shape[0],
+                             cfg.batch_size, len(aug_fns) if aug_fns else 0)
+
+    def evaluate():
+        """Sum over the test split of the per-field rel-L2, padded batches masked."""
+        model.eval()
+        with torch.inference_mode():
+            sums = 0.0
+            for idx, mask in test_batches:
+                out = model(x_test.index_select(0, idx).float(), grid)
+                errs = relative_l2_per_field(out, y_test.index_select(0, idx),
+                                             cfg.reference_denominator)
+                sums = sums + (errs * mask[:, None]).sum(0)
+            sums = sums.cpu().numpy()
+        model.train()
+        return sums
+
+    logger = MetricsLogger(cfg.log_path)
+    best_params, best_stats = map(_copy, _state(model))
+    history = []
+    n_test = test_idx.shape[0]
+    test_batches = [(torch.as_tensor(i, device=dev), torch.as_tensor(m, device=dev))
+                    for i, m in eval_batches(n_test, cfg.batch_size)]
+
+    best_epoch = start_epoch - 1
+    finished = True  # any break below (divergence/preemption) flips it
+    global_step = (start_epoch - 1) * steps_per_epoch
+    model.train()
+    for epoch in range(start_epoch, cfg.epochs + 1):
+        # one steady-state epoch (after the first two) traced, SURVEY 5.1 hook
+        with trace(cfg.profile_dir if epoch == start_epoch + 2 else None):
+            batch_idx, elements, subsamples = draws(epoch, steps_per_epoch)
+            batch_idx = torch.as_tensor(batch_idx, dtype=torch.long).to(dev)
+            t0 = time.perf_counter()
+            losses = []
+            for i in range(steps_per_epoch):
+                xb = x_train.index_select(0, batch_idx[i]).float()
+                yb = y_train.index_select(0, batch_idx[i])
+                if aug_fns is not None:
+                    xb, yb = aug_fns[elements[i]](xb, yb)
+                for group in opt.param_groups:
+                    group["lr"] = schedule(global_step)
+                losses.append(train_step(
+                    model, opt, xb, yb, grid, compute_dtype=cfg.compute_dtype,
+                    generator=None if subsamples else gen,
+                    subsample=subsamples[i] if subsamples else None))
+                global_step += 1
+            train_loss = float(torch.stack(losses).mean())
+            dt = time.perf_counter() - t0
+
+            if not np.isfinite(train_loss):
+                # divergence guard: stop immediately; the last finite resume state (if
+                # any) is what a future invocation continues from
+                logger.log({"event": "diverged", "epoch": epoch, "train_loss": train_loss})
+                finished = False
+                break
+
+            if epoch % cfg.save_interval == 0 or epoch == cfg.epochs:
+                field_means = evaluate() / n_test
+                test_loss = float(field_means.sum())
+                record = {
+                    "epoch": epoch,
+                    "train_loss": train_loss,
+                    "test_loss": test_loss,
+                    "field_rel_l2": field_means.tolist(),
+                    "steps_per_sec": steps_per_epoch / dt,
+                }
+                history.append(record)
+                logger.log(record)
+                if progress:
+                    progress(record)
+                if not np.isfinite(test_loss):
+                    # never checkpoint a poisoned state
+                    logger.log({"event": "diverged", "epoch": epoch, "test_loss": test_loss})
+                    finished = False
+                    break
+                if test_loss < best_loss:
+                    best_loss = test_loss
+                    best_epoch = epoch
+                    best_params, best_stats = map(_copy, _state(model))
+                    if cfg.ckpt_dir:
+                        checkpoint.save_best(cfg.ckpt_dir, best_params, best_stats, epoch,
+                                             best_loss)
+                if cfg.ckpt_dir:
+                    checkpoint.save_resume(cfg.ckpt_dir, *_state(model), opt.state_dict(),
+                                           epoch, best_loss)
+                if (cfg.early_stop_patience is not None
+                        and epoch - best_epoch >= cfg.early_stop_patience):
+                    logger.log({"event": "early_stop", "epoch": epoch,
+                                "best_epoch": best_epoch, "best_loss": best_loss})
+                    break
+
+            if cfg.stop_file and os.path.exists(cfg.stop_file):
+                if cfg.ckpt_dir:
+                    checkpoint.save_resume(cfg.ckpt_dir, *_state(model), opt.state_dict(),
+                                           epoch, best_loss)
+                logger.log({"event": "preempted", "epoch": epoch})
+                finished = False
+                break
+
+    logger.close()
+    model.eval()
+    params, stats = map(_copy, _state(model))
+    return TrainResult(params, stats, best_params, best_stats, best_loss, history,
+                       finished=finished)

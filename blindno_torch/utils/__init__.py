@@ -1,1 +1,1 @@
-"""Initializers with PyTorch-default semantics, drawn from explicit generators."""
+"""Initializers with PyTorch-default semantics, and metrics logging and tracing."""

@@ -31,7 +31,17 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``. It
    fresh draws, whose loss must fall; steps per second in both modes
    (``blindno_torch.tools.bench_train``), the step's split, the FNO2d layer's backward
    per call, the BatchNorm correction's cost and the peak memory;
-7. prints one JSON line per phase, the nvidia-smi line, the kernels line, and last
+7. trains and evaluates the fpe2d NIO through the port's suites CLI at the suite's own
+   config (phase ``fit``): a synthetic archive of 160 sets of 100 snapshots of 61x61 in
+   the JAX datagen's format (numpy seed 0) under a temporary workdir, 2 epochs of
+   ``--stage train`` (128 train sets, 8 steps of batch 16 an epoch, d4 augmentation,
+   bfloat16 input storage), a resumed third epoch whose restored state must equal the
+   saved one bit for bit, and ``--stage eval`` with its symmetry test-time average; the
+   launches counted exactly, every loss finite, a ``best_*`` checkpoint written, 4 test
+   predictions held against the CPU plain path on the same checkpoint; the loop's
+   steps per second beside bare ``train_step``'s on one batch of 16, the epoch wall
+   time, the eval with and without the average, the checkpoint saves and peak memory;
+8. prints one JSON line per phase, the nvidia-smi line, the kernels line, and last
    ``{"ok": true, "device": {...}}``.
 
 Every path runs with all four kernels' launch counts set to 0 just before it and read
@@ -41,13 +51,18 @@ float32.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
+import io
 import json
 import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -65,6 +80,7 @@ TRAIN_TOL, ENCODER_TOL, BF16_LOSS_TOL = 2e-3, 1e-2, 5e-2
 TRAIN_STEPS = 20
 MAIN_SHAPE = (4, 12, 76, 76, 32, 32)   # (B, C, H, W, m1, m2) of the serving path's layers
 RAGGED_SHAPE = (3, 5, 40, 36, 7, 9)
+FIT_SHAPE = (16, 12, 76, 76, 32, 32)   # the layers of the fpe2d suite's batch of 16
 # the ncfpe2d heads (blindno/suites/registry.py:233: an 80x80 grid padded by a quarter),
 # and the NIOFNO2D inner FNO2d over B*L = 4 x 100 snapshots (blindno/models/nio2d.py:74-86)
 NCFPE2D_HEADS = (4, 12, 100, 100, 32, 32)
@@ -89,6 +105,9 @@ MODEL_1D = dict(width=30, modes=15)
 # gpe1d (blindno/suites/registry.py:132-141): 101 snapshots of 128 points a set
 SERVE_GPE = dict(m=64, l=101, n=128, batch=16, timed_rounds=5)
 MODEL_GPE = dict(width=20, modes=40, head_dims=(1,))
+# phase fit: the fpe2d suite's config (blindno/suites/registry.py:186-220) on a synthetic
+# archive; 160 sets split 128/32, 8 steps of 16 an epoch; a test archive of 16 sets
+FIT = dict(m=160, m_test=16, l=100, n=61, epochs=2, cpu_sets=4, bare_steps=10)
 
 
 def kernel_wrappers():
@@ -230,6 +249,23 @@ def layer_bound(shape, epilogue):
                 mflop_least=least / 1e6, mflop_dense_dft=dense / 1e6, mbytes=4 * floats / 1e6)
 
 
+def layer_backward_bound(shape):
+    """Least time for one call of the 2-D layer's backward at (B, C, H, W, m1, m2), as
+    :func:`layer_bound` reckons the forward: its bytes (x, du and the weights read, dx
+    and the weight gradients written) over the memory rate, and its least operations
+    (x's and du's truncated transforms, dx's inverse, as FFTs; the two mode mixes; the
+    two pointwise products) over the f32 peak."""
+    b, c, h, w, m1, m2 = shape
+    k = 2 * m1
+    transform = 2 * b * c * h * fft_flops(w, True) + 2 * b * c * m2 * fft_flops(h, False)
+    least = 3 * transform + 2 * b * c * c * k * m2 * 8 + 2 * 2 * b * c * c * h * w
+    floats = 3 * b * c * h * w + 4 * c * c * k * m2 + 2 * (c * c + c)
+    t_ops, t_bytes = least / PEAK_F32_FLOP_S, 4 * floats / PEAK_BYTES_S
+    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                bound_bytes_ms=1e3 * t_bytes, bound_ops_ms=1e3 * t_ops, mbytes=4 * floats / 1e6)
+
+
 def layer_inputs(shape, device):
     """Seeded layer inputs: (x, wr, wi, pk, pb) in 2-D, and dc_half after them in 1-D."""
     rng = np.random.default_rng(0)
@@ -316,7 +352,8 @@ def phase_kernels():
     stats = {}
     with torch.inference_mode():
         check_and_time([(MAIN_SHAPE, True, True), (RAGGED_SHAPE, False, False),
-                        (NCFPE2D_HEADS, False, False), (NIOFNO2D_INNER, True, False)],
+                        (NCFPE2D_HEADS, False, False), (NIOFNO2D_INNER, True, False),
+                        (FIT_SHAPE, True, False)],
                        variants_2d, library, KERNEL_TOL, stats)
         check_and_time([(HEADS_1D, True, True), (RAGGED_1D, False, False)],
                        [layer_1d(True), layer_1d(False), spectral_1d], library,
@@ -668,10 +705,246 @@ def phase_train(kernel_ms, smi_line):
          bf16_encoder_grad_rel_l2_from_f32=bf16_grad_gap,
          losses_20_steps=[losses[0], losses[-1]], steps_per_sec=sps, step_split=split,
          fno2d_layer_backward_ms=backward_ms, fno2d_layer_backward_eager_ms=backward_eager_ms,
+         fno2d_layer_backward_bound=layer_backward_bound(MAIN_SHAPE),
          fno2d_layer_forward_ms=kernel_ms, layer_shape=MAIN_SHAPE,
          batchnorm_forward_ms_400x64x61x31=bn_ms, peak_memory_gb_f32_step=peak_gb,
          nvidia_smi=smi_line)
     return counts["fno2d_layer"]
+
+
+def fpe2d_archive(m, l, n, rng):
+    """A synthetic fpe2d archive in the JAX datagen's keys and raw magnitudes
+    (trajectories (m, l, n, n) ~ 1e-10, potential ~ 1e-21 and drag ~ 1e-6 (m, n, n)): a
+    Gaussian well per set, snapshots that sharpen towards it, plus noise."""
+    gx, gy = np.meshgrid(np.linspace(-1, 1, n), np.linspace(-1, 1, n), indexing="ij")
+    c = rng.uniform(-0.5, 0.5, (m, 2, 1, 1))
+    well = np.exp(-((gx - c[:, 0]) ** 2 + (gy - c[:, 1]) ** 2) / 0.2).astype(np.float32)
+    t = rng.uniform(0.2, 1.0, (m, l, 1, 1)).astype(np.float32)
+    traj = well[:, None] ** t + 0.05 * rng.random((m, l, n, n), dtype=np.float32)
+    return {"trajectories": traj * np.float32(1e-10), "potential": -well * np.float32(1e-21),
+            "drag": (1 + 0.3 * well + 0.05 * rng.random((m, n, n), dtype=np.float32))
+            * np.float32(1e-6)}
+
+
+@contextlib.contextmanager
+def patched(obj, name, value):
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+def timed_calls(seconds):
+    """Wrap a function so that each call adds its wall seconds to ``seconds``."""
+    def wrap(fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                seconds.append(time.perf_counter() - t0)
+        return call
+    return wrap
+
+
+def sync_free(fn, syncs):
+    """Wrap ``fn`` so that each call runs under ``torch.cuda.set_sync_debug_mode("warn")``
+    and adds the message of every host synchronization it makes to ``syncs``."""
+    def call(*args, **kwargs):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                syncs.extend(str(w.message) for w in caught
+                             if "called a synchronizing" in str(w.message))
+    return call
+
+
+def phase_fit(smi_line):
+    """The main path, training and evaluation through the suites CLI
+    (``blindno_torch.suites.run``) at the fpe2d suite's config. Returns its
+    ``fno2d_layer`` launches."""
+    from blindno_torch.data.datasets import load_fpe2d
+    from blindno_torch.eval.field_eval import (cached_train_stats, denormalize_predictions,
+                                               predict_fields, predict_fields_tta)
+    from blindno_torch.suites import registry
+    from blindno_torch.suites.run import main as cli
+    from blindno_torch.train import checkpoint, loop
+    from blindno_torch.train.step import make_optimizer, train_step
+
+    spec = registry.SUITES["fpe2d"]
+    cfg = spec.train_cfg
+    m, l, n = FIT["m"], FIT["l"], FIT["n"]
+    n_train = int(cfg.train_frac * m)
+    steps = n_train // cfg.batch_size
+    eval_forwards = -(-(m - n_train) // cfg.batch_size)
+    test_forwards = -(-FIT["m_test"] // cfg.batch_size)
+    group = len(loop.make_augment(cfg.augment))
+    out, fields = {}, {}
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "blindno_torch", "_build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as w:
+        os.makedirs(os.path.join(w, "data"))
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(0)
+        arch = fpe2d_archive(m, l, n, rng)
+        np.savez(os.path.join(w, "data", spec.train_file), **arch)
+        np.savez(os.path.join(w, "data", spec.test_file), **fpe2d_archive(FIT["m_test"], l, n, rng))
+        fields["archive_s"] = time.perf_counter() - t0
+        fields["archive_mb"] = os.path.getsize(os.path.join(w, "data", spec.train_file)) / 1e6
+        ckpt_dir = os.path.join(w, "ckpt", "fpe2d_nio")
+
+        models, epoch_starts, saves, syncs = [], [], [], []
+        factory = spec.models["nio"]
+        real_trace = loop.trace
+
+        def run(*argv):
+            """One CLI stage on the card, its launches counted, its stdout kept."""
+            epoch_starts.clear()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                counts, res = counted(lambda: cli(["--suite", "fpe2d", "--model", "nio",
+                                                   "--workdir", w, *argv]))
+            return counts, res, time.perf_counter() - t0, t0
+
+        torch.cuda.reset_peak_memory_stats()
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(patched(
+                loop, "trace", lambda d: (epoch_starts.append(time.perf_counter()), real_trace(d))[1]))
+            # each training step must leave the host free: no synchronization inside it
+            stack.enter_context(patched(loop, "train_step", sync_free(loop.train_step, syncs)))
+            for name in ("save_best", "save_resume"):
+                stack.enter_context(patched(checkpoint, name,
+                                            timed_calls(saves)(getattr(checkpoint, name))))
+            # keep each model the CLI builds, to read its state after the restore
+            spec.models["nio"] = lambda **kw: models.append(factory(**kw)) or models[-1]
+            try:
+                # 1. two epochs from scratch
+                counts1, res1, wall1, t_1 = run("--stage", "train", "--epochs", str(FIT["epochs"]))
+                starts1 = list(epoch_starts)
+                expect_launches("fit: 2 epochs", counts1,
+                                fno2d_layer=6 * steps * FIT["epochs"] + 6 * eval_forwards)
+                saved = torch.load(os.path.join(ckpt_dir, checkpoint.RESUME), map_location="cpu",
+                                   weights_only=True)
+
+                # 2. a third epoch, resumed: the state right after the restore (when the
+                # optimizer has just been loaded) must be the saved one bit for bit
+                restored = {}
+                adam_load = torch.optim.Adam.load_state_dict
+
+                def check_restore(opt, state):
+                    adam_load(opt, state)
+                    model = models[-1]
+                    restored["params"] = all(torch.equal(p.cpu(), saved["params"][k])
+                                             for k, p in model.named_parameters())
+                    restored["buffers"] = all(torch.equal(b.cpu(), saved["batch_stats"][k])
+                                              for k, b in model.named_buffers())
+                    got = opt.state_dict()["state"]
+                    want = saved["opt_state"]["state"]
+                    restored["adam"] = got.keys() == want.keys() and all(
+                        torch.equal(got[i][k].cpu(), want[i][k]) for i in want for k in want[i])
+                    restored["moments_on_card"] = all(s["exp_avg"].is_cuda for s in opt.state.values())
+                    restored["steps_on_host"] = all(s["step"].is_cpu for s in opt.state.values())
+
+                with patched(torch.optim.Adam, "load_state_dict", check_restore):
+                    counts2, res2, wall2, t_2 = run("--stage", "train", "--epochs",
+                                                    str(FIT["epochs"] + 1))
+                starts2 = list(epoch_starts)
+            finally:
+                spec.models["nio"] = factory
+        if syncs:
+            raise RuntimeError(f"fit: the training steps synchronized the host {len(syncs)} "
+                               f"times: {sorted(set(syncs))[:3]}")
+        if not (restored and all(restored.values())):
+            raise RuntimeError(f"fit: the resumed state differs from the saved one: {restored}")
+        expect_launches("fit: resumed epoch", counts2, fno2d_layer=6 * steps + 6 * eval_forwards)
+        hist = res1.history + res2.history
+        if [h["epoch"] for h in res2.history] != [FIT["epochs"] + 1]:
+            raise RuntimeError(f"fit: the resumed run's history is {res2.history}, want epoch 3 only")
+        losses = [v for h in hist for v in (h["train_loss"], h["test_loss"], *h["field_rel_l2"])]
+        if not (res1.finished and res2.finished and np.isfinite(losses).all()):
+            raise RuntimeError(f"fit: unfinished or non-finite run: {hist}")
+        bests = [f for f in os.listdir(ckpt_dir) if f.startswith("best_")]
+        if len(bests) != 1:
+            raise RuntimeError(f"fit: want one best_* checkpoint, found {os.listdir(ckpt_dir)}")
+
+        # 3. the eval stage, with the symmetry average
+        counts3, report, wall3, _ = run("--stage", "eval")
+        expect_launches("fit: eval", counts3, fno2d_layer=6 * test_forwards * (1 + group))
+        numbers = [report["mean_rel_l2_sum"], report["mean_rel_l2_sum_tta"]]
+        if report["n_test"] != FIT["m_test"] or not np.isfinite(numbers).all():
+            raise RuntimeError(f"fit: eval report {report}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+        # 4. the card's eval predictions against the CPU plain path on the same checkpoint
+        stats = cached_train_stats(spec, w)
+        with np.load(os.path.join(w, "data", spec.test_file)) as z:
+            inputs = stats.stats["traj"].normalize(z["trajectories"])
+        k = FIT["cpu_sets"]
+        best = checkpoint.load_best(ckpt_dir)
+        cpu_model = factory(device="cpu")
+        cpu_model.load_state_dict({**best["params"], **best["batch_stats"]})
+        t0 = time.perf_counter()
+        want = denormalize_predictions(spec, stats, predict_fields(cpu_model, inputs[:k], spec.grid,
+                                                                   batch=k, device="cpu"))
+        cpu_s = time.perf_counter() - t0
+        got = np.load(os.path.join(w, "eval", "fpe2d_nio", "predictions.npy"))[:k]
+        err = [check_close(f"fit: eval predictions, field {f}, vs the CPU plain path",
+                           torch.tensor(got[..., f]), torch.tensor(want[..., f]), SERVE_TOL,
+                           float(np.abs(want[..., f]).max()))
+               / float(np.abs(want[..., f]).max()) for f in range(2)]
+
+        # 5. eval with and without the average, on the card, warm
+        card_model = factory(device="cuda")
+        card_model.load_state_dict({**best["params"], **best["batch_stats"]})
+        eval_s = {}
+        for label, fn in (("plain", lambda: predict_fields(card_model, inputs, spec.grid)),
+                          ("tta", lambda: predict_fields_tta(card_model, inputs, spec.grid,
+                                                             cfg.augment))):
+            fn()
+            t0 = time.perf_counter()
+            fn()
+            eval_s[label] = time.perf_counter() - t0
+
+        # 6. bare train_step on one batch of 16 in this process, the loop's yardstick
+        data = load_fpe2d(arch)
+        x = torch.tensor(data.inputs[:cfg.batch_size], device="cuda")
+        y = torch.tensor(data.targets[:cfg.batch_size], device="cuda")
+        del data, arch
+        g = torch.tensor(spec.grid, device="cuda")
+        model = factory(generator=torch.Generator().manual_seed(1), device="cuda").train()
+        opt = make_optimizer(model, cfg.lr)
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        for _ in range(3):
+            train_step(model, opt, x, y, g, generator=gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(FIT["bare_steps"]):
+            loss = train_step(model, opt, x, y, g, generator=gen)
+        torch.cuda.synchronize()
+        bare_sps = FIT["bare_steps"] / (time.perf_counter() - t0)
+        if not torch.isfinite(loss):
+            raise RuntimeError(f"fit: bare step loss {loss.item()}")
+
+    loop_sps = [h["steps_per_sec"] for h in hist]
+    epoch_wall = [b - a for a, b in zip(starts1, starts1[1:] + [t_1 + wall1])]
+    emit("fit", suite="fpe2d", model="nio", config=dict(cfg.__dict__), sets=m, test_sets=FIT["m_test"],
+         snapshots=l, grid=[n, n], steps_per_epoch=steps, **fields,
+         launches={"train_2_epochs": counts1, "resumed_epoch": counts2, "eval": counts3},
+         history=hist, restored_bit_for_bit=restored, host_syncs_in_steps=len(syncs), report=report,
+         max_rel_err_vs_cpu=err, tol=f"rtol {SERVE_TOL}, atol {SERVE_TOL} x each field's scale",
+         cpu_reference_s=cpu_s, loop_steps_per_sec=loop_sps, bare_train_step_steps_per_sec=bare_sps,
+         loop_overhead=1.0 - float(np.mean(loop_sps)) / bare_sps,
+         epoch_wall_s=epoch_wall, resumed_epoch_wall_s=t_2 + wall2 - starts2[0],
+         data_load_s=[starts1[0] - t_1, starts2[0] - t_2], stage_wall_s=[wall1, wall2, wall3],
+         eval_s=eval_s, checkpoint_save_s=saves, peak_memory_gb=peak_gb, nvidia_smi=smi_line)
+    return counts1["fno2d_layer"] + counts2["fno2d_layer"] + counts3["fno2d_layer"]
 
 
 def main():
@@ -701,6 +974,7 @@ def main():
     stats = phase_kernels()
     launches = {**phase_serve(), **phase_serve1d()}
     launches["fno2d_layer"] += phase_train(stats["fno2d_layer"]["kernel_ms"], smi_line)
+    launches["fno2d_layer"] += phase_fit(smi_line)
 
     csrc, replaces = "blindno_torch/csrc", "blindno/ops/spectral_pallas.py"
     kernels = [

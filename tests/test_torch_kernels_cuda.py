@@ -16,10 +16,12 @@ pytestmark = pytest.mark.cuda
 
 # (B, C, H, W, m1, m2): the main serving shape, a ragged one, the ncfpe2d heads (an
 # 80x80 grid padded by a quarter), the NIOFNO2D inner branch over 4 x 100 snapshots, one
-# smaller than every tile of the kernel, and one whose +-H matrix must take the x plane's
-# place in shared memory and whose 2*m1 mode rows outnumber the first stage's warps
+# smaller than every tile of the kernel, one whose +-H matrix must take the x plane's
+# place in shared memory and whose 2*m1 mode rows outnumber the first stage's warps, and
+# the fpe2d suite's training batch of 16
 SHAPES = [(4, 12, 76, 76, 32, 32), (3, 5, 40, 36, 7, 9), (4, 12, 100, 100, 32, 32),
-          (400, 4, 76, 76, 12, 12), (1, 1, 9, 11, 2, 3), (1, 2, 130, 132, 65, 20)]
+          (400, 4, 76, 76, 12, 12), (1, 1, 9, 11, 2, 3), (1, 2, 130, 132, 65, 20),
+          (16, 12, 76, 76, 32, 32)]
 # 1-D (B, C, N, modes, dc_half[, Cout], Cout = C unless given): the fpe1d heads, the
 # FNO-branch model's inner FNO1d, the GPE width, a ragged shape without the DC halving,
 # the gpe1d heads, an even N that keeps its Nyquist mode, one batch row with more output

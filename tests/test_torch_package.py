@@ -35,6 +35,11 @@ def _imported_roots(path):
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     files = sorted((ROOT / "blindno_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    # every subpackage is walked, the training, data, suites and logging ones included
+    walked = {f.relative_to(ROOT / "blindno_torch").parts[0] for f in files[:-1]}
+    assert {"data", "eval", "models", "nn", "ops", "suites", "tools", "train", "utils"} <= walked
+    assert {"loop.py", "checkpoint.py", "datasets.py", "run.py", "registry.py",
+            "logging.py", "field_eval.py"} <= {f.name for f in files}
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN) for f in files}
     assert not {f: r for f, r in bad.items() if r}
 
