@@ -2,10 +2,16 @@
 
 ``from_flax(params, batch_stats)`` takes the nested dicts of numpy arrays that the JAX
 package's checkpoints hold and returns the state dict of
-:class:`blindno_torch.models.nio2d.NIOFP2D`, :class:`blindno_torch.models.nio1d.NIOFP1D`
-or :class:`blindno_torch.models.nio1d.NIOFNO1D`:
+:class:`blindno_torch.models.nio2d.NIOFP2D`, :class:`blindno_torch.models.nio1d.NIOFP1D`,
+:class:`blindno_torch.models.nio1d.NIOFNO1D` or
+:class:`blindno_torch.models.blindno_unet.PermInvUNetAttn`:
 
 - conv kernels go from (*window, cin, cout) to (cout, cin, *window);
+- transposed-conv kernels go from (*window, cin, cout) to (cin, cout, *window) and are
+  flipped in space (flax's transposed convolution does not flip its kernel, torch's
+  does);
+- LayerNorm scale/bias become weight/bias as they stand (the port's set attention
+  flattens its tokens in JAX's order);
 - dense kernels (also the 1x1 ``PointwiseConv`` and the fusion map) from (in, out) to
   (out, in);
 - BatchNorm scale/bias/mean/var become weight/bias/running_mean/running_var;
@@ -39,13 +45,30 @@ _RULES = [
     (r"FNO[12]d_(\d+)/TorchDense_([012])/Dense_0", "heads.{0}.fc{1}", "dense"),
     (r"FNO[12]d_(\d+)/SpectralConv[12]d_(\d+)", "heads.{0}.spectral.{1}", "spectral"),
     (r"FNO[12]d_(\d+)/PointwiseConv_(\d+)", "heads.{0}.pointwise.{1}", "dense"),
+    # the UNet: flax numbers each kind of module in its order of creation, and the port
+    # keeps its lists in that order (blindno_torch/models/blindno_unet.py)
+    (r"TorchConv_(\d+)/Conv_0", "convs.{0}", "conv"),
+    (r"ConvNeXtBlock_(\d+)/TorchConv_0/Conv_0", "blocks.{0}.dwconv", "conv"),
+    (r"ConvNeXtBlock_(\d+)/LayerNorm_0", "blocks.{0}.norm", "ln"),
+    (r"ConvNeXtBlock_(\d+)/TorchDense_0/Dense_0", "blocks.{0}.pwconv1", "dense"),
+    (r"ConvNeXtBlock_(\d+)/TorchDense_1/Dense_0", "blocks.{0}.pwconv2", "dense"),
+    (r"PlainConvBlock_(\d+)/TorchConv_0/Conv_0", "blocks.{0}.conv", "conv"),
+    (r"PlainConvBlock_(\d+)/TorchBatchNorm_0/BatchNorm_0", "blocks.{0}.bn", "bn"),
+    (r"TemporalSelfAttention_(\d+)/LayerNorm_0", "attention.{0}.norm", "ln"),
+    (r"TorchConvTranspose_(\d+)/ConvTranspose_0", "transposes.{0}", "conv_transpose"),
+    (r"TorchBatchNorm_(\d+)/BatchNorm_0", "skip_norms.{0}", "bn"),
 ]
 
 # kind -> {flax leaf (in params, or in batch_stats for "stats:"): (torch name, transform)}
 _KINDS = {
     "conv": {"kernel": ("weight", lambda a: a.transpose(a.ndim - 1, a.ndim - 2, *range(a.ndim - 2))),
              "bias": ("bias", None)},
+    "conv_transpose": {
+        "kernel": ("weight", lambda a: np.ascontiguousarray(np.flip(
+            a, tuple(range(a.ndim - 2))).transpose(a.ndim - 2, a.ndim - 1, *range(a.ndim - 2)))),
+        "bias": ("bias", None)},
     "dense": {"kernel": ("weight", lambda a: a.T), "bias": ("bias", None)},
+    "ln": {"scale": ("weight", None), "bias": ("bias", None)},
     "bn": {"scale": ("weight", None), "bias": ("bias", None),
            "stats:mean": ("running_mean", None), "stats:var": ("running_var", None)},
     "spectral": {"weights_re": ("weights_re", None), "weights_im": ("weights_im", None)},

@@ -1,11 +1,15 @@
 """Set operations of the NIO family (counterpart of ``blindno/nn/setops.py``): train-time
-set subsampling, masked means and the frozen mean-field fusion."""
+set subsampling, masked means, set self-attention and the frozen mean-field fusion."""
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
 
 from blindno_torch.utils import torch_init as tinit
+
+NEG_INF = -1e9  # the key mask's additive term, JAX's (not -inf)
 
 
 def subsample_set(x, l_min: int = 50, generator: torch.Generator | None = None,
@@ -47,6 +51,40 @@ def masked_mean(x, mask, axis: int = 1):
         shape[0] = x.shape[0]
     m = mask.reshape(shape)
     return (x * m).sum(axis) / m.sum(axis).clamp_min(1.0)
+
+
+def set_self_attention(x_flat, mask=None):
+    """Unparameterized Q=K=V self-attention over a token set, as JAX computes it: scores
+    ``x xᵀ / sqrt(D)``, ``NEG_INF`` added to the scores of masked-out keys, a softmax
+    over the keys, and the weights times x. x_flat: (B, T, D); mask: (T,) or (B, T). The
+    products are full float32 where TF32 is off for matmul, torch's default (JAX computes
+    them at ``Precision.HIGHEST``)."""
+    scores = x_flat @ x_flat.transpose(1, 2) / math.sqrt(x_flat.shape[-1])
+    if mask is not None:
+        key_mask = mask.reshape(1, 1, -1) if mask.dim() == 1 else mask[:, None, :]
+        scores = scores + (1.0 - key_mask) * NEG_INF
+    return torch.softmax(scores, dim=-1) @ x_flat
+
+
+class TemporalSelfAttention(nn.Module):
+    """Set self-attention over flattened (C x spatial) tokens, plus the residual, then a
+    LayerNorm over D = C·prod(spatial) (eps 1e-5). Input and output (B, T, C, *spatial).
+
+    The tokens are flattened in the JAX package's channel-last order (spatial, then
+    channel), so the LayerNorm's (D,) weight and bias are the flax checkpoint's as they
+    stand; a channel-first flatten would need them permuted, which flax's init (ones and
+    zeros) would not show.
+    """
+
+    def __init__(self, channels: int, spatial):
+        super().__init__()
+        self.norm = nn.LayerNorm(channels * math.prod(spatial), eps=1e-5)
+
+    def forward(self, x, mask=None):
+        b, t, c = x.shape[:3]
+        flat = x.movedim(2, -1).reshape(b, t, -1)
+        out = self.norm(set_self_attention(flat, mask) + flat)
+        return out.reshape(b, t, *x.shape[3:], c).movedim(-1, 2)
 
 
 class MeanFieldFusion(nn.Module):

@@ -5,7 +5,9 @@ Builders draw their initial weights from an explicit generator; ``skip_init`` ke
 the module constructors from touching the global RNG. :class:`BatchNorm1d` and
 :class:`BatchNorm2d` are the counterparts of ``TorchBatchNorm``: torch's eps 1e-5 and
 momentum 0.1, which are the JAX package's (flax's momentum 0.9 is the same running
-average), with flax's running-variance update in train mode.
+average), with flax's running-variance update in train mode. :class:`ConvTranspose` is
+``TorchConvTranspose``'s counterpart, :func:`max_pool` ``max_pool``'s, and
+:class:`LayerNorm` flax's two-pass LayerNorm where it differs from torch's.
 """
 from __future__ import annotations
 
@@ -59,6 +61,22 @@ class BatchNorm2d(_FlaxRunningVar, nn.BatchNorm2d):
     :class:`_FlaxRunningVar`); the state-dict keys are torch's."""
 
 
+class LayerNorm(nn.LayerNorm):
+    """nn.LayerNorm over the last axis, exact where it normalizes a single element, as
+    flax's two-pass LayerNorm is there: x - mean(x) is 0, the output is the bias, and
+    the gradients of the input and the scale are exactly 0. torch's fused kernel gives
+    the bias too, but its backward leaves rounding in those gradients (up to 7e-5 at a
+    one-channel ConvNeXt block on the CPU), so over one element this computes flax's
+    formula, mean((x - mean)^2) for the variance, in plain operations."""
+
+    def forward(self, x):
+        if self.normalized_shape != (1,):
+            return super().forward(x)
+        xc = x - x.mean(-1, keepdim=True)
+        var = (xc * xc).mean(-1, keepdim=True)
+        return xc * torch.rsqrt(var + self.eps) * self.weight + self.bias
+
+
 def gelu(x):
     """Exact (erf) gelu, torch's default and the JAX package's choice."""
     return F.gelu(x)
@@ -81,17 +99,56 @@ def linear(in_features: int, out_features: int, generator, bias: bool = True) ->
 
 
 def conv1d(in_channels: int, out_channels: int, kernel_size: int, stride: int, padding: int,
-           generator) -> nn.Conv1d:
-    """nn.Conv1d (symmetric integer padding) with torch's default init."""
+           generator, groups: int = 1) -> nn.Conv1d:
+    """nn.Conv1d (symmetric integer padding) with torch's default init; fan_in is
+    ``kernel * in_channels / groups``."""
     m = skip_init(nn.Conv1d, in_channels, out_channels, kernel_size, stride=stride,
-                  padding=padding)
-    return tinit.torch_default_(m, in_channels * m.kernel_size[0], generator)
+                  padding=padding, groups=groups)
+    return tinit.torch_default_(m, in_channels // groups * m.kernel_size[0], generator)
 
 
 def conv2d(in_channels: int, out_channels: int, kernel_size, stride, padding,
-           generator) -> nn.Conv2d:
-    """nn.Conv2d (symmetric integer padding) with torch's default init."""
+           generator, groups: int = 1) -> nn.Conv2d:
+    """nn.Conv2d (symmetric integer padding) with torch's default init; fan_in is
+    ``kh * kw * in_channels / groups``."""
     m = skip_init(nn.Conv2d, in_channels, out_channels, kernel_size, stride=stride,
-                  padding=padding)
+                  padding=padding, groups=groups)
     kh, kw = m.kernel_size
-    return tinit.torch_default_(m, in_channels * kh * kw, generator)
+    return tinit.torch_default_(m, in_channels // groups * kh * kw, generator)
+
+
+def max_pool(x, window: int):
+    """torch MaxPoolNd(window): stride = window, floor mode. Channel-first, 1-D or 2-D."""
+    return (F.max_pool1d if x.dim() == 3 else F.max_pool2d)(x, window)
+
+
+class ConvTranspose(nn.Module):
+    """The JAX package's ``TorchConvTranspose`` (``blindno/nn/torch_layers.py:50-85``) in
+    1-D or 2-D, channel-first: a VALID transposed convolution with its bias, output
+    ``(in - 1) * stride + kernel``, then ``output_padding`` rows (and columns) of zeros
+    at the end. torch's own ``output_padding`` would fill them with the bias instead, so
+    the convolution runs without it and :func:`F.pad` adds the zeros.
+
+    ``weight`` is torch's (cin, cout, *kernel) and ``bias`` (cout,), with torch's
+    ConvTranspose init (:func:`~blindno_torch.utils.torch_init.torch_conv_transpose_`).
+    A flax kernel (*kernel, cin, cout) becomes this weight only flipped in space
+    (``blindno_torch.convert``): flax's transposed convolution does not flip the kernel,
+    torch's does.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size, stride,
+                 output_padding, generator: torch.Generator):
+        super().__init__()
+        self.kernel_size, self.stride = tuple(kernel_size), tuple(stride)
+        self.output_padding = tuple(output_padding)
+        self.weight = nn.Parameter(torch.empty(in_channels, out_channels, *self.kernel_size))
+        self.bias = nn.Parameter(torch.empty(out_channels))
+        tinit.torch_conv_transpose_(self, generator)
+
+    def forward(self, x):
+        fn = F.conv_transpose1d if len(self.kernel_size) == 1 else F.conv_transpose2d
+        y = fn(x, self.weight, self.bias, self.stride)
+        if not any(self.output_padding):
+            return y
+        pads = [p for op in reversed(self.output_padding) for p in (0, op)]
+        return F.pad(y, pads)

@@ -1,8 +1,8 @@
 """Suite registry (counterpart of ``blindno/suites/registry.py``): the (suite x model)
 configurations the port trains and evaluates, with the JAX package's hyperparameters.
 
-Only the fpe2d suite and its NIO model are ported. :data:`NOT_PORTED` names the
-``ROADMAP.md`` item of every other suite, model and stage of the JAX CLI.
+Only the fpe2d suite is ported, with its NIO and BlinDNO UNet models. :data:`NOT_PORTED`
+names the ``ROADMAP.md`` item of every other suite, model and stage of the JAX CLI.
 """
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ from typing import Callable
 import numpy as np
 
 from blindno_torch.data.datasets import load_fpe2d
+from blindno_torch.models.blindno_unet import PermInvUNetAttn
 from blindno_torch.models.nio2d import NIOFP2D
 from blindno_torch.train.loop import TrainConfig
 
@@ -49,7 +50,7 @@ SUITES: dict[str, SuiteSpec] = {}
 NOT_PORTED = {
     "suites": {"fpe1d": "A.7", "schrodinger1d": "A.7", "gpe1d": "A.7", "gpe1d_vgk": "A.7",
                "ncfpe2d": "A.6"},
-    "models": {"fpe2d": {"unet": "A.5", "fno": "A.6", "attn": "A.6", "fno_attn": "A.6",
+    "models": {"fpe2d": {"fno": "A.6", "attn": "A.6", "fno_attn": "A.6",
                          "trans": "A.6", "trans_attn": "A.6"}},
     "stages": {"datagen": "A.8", "time-error": "A.8"},
 }
@@ -71,6 +72,9 @@ _register(
         loader=load_fpe2d,
         models={
             "nio": lambda **kw: NIOFP2D(width=12, modes=32, encoder_final_kernel=(2, 1), **kw),
+            "unet": lambda **kw: PermInvUNetAttn(input_size=(61, 61), depth=4, width=12,
+                                                 fno_modes=32, head_dims=(1, 1), subsample=True,
+                                                 **kw),
         },
         train_cfg=TrainConfig(epochs=400, batch_size=16, lr=5e-4, save_interval=5,
                               compress_inputs=True, augment="d4_scalar"),

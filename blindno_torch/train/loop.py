@@ -25,7 +25,7 @@ from blindno_torch import default_device
 from blindno_torch.data.datasets import SetToFieldData, eval_batches, train_test_split
 from blindno_torch.eval.metrics import relative_l2_per_field
 from blindno_torch.train import checkpoint
-from blindno_torch.train.step import make_optimizer, train_step
+from blindno_torch.train.step import check_compute_dtype, make_optimizer, train_step
 from blindno_torch.utils.logging import MetricsLogger, trace
 
 
@@ -199,7 +199,7 @@ def train_model(model, data: SetToFieldData, grid, cfg: TrainConfig, *,
                 progress: Callable | None = None, device=None,
                 draws: Callable | None = None) -> TrainResult:
     """Full training run of ``model`` (an ``nn.Module`` taking ``(x, grid, generator=...,
-    subsample=...)`` in train mode, such as ``NIOFP2D``), which moves to ``device``
+    subsample=...)`` in train mode, such as ``NIOFP2D`` or ``PermInvUNetAttn``), which moves to ``device``
     (CUDA unless the caller passes another) and is trained in place; it is left in eval
     mode.
 
@@ -209,6 +209,7 @@ def train_model(model, data: SetToFieldData, grid, cfg: TrainConfig, *,
     subsample ``(indices, mask)`` (or ``None``, for the model to draw).
     """
     _check_config(cfg)
+    check_compute_dtype(model, cfg.compute_dtype)
     aug_fns = make_augment(cfg.augment)
     if cfg.augment == "flip1d":
         if data.inputs.ndim != 3:

@@ -1,5 +1,6 @@
-"""One training step of the fpe2d NIO (counterpart of the step body of
-``bench.py:157-186`` and of ``amp_cast_fns``, ``blindno/train/loop.py:156-198``).
+"""One training step of a 2-D model, the fpe2d NIO or the BlinDNO UNet (counterpart of
+the step body of ``bench.py:157-186`` and of ``amp_cast_fns``,
+``blindno/train/loop.py:156-198``).
 
 The step is forward in train mode (set subsampling, batch-statistics BatchNorm), the mean
 squared error of the float32 output against y, ``loss.backward()``, and one Adam update
@@ -13,11 +14,15 @@ torch's). Two compute modes:
   statistics stay float32 and compute in float32; the trunk, fusion and heads run in
   float32. Master weights, gradients and Adam state stay float32. The JAX package's other
   policies, ``all`` and ``encoder``, failed their accuracy gates
-  (``blindno/train/loop.py:105-123``) and are not ported.
+  (``blindno/train/loop.py:105-123``) and are not ported. The policy casts the leaves of
+  an Encoder only, so a model without one (the UNet, ``blindno/train/loop.py:128``)
+  has nothing to cast, and the step refuses bfloat16 for it.
 """
 from __future__ import annotations
 
 import torch
+
+from blindno_torch.nn.cnn import Encoder2D
 
 COMPUTE_DTYPES = {None: torch.float32, "bfloat16": torch.bfloat16}
 
@@ -27,18 +32,28 @@ def make_optimizer(model, lr: float = 5e-4) -> torch.optim.Adam:
     return torch.optim.Adam([p for p in model.parameters() if p.requires_grad], lr=lr)
 
 
+def check_compute_dtype(model, compute_dtype):
+    """Raise ``ValueError`` unless ``model`` trains in ``compute_dtype``: None (float32),
+    or "bfloat16" (``encoder_bn32``) for a model with an Encoder2D to cast."""
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"unknown compute_dtype {compute_dtype!r} (want None or 'bfloat16', "
+                         "the encoder_bn32 policy)")
+    if compute_dtype is not None and not any(isinstance(m, Encoder2D) for m in model.modules()):
+        raise ValueError(f"compute_dtype={compute_dtype!r}: the encoder_bn32 policy casts an "
+                         f"Encoder's leaves, and {type(model).__name__} has none (in JAX it "
+                         "casts no leaf of it); train it in float32")
+
+
 def train_step(model, optimizer, x, y, grid, *, generator: torch.Generator | None = None,
                subsample=None, compute_dtype=None):
-    """One step on the batch x (B, L, H, W), y (B, H, W, 2) and grid (H, W, 2), tensors
+    """One step on the batch x (B, L, H, W), y (B, H, W, F) and grid (H, W, 2), tensors
     on the model's device; the model must be in train mode. The set subsample is drawn
     from ``generator``, or injected as ``subsample=(indices, mask)``. Returns the loss (a
     0-d float32 tensor on the device, not synchronized). The parameters' ``.grad`` keep
     this step's gradients until the next step."""
     if not model.training:
         raise ValueError("train_step: call model.train() first")
-    if compute_dtype not in COMPUTE_DTYPES:
-        raise ValueError(f"unknown compute_dtype {compute_dtype!r} (want None or 'bfloat16', "
-                         "the encoder_bn32 policy)")
+    check_compute_dtype(model, compute_dtype)
     optimizer.zero_grad(set_to_none=True)
     out = model(x.to(COMPUTE_DTYPES[compute_dtype]), grid, generator=generator,
                 subsample=subsample)

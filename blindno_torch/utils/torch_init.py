@@ -26,6 +26,14 @@ def torch_default_(module, fan_in: int, generator: torch.Generator):
     return module
 
 
+def torch_conv_transpose_(module, generator: torch.Generator):
+    """nn.ConvTranspose default on a (cin, cout, *kernel) weight: torch takes fan_in as
+    ``cout * prod(kernel)`` (the JAX package's ``torch_conv_transpose_kernel``), for the
+    weight and the bias alike."""
+    w = module.weight
+    return torch_default_(module, w.shape[1] * math.prod(w.shape[2:]), generator)
+
+
 @torch.no_grad()
 def kaiming_uniform_leaky_(weight, a: float, generator: torch.Generator):
     """kaiming_uniform_(a, nonlinearity='leaky_relu') on an (out, in) weight:

@@ -24,14 +24,24 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``. It
    drives the ``NIOFP1D`` heads' ``SpectralConv1d`` modules (the 1-D spectral-conv
    kernel) on one batch; then serves the gpe1d NIO (``NIOFP1D`` at the GPE suite's
    width) on 64 sets of 101 snapshots of 128 points;
-6. trains the fpe2d NIO at the ``bench.py`` config (4 sets of 100 snapshots of 61x61):
+6. serves the BlinDNO UNet (``PermInvUNetAttn``, randomized LayerNorms, calibrated
+   BatchNorms) the same way: the fpe2d suite's UNet on the fpe2d NIO's sets, the gpe1d
+   suite's 1-D UNet on the gpe1d NIO's, and the ncfpe2d suite's plain-block UNet on 4 sets
+   of 100 snapshots of 80x80; each forward split between the set encoder and the heads,
+   on the device (eager and from CUDA graphs, its top kernels in a profiler trace) and
+   on the host;
+7. trains the fpe2d NIO at the ``bench.py`` config (4 sets of 100 snapshots of 61x61):
    one float32 step on the card against the same step on the CPU plain path (same
    seeded weights, batch and injected set subsample), its launches counted; a bfloat16
    ``encoder_bn32`` step from the same weights; twenty float32 steps on one batch with
    fresh draws, whose loss must fall; steps per second in both modes
    (``blindno_torch.tools.bench_train``), the step's split, the FNO2d layer's backward
    per call, the BatchNorm correction's cost and the peak memory;
-7. trains and evaluates the fpe2d NIO through the port's suites CLI at the suite's own
+8. trains the fpe2d suite's UNet on the same batch (phase ``train_unet``): one float32
+   step on the card against the CPU, its exact zero gradients exact; twenty steps whose
+   loss must fall; steps per second (``bench_train --model unet``), the step's split on
+   the device and the host, its top kernels and peak memory;
+9. trains and evaluates the fpe2d NIO through the port's suites CLI at the suite's own
    config (phase ``fit``): a synthetic archive of 160 sets of 100 snapshots of 61x61 in
    the JAX datagen's format (numpy seed 0) under a temporary workdir, 2 epochs of
    ``--stage train`` (128 train sets, 8 steps of batch 16 an epoch, d4 augmentation,
@@ -41,7 +51,10 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``. It
    predictions held against the CPU plain path on the same checkpoint; the loop's
    steps per second beside bare ``train_step``'s on one batch of 16, the epoch wall
    time, the eval with and without the average, the checkpoint saves and peak memory;
-8. prints one JSON line per phase, the nvidia-smi line, the kernels line, and last
+   then the same for the suite's UNet (``--model unet``): one epoch and the eval stage,
+   launches counted exactly, no host synchronization in a step, predictions against the
+   CPU;
+10. prints one JSON line per phase, the nvidia-smi line, the kernels line, and last
    ``{"ok": true, "device": {...}}``.
 
 Every path runs with all four kernels' launch counts set to 0 just before it and read
@@ -105,9 +118,18 @@ MODEL_1D = dict(width=30, modes=15)
 # gpe1d (blindno/suites/registry.py:132-141): 101 snapshots of 128 points a set
 SERVE_GPE = dict(m=64, l=101, n=128, batch=16, timed_rounds=5)
 MODEL_GPE = dict(width=20, modes=40, head_dims=(1,))
+# the BlinDNO UNet (PermInvUNetAttn): the fpe2d suite's (blindno/suites/registry.py:196-198,
+# bench_train.UNET_CONFIG) on SERVE's sets; the gpe1d suite's (:148-150) on SERVE_GPE's;
+# the ncfpe2d suite's plain-block UNet (:235-238) on 4 sets of 100 snapshots of 80x80 at
+# that suite's batch of 4, whose heads run fno2d_layer at NCFPE2D_HEADS
+MODEL_UNET_GPE = dict(input_size=(128,), depth=4, width=20, fno_modes=40, head_dims=(1,),
+                      subsample=True)
+MODEL_UNET_NC = dict(input_size=(80, 80), depth=5, width=12, fno_modes=32, head_dims=(1, 1),
+                     subsample=True, block="plain")
+SERVE_UNET_NC = dict(m=4, l=100, n=80, batch=4, timed_rounds=5)
 # phase fit: the fpe2d suite's config (blindno/suites/registry.py:186-220) on a synthetic
 # archive; 160 sets split 128/32, 8 steps of 16 an epoch; a test archive of 16 sets
-FIT = dict(m=160, m_test=16, l=100, n=61, epochs=2, cpu_sets=4, bare_steps=10)
+FIT = dict(m=160, m_test=16, l=100, n=61, epochs=2, cpu_sets=4, bare_steps=10, unet_epochs=1)
 
 
 def kernel_wrappers():
@@ -352,7 +374,7 @@ def phase_kernels():
     stats = {}
     with torch.inference_mode():
         check_and_time([(MAIN_SHAPE, True, True), (RAGGED_SHAPE, False, False),
-                        (NCFPE2D_HEADS, False, False), (NIOFNO2D_INNER, True, False),
+                        (NCFPE2D_HEADS, True, False), (NIOFNO2D_INNER, True, False),
                         (FIT_SHAPE, True, False)],
                        variants_2d, library, KERNEL_TOL, stats)
         check_and_time([(HEADS_1D, True, True), (RAGGED_1D, False, False)],
@@ -369,9 +391,9 @@ def phase_kernels():
 def calibrate_bn(model, x, grid, rng):
     """BatchNorm as a trained model has it: affine parameters drawn in the ranges of
     tests/test_nio2d_torch_parity.py, running statistics measured on a calibration batch
-    (one train-mode pass of the branch and the trunk). Statistics drawn at random instead
-    leave an untrained encoder's output all but independent of its input. A model
-    without BatchNorm is left as it is."""
+    (one train-mode pass of the NIO's branch and trunk, or of the UNet's set encoder).
+    Statistics drawn at random instead leave an untrained encoder's output all but
+    independent of its input. A model without BatchNorm is left as it is."""
     bns = [m for m in model.modules() if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
     if not bns:
         return
@@ -381,10 +403,13 @@ def calibrate_bn(model, x, grid, rng):
             m.bias.copy_(torch.tensor(rng.normal(0.0, 0.08, m.num_features)))
             m.reset_running_stats()
             m.momentum = None  # running stats = this pass's batch stats
-        deeponet = model.deeponet
-        deeponet.train()
-        deeponet.branch(torch.as_tensor(x))
-        deeponet.trunk(torch.as_tensor(grid).reshape(-1, grid.shape[-1]))
+        if hasattr(model, "deeponet"):
+            deeponet = model.deeponet
+            deeponet.train()
+            deeponet.branch(torch.as_tensor(x))
+            deeponet.trunk(torch.as_tensor(grid).reshape(-1, grid.shape[-1]))
+        else:
+            model.train().features(torch.as_tensor(x))
         model.eval()
         for m in bns:
             m.momentum = 0.1
@@ -453,13 +478,26 @@ def spectral_path(label, model, cpu_model, lifted, kernel, tol):
     return counts[kernel]
 
 
+def grid_2d(n):
+    """The n x n grid on [-1, 1]^2, (n, n, 2)."""
+    gx, gy = np.meshgrid(np.linspace(-1, 1, n), np.linspace(-1, 1, n), indexing="ij")
+    return np.stack([gx, gy], 2).astype(np.float32)
+
+
+def sets_1d(rng, k, l, n):
+    """k sets of l snapshots of n points. The snapshots of one set share that set's
+    profile, as the snapshots of one solution do; with independent noise alone, the mean
+    over a set is nearly the same for every set, and so is the FNO-branch model's
+    output."""
+    return (rng.standard_normal((k, 1, n)) + 0.5 * rng.standard_normal((k, l, n))).astype(np.float32)
+
+
 def phase_serve():
     from blindno_torch.models.nio2d import NIOFP2D
 
     m, l, n, batch = SERVE["m"], SERVE["l"], SERVE["n"], SERVE["batch"]
     inputs = np.random.default_rng(0).standard_normal((m, l, n, n)).astype(np.float32)
-    gx, gy = np.meshgrid(np.linspace(-1, 1, n), np.linspace(-1, 1, n), indexing="ij")
-    grid = np.stack([gx, gy], 2).astype(np.float32)
+    grid = grid_2d(n)
 
     cpu_model = NIOFP2D(**MODEL, generator=torch.Generator().manual_seed(0), device="cpu")
     calib = np.random.default_rng(1).standard_normal((1, l, n, n)).astype(np.float32)
@@ -496,13 +534,6 @@ def phase_serve1d():
     from blindno_torch.models.nio1d import NIOFNO1D, NIOFP1D
     from blindno_torch.nn.cnn import ENC_GPE128
 
-    # the snapshots of one set share that set's profile, as the snapshots of one
-    # solution do; with independent noise alone, the mean over a set is nearly the same
-    # for every set, and so is the FNO-branch model's output
-    def sets(rng, k, l, n):
-        return (rng.standard_normal((k, 1, n))
-                + 0.5 * rng.standard_normal((k, l, n))).astype(np.float32)
-
     launches = {"fno1d_layer": 0}
     # (label, class, config, serving sizes, fno1d_layer launches per forward, least
     # spread between two sets' outputs, output fields): 3 layers in each head, and the
@@ -515,10 +546,10 @@ def phase_serve1d():
               SERVE_GPE, 3, 1e-5, 1))
     for label, cls, config, sizes, per_forward, min_spread, out_dim in paths:
         m, l, n, batch = sizes["m"], sizes["l"], sizes["n"], sizes["batch"]
-        inputs = sets(np.random.default_rng(2), m, l, n)
+        inputs = sets_1d(np.random.default_rng(2), m, l, n)
         grid = np.linspace(0.0, 1.0, n, dtype=np.float32).reshape(n, 1)
         cpu_model = cls(**config, generator=torch.Generator().manual_seed(0), device="cpu")
-        calibrate_bn(cpu_model, sets(np.random.default_rng(3), 1, l, n), grid,
+        calibrate_bn(cpu_model, sets_1d(np.random.default_rng(3), 1, l, n), grid,
                      np.random.default_rng(7))
         model, counts, fields = serve(label, cpu_model, inputs, grid, batch,
                                       sizes["timed_rounds"], "fno1d_layer", per_forward,
@@ -555,6 +586,88 @@ def phase_serve1d():
             split["rest_graph_ms"] = (split["forward_graph_ms"] - split["encoder_graph_ms"]
                                       - split["heads_graph_ms"])
         emit("serve1d", model=label, config=config, **fields, device_split=split)
+    return launches
+
+
+def randomize_layernorms(model, rng):
+    """Each LayerNorm's scale drawn from U(0.6, 1.4) and its bias from N(0, 0.08), as the
+    CPU tests draw them: at flax's init (ones and zeros) a LayerNorm laid over its
+    tokens in the wrong order would not show."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.LayerNorm):
+                m.weight.copy_(torch.tensor(rng.uniform(0.6, 1.4, m.weight.shape)))
+                m.bias.copy_(torch.tensor(rng.normal(0.0, 0.08, m.bias.shape)))
+
+
+def top_kernels(fn, n=6, iters=5):
+    """The ``n`` CUDA kernels of ``fn`` with the most device time per call (ms; names cut
+    to 80 characters) in a ``torch.profiler`` trace, and the sum over all of its kernels,
+    the device's busy time per call, as ``"all"``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ms = sorted(((e.key[:80], e.device_time_total / 1e3 / iters) for e in prof.key_averages()
+                 if e.device_time_total > 0), key=lambda kv: -kv[1])
+    return dict(ms[:n], all=sum(v for _, v in ms))
+
+
+def phase_serve_unet():
+    """The BlinDNO UNet's serving paths: the fpe2d suite's UNet (ConvNeXt blocks, two
+    FNO2d heads) on the NIO's serving sets, the gpe1d suite's 1-D UNet (one FNO1d head)
+    on the gpe1d NIO's, and the ncfpe2d suite's plain-block UNet on 80x80 sets; seeded
+    weights, randomized LayerNorms, calibrated BatchNorms. Each through
+    ``predict_fields`` with its launches counted exactly, against the CPU plain path,
+    timed, and split between the set encoder and the heads on the device and the host."""
+    from blindno_torch.models.blindno_unet import PermInvUNetAttn
+    from blindno_torch.tools.bench_train import UNET_CONFIG
+
+    launches = {"fno2d_layer": 0, "fno1d_layer": 0}
+    # (label, config, serving sizes, kernel, its launches per forward, output fields)
+    paths = (("fpe2d UNet", UNET_CONFIG, SERVE, "fno2d_layer", 6, 2),
+             ("gpe1d UNet", MODEL_UNET_GPE, SERVE_GPE, "fno1d_layer", 3, 1),
+             ("ncfpe2d plain UNet", MODEL_UNET_NC, SERVE_UNET_NC, "fno2d_layer", 6, 2))
+    for label, config, sizes, layer, per_forward, out_dim in paths:
+        m, l, n, batch = sizes["m"], sizes["l"], sizes["n"], sizes["batch"]
+        rng = np.random.default_rng(2)
+        if len(config["input_size"]) == 1:
+            inputs, calib = sets_1d(rng, m, l, n), sets_1d(np.random.default_rng(3), 1, l, n)
+            grid = np.linspace(0.0, 1.0, n, dtype=np.float32).reshape(n, 1)
+        else:
+            inputs = rng.standard_normal((m, l, n, n)).astype(np.float32)
+            calib = np.random.default_rng(1).standard_normal((1, l, n, n)).astype(np.float32)
+            grid = grid_2d(n)
+        cpu_model = PermInvUNetAttn(**config, generator=torch.Generator().manual_seed(0),
+                                    device="cpu")
+        randomize_layernorms(cpu_model, np.random.default_rng(8))
+        calibrate_bn(cpu_model, calib, grid, np.random.default_rng(7))
+        model, counts, fields = serve(label, cpu_model, inputs, grid, batch,
+                                      sizes["timed_rounds"], layer, per_forward, 1e-5, out_dim)
+        launches[layer] += counts[layer]
+
+        # where one forward's time goes: on the device (eager, by CUDA events; and each
+        # part replayed from a CUDA graph, whose device times add up) and on the host
+        # (the time to enqueue one forward: where it matches the eager device time, the
+        # device waited on the host)
+        with torch.inference_mode():
+            xb = torch.tensor(inputs[:batch], device="cuda")
+            feats = model.features(xb)
+            heads = lambda: [h(feats) for h in model.heads]
+            forward_ms, forward_host_ms = time_ms(lambda: model(xb, None), 10, host=True)
+            split = dict(forward_ms=forward_ms, forward_host_ms=forward_host_ms,
+                         features_ms=time_ms(lambda: model.features(xb), 10),
+                         heads_ms=time_ms(heads, 10),
+                         forward_graph_ms=graph_ms(lambda: model(xb, None), 5, 5),
+                         features_graph_ms=graph_ms(lambda: model.features(xb), 5, 5),
+                         heads_graph_ms=graph_ms(heads, 5, 5),
+                         h2d_ms=time_ms(lambda: torch.as_tensor(inputs[:batch]).to("cuda"), 10),
+                         top_kernels_ms=top_kernels(lambda: model(xb, None)))
+        emit("serve_unet", model=label, config=config, **fields, device_split=split)
     return launches
 
 
@@ -712,6 +825,130 @@ def phase_train(kernel_ms, smi_line):
     return counts["fno2d_layer"]
 
 
+def unet_tol(key):
+    """The UNet step's tolerance per entry of :func:`unet_train_errors`: the NIO's,
+    ENCODER_TOL for the conv stack's gradients and parameters (its max pools play the
+    part of the encoder's leaky-ReLU kinks: two entries of a window within rounding of
+    each other may send the gradient to either), TRAIN_TOL for the heads, the loss and
+    the running statistics."""
+    conv_stack = not key.startswith(("heads.", "state heads.", "loss"))
+    return ENCODER_TOL if conv_stack and "running_" not in key else TRAIN_TOL
+
+
+def unet_train_errors(card, cpu):
+    """Relative L2 errors of the card's UNet step against the CPU's, as
+    :func:`train_errors` takes them. The gradients that are exactly zero on the CPU (the
+    one-channel ConvNeXt blocks' depthwise conv and LayerNorm scale) must be exactly zero
+    on the card. Raises naming every tensor out of its tolerance."""
+    (loss, grads, state), (want_loss, want_grads, want_state) = card, cpu
+    zero = sorted(k for k, g in want_grads.items() if not g.any())
+    if not zero or any(grads[k].any() for k in zero):
+        raise RuntimeError(f"train_unet: gradients exactly zero on the CPU ({zero}) are not "
+                           "all zero on the card")
+    errs = {"loss": abs(loss - want_loss) / abs(want_loss)}
+    errs.update({k: rel_l2(grads[k], want_grads[k]) for k in want_grads if k not in zero})
+    errs.update({f"state {k}": rel_l2(state[k], want_state[k]) for k in want_state})
+    bad = {k: e for k, e in errs.items() if not e <= unet_tol(k)}
+    if bad:
+        raise RuntimeError(f"train_unet: on the card, relative L2 from the CPU beyond its "
+                           f"tolerance: {bad}")
+    return errs, zero
+
+
+def phase_train_unet(smi_line):
+    """The fpe2d UNet's training step (``train_step`` on ``PermInvUNetAttn`` at the fpe2d
+    suite's config, seeded weights, randomized LayerNorms) on ``bench.py``'s batch: one
+    float32 step on the card against the same step on the CPU, its launches counted;
+    twenty steps whose loss must fall; steps per second (``bench_train --model unet``);
+    the step's split on the device and the host, and its peak memory. Returns its
+    ``fno2d_layer`` launches."""
+    from blindno_torch.tools import bench_train
+    from blindno_torch.train.step import make_optimizer, train_step
+
+    b, l = bench_train.BATCH["b"], bench_train.BATCH["l"]
+    rng = np.random.default_rng(5)
+    draw = (rng.integers(0, l, l), (np.arange(l) < rng.integers(50, l)).astype(np.float32))
+    # LayerNorms randomized: at their init (scale 1, bias 0) each attention's tokens
+    # leave with mean 0 over D, so the one-channel skip BatchNorm's running mean is
+    # zero but for rounding, and the two devices' rounding is all a comparison sees
+    cpu_model = bench_train.fresh_model("cpu", "unet")
+    randomize_layernorms(cpu_model, np.random.default_rng(8))
+    initial = copy.deepcopy(cpu_model.state_dict())
+    x, y, grid = bench_train.bench_batch("cuda")
+
+    # 1. one f32 step on the card, its launches counted, against the CPU plain path
+    model = copy.deepcopy(cpu_model).to("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    counts, card = counted(lambda: one_step(model, x, y, grid, draw))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expect_launches("UNet training step", counts, fno2d_layer=6)
+    t0 = time.perf_counter()
+    cpu = one_step(cpu_model, x.cpu(), y.cpu(), grid.cpu(), draw)
+    cpu_s = time.perf_counter() - t0
+    errs, zero = unet_train_errors(card, cpu)
+    conv_stack = {k: e for k, e in errs.items() if unet_tol(k) == ENCODER_TOL}
+    rest = {k: e for k, e in errs.items() if k not in conv_stack}
+
+    # 2. twenty f32 steps on the one batch, a fresh draw each: the loss must fall
+    model.load_state_dict(initial)
+    opt = make_optimizer(model)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    step = lambda: train_step(model, opt, x, y, grid, generator=gen)
+    losses = [float(step()) for _ in range(TRAIN_STEPS)]
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"train_unet: loss did not fall over {TRAIN_STEPS} steps: {losses}")
+
+    # 3. throughput, and the step's split: CUDA events around its forward, backward and
+    # Adam, and around the set encoder's and the heads' forward and backward alone; the
+    # host's time to enqueue a step; the step's kernels by device time in a profiler trace
+    sps = bench_train.steps_per_sec(None, "unet")
+    ev = lambda: torch.cuda.Event(enable_timing=True)
+    split = {k: 0.0 for k in ("forward_ms", "backward_ms", "optimizer_ms", "host_enqueue_ms",
+                             "features_fwd_bwd_ms", "heads_fwd_bwd_ms")}
+    rounds = 5
+    xg, mask = x[:, torch.as_tensor(draw[0], device="cuda")], torch.as_tensor(draw[1], device="cuda")
+    for r in range(rounds + 1):
+        e = [ev() for _ in range(4)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        e[0].record()
+        out = model(x, grid, subsample=draw)
+        loss = torch.mean((out - y) ** 2)
+        e[1].record()
+        loss.backward()
+        e[2].record()
+        opt.step()
+        e[3].record()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        p = [ev() for _ in range(4)]
+        p[0].record()
+        model.features(xg, mask).sum().backward()
+        p[1].record()
+        with torch.no_grad():
+            feats = model.features(xg, mask)
+        p[2].record()
+        sum(h(feats).sum() for h in model.heads).backward()
+        p[3].record()
+        torch.cuda.synchronize()
+        if r:  # round 0 warms up
+            split["host_enqueue_ms"] += host_ms / rounds
+            for k, (i, j) in zip(("forward_ms", "backward_ms", "optimizer_ms",
+                                  "features_fwd_bwd_ms", "heads_fwd_bwd_ms"),
+                                 ((e, 0), (e, 1), (e, 2), (p, 0), (p, 2))):
+                split[k] += i[j].elapsed_time(i[j + 1]) / rounds
+    split["top_kernels_ms"] = top_kernels(step)  # "all": the device's busy time in a step
+    emit("train_unet", model="PermInvUNetAttn", config=bench_train.UNET_CONFIG,
+         batch=bench_train.BATCH, launches=counts, loss_card=card[0], loss_cpu=cpu[0],
+         worst_rel_l2_conv_stack=max(conv_stack.items(), key=lambda kv: kv[1]),
+         worst_rel_l2_rest=max(rest.items(), key=lambda kv: kv[1]),
+         zero_gradients=zero, tol=f"relative L2: {TRAIN_TOL}, the conv stack's gradients "
+         f"and parameters {ENCODER_TOL}; exact zeros stay exact", cpu_step_s=cpu_s,
+         losses_20_steps=[losses[0], losses[-1]], steps_per_sec_f32=sps, step_split=split,
+         peak_memory_gb_f32_step=peak_gb, nvidia_smi=smi_line)
+    return counts["fno2d_layer"]
+
+
 def fpe2d_archive(m, l, n, rng):
     """A synthetic fpe2d archive in the JAX datagen's keys and raw magnitudes
     (trajectories (m, l, n, n) ~ 1e-10, potential ~ 1e-21 and drag ~ 1e-6 (m, n, n)): a
@@ -765,15 +1002,97 @@ def sync_free(fn, syncs):
     return call
 
 
+def cli_stage(workdir, model, *argv):
+    """One stage of the suites CLI for the fpe2d suite's ``model`` on the card, its
+    launches counted and its stdout kept: (counts, result, wall seconds, start time)."""
+    from blindno_torch.suites.run import main as cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        counts, res = counted(lambda: cli(["--suite", "fpe2d", "--model", model,
+                                           "--workdir", workdir, *argv]))
+    return counts, res, time.perf_counter() - t0, t0
+
+
+def eval_vs_cpu(workdir, spec, model):
+    """The first FIT["cpu_sets"] predictions of the eval stage against the CPU plain path
+    on the same ``best_*`` checkpoint, each field relative to its scale; and the CPU's
+    seconds."""
+    from blindno_torch.eval.field_eval import (cached_train_stats, denormalize_predictions,
+                                               predict_fields)
+    from blindno_torch.train import checkpoint
+
+    stats = cached_train_stats(spec, workdir)
+    with np.load(os.path.join(workdir, "data", spec.test_file)) as z:
+        inputs = stats.stats["traj"].normalize(z["trajectories"])
+    k = FIT["cpu_sets"]
+    best = checkpoint.load_best(os.path.join(workdir, "ckpt", f"fpe2d_{model}"))
+    cpu_model = spec.models[model](device="cpu")
+    cpu_model.load_state_dict({**best["params"], **best["batch_stats"]})
+    t0 = time.perf_counter()
+    want = denormalize_predictions(spec, stats, predict_fields(cpu_model, inputs[:k], spec.grid,
+                                                               batch=k, device="cpu"))
+    cpu_s = time.perf_counter() - t0
+    got = np.load(os.path.join(workdir, "eval", f"fpe2d_{model}", "predictions.npy"))[:k]
+    err = [check_close(f"fit: {model} eval predictions, field {f}, vs the CPU plain path",
+                       torch.tensor(got[..., f]), torch.tensor(want[..., f]), SERVE_TOL,
+                       float(np.abs(want[..., f]).max()))
+           / float(np.abs(want[..., f]).max()) for f in range(2)]
+    return err, cpu_s, inputs, best
+
+
+def fit_unet(w, spec, smi_line):
+    """The fpe2d suite's UNet through the CLI on phase fit's archive: FIT["unet_epochs"]
+    epochs of ``--stage train`` (no host synchronization inside a step), then ``--stage
+    eval`` with the symmetry average; launches counted exactly, losses finite, one
+    ``best_*`` checkpoint, predictions against the CPU. Returns its launches."""
+    from blindno_torch.train import loop
+
+    cfg = spec.train_cfg
+    n_train = int(cfg.train_frac * FIT["m"])
+    steps, epochs = n_train // cfg.batch_size, FIT["unet_epochs"]
+    eval_forwards = -(-(FIT["m"] - n_train) // cfg.batch_size)
+    test_forwards = -(-FIT["m_test"] // cfg.batch_size)
+    syncs = []
+    torch.cuda.reset_peak_memory_stats()
+    with patched(loop, "train_step", sync_free(loop.train_step, syncs)):
+        counts1, res, wall1, _ = cli_stage(w, "unet", "--stage", "train", "--epochs", str(epochs))
+    expect_launches("fit: UNet training", counts1,
+                    fno2d_layer=6 * steps * epochs + 6 * eval_forwards)
+    losses = [v for h in res.history for v in (h["train_loss"], h["test_loss"], *h["field_rel_l2"])]
+    if not (res.finished and losses and np.isfinite(losses).all()):
+        raise RuntimeError(f"fit: unfinished or non-finite UNet run: {res.history}")
+    bests = [f for f in os.listdir(os.path.join(w, "ckpt", "fpe2d_unet")) if f.startswith("best_")]
+    if len(bests) != 1:
+        raise RuntimeError(f"fit: want one best_* UNet checkpoint, found {bests}")
+    if syncs:
+        raise RuntimeError(f"fit: the UNet's training steps synchronized the host {len(syncs)} "
+                           f"times: {sorted(set(syncs))[:3]}")
+    counts2, report, wall2, _ = cli_stage(w, "unet", "--stage", "eval")
+    group = len(loop.make_augment(cfg.augment))
+    expect_launches("fit: UNet eval", counts2, fno2d_layer=6 * test_forwards * (1 + group))
+    numbers = [report["mean_rel_l2_sum"], report["mean_rel_l2_sum_tta"]]
+    if report["n_test"] != FIT["m_test"] or not np.isfinite(numbers).all():
+        raise RuntimeError(f"fit: UNet eval report {report}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    err, cpu_s, _, _ = eval_vs_cpu(w, spec, "unet")
+    emit("fit", suite="fpe2d", model="unet", epochs=epochs, steps_per_epoch=steps,
+         launches={"train": counts1, "eval": counts2}, history=res.history,
+         host_syncs_in_steps=len(syncs), report=report, max_rel_err_vs_cpu=err,
+         tol=f"rtol {SERVE_TOL}, atol {SERVE_TOL} x each field's scale", cpu_reference_s=cpu_s,
+         loop_steps_per_sec=[h["steps_per_sec"] for h in res.history],
+         stage_wall_s=[wall1, wall2], peak_memory_gb=peak_gb, nvidia_smi=smi_line)
+    return counts1["fno2d_layer"] + counts2["fno2d_layer"]
+
+
 def phase_fit(smi_line):
     """The main path, training and evaluation through the suites CLI
     (``blindno_torch.suites.run``) at the fpe2d suite's config. Returns its
     ``fno2d_layer`` launches."""
     from blindno_torch.data.datasets import load_fpe2d
-    from blindno_torch.eval.field_eval import (cached_train_stats, denormalize_predictions,
-                                               predict_fields, predict_fields_tta)
+    from blindno_torch.eval.field_eval import predict_fields, predict_fields_tta
     from blindno_torch.suites import registry
-    from blindno_torch.suites.run import main as cli
     from blindno_torch.train import checkpoint, loop
     from blindno_torch.train.step import make_optimizer, train_step
 
@@ -804,14 +1123,8 @@ def phase_fit(smi_line):
         real_trace = loop.trace
 
         def run(*argv):
-            """One CLI stage on the card, its launches counted, its stdout kept."""
             epoch_starts.clear()
-            buf = io.StringIO()
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(buf):
-                counts, res = counted(lambda: cli(["--suite", "fpe2d", "--model", "nio",
-                                                   "--workdir", w, *argv]))
-            return counts, res, time.perf_counter() - t0, t0
+            return cli_stage(w, "nio", *argv)
 
         torch.cuda.reset_peak_memory_stats()
         with contextlib.ExitStack() as stack:
@@ -883,22 +1196,7 @@ def phase_fit(smi_line):
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
         # 4. the card's eval predictions against the CPU plain path on the same checkpoint
-        stats = cached_train_stats(spec, w)
-        with np.load(os.path.join(w, "data", spec.test_file)) as z:
-            inputs = stats.stats["traj"].normalize(z["trajectories"])
-        k = FIT["cpu_sets"]
-        best = checkpoint.load_best(ckpt_dir)
-        cpu_model = factory(device="cpu")
-        cpu_model.load_state_dict({**best["params"], **best["batch_stats"]})
-        t0 = time.perf_counter()
-        want = denormalize_predictions(spec, stats, predict_fields(cpu_model, inputs[:k], spec.grid,
-                                                                   batch=k, device="cpu"))
-        cpu_s = time.perf_counter() - t0
-        got = np.load(os.path.join(w, "eval", "fpe2d_nio", "predictions.npy"))[:k]
-        err = [check_close(f"fit: eval predictions, field {f}, vs the CPU plain path",
-                           torch.tensor(got[..., f]), torch.tensor(want[..., f]), SERVE_TOL,
-                           float(np.abs(want[..., f]).max()))
-               / float(np.abs(want[..., f]).max()) for f in range(2)]
+        err, cpu_s, inputs, best = eval_vs_cpu(w, spec, "nio")
 
         # 5. eval with and without the average, on the card, warm
         card_model = factory(device="cuda")
@@ -931,20 +1229,26 @@ def phase_fit(smi_line):
         bare_sps = FIT["bare_steps"] / (time.perf_counter() - t0)
         if not torch.isfinite(loss):
             raise RuntimeError(f"fit: bare step loss {loss.item()}")
+        del model, opt, card_model
 
-    loop_sps = [h["steps_per_sec"] for h in hist]
-    epoch_wall = [b - a for a, b in zip(starts1, starts1[1:] + [t_1 + wall1])]
-    emit("fit", suite="fpe2d", model="nio", config=dict(cfg.__dict__), sets=m, test_sets=FIT["m_test"],
-         snapshots=l, grid=[n, n], steps_per_epoch=steps, **fields,
-         launches={"train_2_epochs": counts1, "resumed_epoch": counts2, "eval": counts3},
-         history=hist, restored_bit_for_bit=restored, host_syncs_in_steps=len(syncs), report=report,
-         max_rel_err_vs_cpu=err, tol=f"rtol {SERVE_TOL}, atol {SERVE_TOL} x each field's scale",
-         cpu_reference_s=cpu_s, loop_steps_per_sec=loop_sps, bare_train_step_steps_per_sec=bare_sps,
-         loop_overhead=1.0 - float(np.mean(loop_sps)) / bare_sps,
-         epoch_wall_s=epoch_wall, resumed_epoch_wall_s=t_2 + wall2 - starts2[0],
-         data_load_s=[starts1[0] - t_1, starts2[0] - t_2], stage_wall_s=[wall1, wall2, wall3],
-         eval_s=eval_s, checkpoint_save_s=saves, peak_memory_gb=peak_gb, nvidia_smi=smi_line)
-    return counts1["fno2d_layer"] + counts2["fno2d_layer"] + counts3["fno2d_layer"]
+        loop_sps = [h["steps_per_sec"] for h in hist]
+        epoch_wall = [b - a for a, b in zip(starts1, starts1[1:] + [t_1 + wall1])]
+        emit("fit", suite="fpe2d", model="nio", config=dict(cfg.__dict__), sets=m, test_sets=FIT["m_test"],
+             snapshots=l, grid=[n, n], steps_per_epoch=steps, **fields,
+             launches={"train_2_epochs": counts1, "resumed_epoch": counts2, "eval": counts3},
+             history=hist, restored_bit_for_bit=restored, host_syncs_in_steps=len(syncs), report=report,
+             max_rel_err_vs_cpu=err, tol=f"rtol {SERVE_TOL}, atol {SERVE_TOL} x each field's scale",
+             cpu_reference_s=cpu_s, loop_steps_per_sec=loop_sps, bare_train_step_steps_per_sec=bare_sps,
+             loop_overhead=1.0 - float(np.mean(loop_sps)) / bare_sps,
+             epoch_wall_s=epoch_wall, resumed_epoch_wall_s=t_2 + wall2 - starts2[0],
+             data_load_s=[starts1[0] - t_1, starts2[0] - t_2], stage_wall_s=[wall1, wall2, wall3],
+             eval_s=eval_s, checkpoint_save_s=saves, peak_memory_gb=peak_gb, nvidia_smi=smi_line)
+
+        # 7. the fpe2d suite's UNet through the CLI on the same archive
+        unet_launches = fit_unet(w, spec, smi_line)
+
+    return (counts1["fno2d_layer"] + counts2["fno2d_layer"] + counts3["fno2d_layer"]
+            + unet_launches)
 
 
 def main():
@@ -973,7 +1277,10 @@ def main():
 
     stats = phase_kernels()
     launches = {**phase_serve(), **phase_serve1d()}
+    for kernel, count in phase_serve_unet().items():
+        launches[kernel] += count
     launches["fno2d_layer"] += phase_train(stats["fno2d_layer"]["kernel_ms"], smi_line)
+    launches["fno2d_layer"] += phase_train_unet(smi_line)
     launches["fno2d_layer"] += phase_fit(smi_line)
 
     csrc, replaces = "blindno_torch/csrc", "blindno/ops/spectral_pallas.py"

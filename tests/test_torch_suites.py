@@ -10,6 +10,8 @@ tiny synthetic fpe2d archives with the suite's config but a small ``NIOFP2D`` an
 - the port's ``evaluate_suite_model`` on the weights JAX trained (moved through
   ``from_flax`` into the port's ``best_*`` format) equals JAX's report, the TTA columns
   included, its metrics.csv and its predictions within 2e-3;
+- the port's CLI trains and evaluates the fpe2d suite's BlinDNO UNet (``--model unet``,
+  full width) on the same archives into the same layout;
 - a suite, model or stage that is not ported exits non-zero naming its ROADMAP item.
 """
 import contextlib
@@ -184,13 +186,39 @@ def test_evaluate_suite_model_matches_jax_on_jax_weights(jax_workdir, tmp_path):
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--suite", "fpe2d", "--stage", "datagen"], "A.8"),
-    (["--suite", "fpe2d", "--stage", "time-error"], "A.8"),
-    (["--suite", "fpe1d", "--stage", "train"], "A.7"),
-    (["--suite", "ncfpe2d", "--stage", "eval"], "A.6"),
-    (["--suite", "fpe2d", "--model", "unet", "--stage", "train"], "A.5"),
-])
+def test_cli_trains_and_evaluates_the_unet(jax_workdir, tmp_path):
+    """``--model unet``: the suite's UNet (depth 4, width 12, 32 modes) for one epoch of
+    one batch of 16 on the CPU, then the eval stage with the symmetry average; the
+    layout is the NIO's under the model's name."""
+    jw, _ = jax_workdir
+    w = str(tmp_path)
+    _write_archives(w)
+    res = main(["--suite", "fpe2d", "--model", "unet", "--stage", "train", "--workdir", w,
+                "--epochs", "1", "--device", "cpu"])
+    assert res.finished and [h["epoch"] for h in res.history] == [1]
+    assert np.isfinite([res.history[0]["train_loss"], res.history[0]["test_loss"]]).all()
+    report = main(["--suite", "fpe2d", "--model", "unet", "--stage", "eval", "--workdir", w,
+                   "--device", "cpu"])
+    assert _layout(w) == {p.replace("fpe2d_nio", "fpe2d_unet") for p in _layout(jw)}
+    assert set(report) == REPORT_KEYS | {"figures"} and report["model"] == "unet"
+    assert report["n_test"] == M_TEST and report["ckpt_epoch"] == 1
+    assert np.isfinite(report["mean_rel_l2_sum"]) and np.isfinite(report["mean_rel_l2_sum_tta"])
+    preds = np.load(os.path.join(w, "eval", "fpe2d_unet", "predictions.npy"))
+    assert preds.shape == (M_TEST, 61, 61, 2) and np.isfinite(preds).all()
+
+
+NOT_PORTED_CASES = (
+    [(["--suite", "fpe2d", "--stage", stage], item)
+     for stage, item in registry.NOT_PORTED["stages"].items()]
+    + [(["--suite", suite, "--stage", "train"], item)
+       for suite, item in registry.NOT_PORTED["suites"].items()]
+    + [(["--suite", suite, "--model", model, "--stage", "eval"], item)
+       for suite, models in registry.NOT_PORTED["models"].items()
+       for model, item in models.items()])
+
+
+@pytest.mark.parametrize("argv,item", NOT_PORTED_CASES,
+                         ids=[" ".join(a[1::2]) for a, _ in NOT_PORTED_CASES])
 def test_unported_parts_exit_nonzero_naming_their_item(argv, item, tmp_path):
     with pytest.raises(SystemExit) as exc:
         main(argv + ["--workdir", str(tmp_path), "--device", "cpu"])
