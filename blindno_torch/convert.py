@@ -2,7 +2,8 @@
 
 ``from_flax(params, batch_stats)`` takes the nested dicts of numpy arrays that the JAX
 package's checkpoints hold and returns the state dict of
-:class:`blindno_torch.models.nio2d.NIOFP2D`, :class:`blindno_torch.models.nio1d.NIOFP1D`,
+:class:`blindno_torch.models.nio2d.NIOFP2D` (and ``NIOAttn2D``, whose tree is the same),
+``NIOFNO2D``, ``NIOFNOAttn2D``, :class:`blindno_torch.models.nio1d.NIOFP1D`,
 :class:`blindno_torch.models.nio1d.NIOFNO1D` or
 :class:`blindno_torch.models.blindno_unet.PermInvUNetAttn`:
 
@@ -12,14 +13,15 @@ package's checkpoints hold and returns the state dict of
   does);
 - LayerNorm scale/bias become weight/bias as they stand (the port's set attention
   flattens its tokens in JAX's order);
-- dense kernels (also the 1x1 ``PointwiseConv`` and the fusion map) from (in, out) to
-  (out, in);
+- dense kernels (also the 1x1 ``PointwiseConv`` and either fusion map) from (in, out)
+  to (out, in);
 - BatchNorm scale/bias/mean/var become weight/bias/running_mean/running_var;
 - spectral ``weights_re`` / ``weights_im`` stay (Cin, Cout, modes) or
   (Cin, Cout, 2*m1, m2) planes;
-- ``FNO1d_k`` / ``FNO2d_k`` become ``heads.k``, except in the FNO-branch model, whose
-  tree has a fusion map but no DeepONet: there ``FNO1d_0`` is the ``branch`` and
-  ``FNO1d_k`` becomes ``heads.{k-1}``.
+- ``FNO1d_k`` / ``FNO2d_k`` become ``heads.k``, except in the FNO-branch models, whose
+  tree has a fusion map (``MeanFieldFusion_0`` or ``TokenMeanFusion_0``) but no
+  DeepONet: there ``FNO1d_0`` / ``FNO2d_0`` is the ``branch`` and ``FNO*d_k`` becomes
+  ``heads.{k-1}``.
 
 Every flax leaf must map to one torch key and every torch module must receive all of
 its tensors: a left-over or missing key raises ``KeyError``. A tree with no statistics at
@@ -42,6 +44,7 @@ _RULES = [
     (r"FFN_0/TorchBatchNorm_(\d+)/BatchNorm_0", "deeponet.trunk.norms.{0}", "bn"),
     (r"DeepOnetNoBias_0", "deeponet", "scalar"),
     (r"MeanFieldFusion_0", "fusion", "dense"),
+    (r"TokenMeanFusion_0", "fusion", "dense"),
     (r"FNO[12]d_(\d+)/TorchDense_([012])/Dense_0", "heads.{0}.fc{1}", "dense"),
     (r"FNO[12]d_(\d+)/SpectralConv[12]d_(\d+)", "heads.{0}.spectral.{1}", "spectral"),
     (r"FNO[12]d_(\d+)/PointwiseConv_(\d+)", "heads.{0}.pointwise.{1}", "dense"),
@@ -123,6 +126,7 @@ def from_flax(params, batch_stats) -> dict:
             state[f"{prefix}.{name}"] = torch.tensor(fn(a) if fn else a)
         if kind == "bn" and batch_stats is not None:
             state[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
-    if "MeanFieldFusion_0" in params and "DeepOnetNoBias_0" not in params:
+    if ({"MeanFieldFusion_0", "TokenMeanFusion_0"} & params.keys()
+            and "DeepOnetNoBias_0" not in params):
         state = {_fno_branch_names(k): v for k, v in state.items()}
     return state

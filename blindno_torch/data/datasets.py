@@ -1,12 +1,12 @@
-"""Dataset containers, normalization and batching for the fpe2d suite (counterpart of
-``blindno/data/datasets.py:27-85,129-154``).
+"""Dataset containers, normalization and batching for the 2-D suites, fpe2d and ncfpe2d
+(counterpart of ``blindno/data/datasets.py:27-92,129-154``).
 
 Everything here is numpy and gives the JAX package's numbers bit for bit: the fixed
 unit rescale, then per-gridpoint standardization with train-set statistics
-(``2d_FPE/train_nio.py:21-38`` of the reference). :meth:`FieldStats.denormalize` also
-takes tensors. Whole splits live on the device in :func:`blindno_torch.train.loop.
-train_model`; batches are device-side gathers. The other suites' loaders come with
-their suites.
+(``2d_FPE/train_nio.py:21-38`` and ``2d_Non_conservative_FPE/train_nio.py:21-36`` of the
+reference). :meth:`FieldStats.denormalize` also takes tensors. Whole splits live on the
+device in :func:`blindno_torch.train.loop.train_model`; batches are device-side gathers.
+The other suites' loaders come with their suites.
 """
 from __future__ import annotations
 
@@ -42,8 +42,9 @@ class FieldStats:
         return (norm * self.std + self.mean) / self.scale
 
 
-# Unit-rescale constants (traj, target fields), blindno/data/datasets.py:48
+# Unit-rescale constants (traj, target fields), blindno/data/datasets.py:51-52
 FPE2D_SCALES = {"trajectories": 1e10, "potential": 1e21, "drag": 1e6}
+NCFPE2D_SCALES = {"trajectories": 1e10, "F": 1e12}
 
 
 @dataclass
@@ -63,6 +64,15 @@ def load_fpe2d(data: dict) -> SetToFieldData:
     drag_stats, drag = FieldStats.standardize(np.asarray(data["drag"]), FPE2D_SCALES["drag"], (0,))
     targets = np.stack([pot, drag], axis=3)
     return SetToFieldData(traj, targets, {"traj": traj_stats, "potential": pot_stats, "drag": drag_stats})
+
+
+def load_ncfpe2d(data: dict) -> SetToFieldData:
+    """2-D NC FPE: targets = (Fx, Fy) (B, Nx, Ny, 2), the force standardized per channel
+    and gridpoint as the archive holds it, (M, 2, Nx, Ny), then moved channel-last
+    (``2d_Non_conservative_FPE/train_nio.py:21-36``)."""
+    traj_stats, traj = FieldStats.standardize(np.asarray(data["trajectories"]), NCFPE2D_SCALES["trajectories"], (0, 1))
+    f_stats, f_norm = FieldStats.standardize(np.asarray(data["F"]), NCFPE2D_SCALES["F"], (0,))
+    return SetToFieldData(traj, np.moveaxis(f_norm, 1, -1), {"traj": traj_stats, "F": f_stats})
 
 
 def train_test_split(n: int, train_frac: float = 0.8, seed: int = 0):

@@ -5,8 +5,8 @@ and writes per-sample metrics and denormalized predictions.
 
 Eval inputs are normalized with the *train-set* statistics, kept in a sidecar npz next
 to the train archive (:func:`cached_train_stats`; the JAX package writes the same
-file). Only the fpe2d suite's targets are handled so far; the comparison figures
-(``blindno/eval/plots.py``) are not ported yet (``ROADMAP.md`` A.9).
+file). Only the 2-D suites' targets (fpe2d, ncfpe2d) are handled so far; the comparison
+figures (``blindno/eval/plots.py``) are not ported yet (``ROADMAP.md`` A.9).
 """
 from __future__ import annotations
 
@@ -140,26 +140,36 @@ def _stats_from_arrays(arrs: dict) -> TrainStats:
     return TrainStats(stats, int(arrs["n_fields"]))
 
 
-def _check_fpe2d(stats: dict):
-    if not {"potential", "drag"} <= stats.keys():
-        raise ValueError(f"only the fpe2d suite's targets are ported; got stats for "
-                         f"{sorted(stats)}")
+def _target_kind(stats: dict) -> str:
+    """The 2-D suites' targets: ``"F"``, the ncfpe2d force (Fx, Fy) with (1, 2, Nx, Ny)
+    statistics, or ``"potential_drag"``, the fpe2d fields with (1, Nx, Ny) statistics.
+    Anything else (the 1-D suites' scalar drag and the GPE suites' ``max`` statistics)
+    raises: their branches come with the 1-D suites (``ROADMAP.md`` A.7)."""
+    if "F" in stats and np.ndim(stats["F"].mean) == 4:
+        return "F"
+    if {"potential", "drag"} <= stats.keys() and np.ndim(stats["drag"].mean) == 3:
+        return "potential_drag"
+    shapes = {k: np.shape(getattr(v, "mean", None)) for k, v in stats.items()}
+    raise ValueError(f"only the 2-D suites' targets are ported (ROADMAP.md A.7); got stats "
+                     f"{shapes}")
 
 
 def _normalized_test_targets(spec, train_ds: TrainStats, test):
-    """Normalize the raw test targets with train statistics, shaped like model output
-    (the fpe2d branch: (M, Nx, Ny, 2))."""
+    """Normalize the raw test targets with train statistics, shaped like model output,
+    (M, Nx, Ny, 2)."""
     stats = train_ds.stats
-    _check_fpe2d(stats)
+    if _target_kind(stats) == "F":
+        return np.moveaxis(stats["F"].normalize(np.asarray(test["F"])), 1, -1)
     pot = stats["potential"].normalize(np.asarray(test["potential"]))
     drag = stats["drag"].normalize(np.asarray(test["drag"]))
     return np.stack([pot, drag], axis=3)
 
 
 def denormalize_predictions(spec, train_ds: TrainStats, preds_norm):
-    """Model-output space -> physical units (the fpe2d branch)."""
+    """Model-output space -> physical units, channel-last as the model's output."""
     stats = train_ds.stats
-    _check_fpe2d(stats)
+    if _target_kind(stats) == "F":
+        return np.moveaxis(stats["F"].denormalize(np.moveaxis(preds_norm, -1, 1)), 1, -1)
     out = np.empty_like(preds_norm)
     out[..., 0] = stats["potential"].denormalize(preds_norm[..., 0])
     out[..., 1] = stats["drag"].denormalize(preds_norm[..., 1])

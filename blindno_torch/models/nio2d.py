@@ -1,6 +1,15 @@
-"""The 2-D NIO model (counterpart of ``blindno/models/nio2d.py``).
+"""The 2-D NIO models (counterpart of ``blindno/models/nio2d.py``): the DeepONet NIO
+``NIOFP2D``, the FNO-branch ``NIOFNO2D``, and their token-attention variants
+``NIOAttn2D`` and ``NIOFNOAttn2D``.
 
-Input x (B, L, Nx, Ny) and grid (Nx, Ny, 2); output (B, Nx, Ny, 2).
+Input x (B, L, Nx, Ny) and grid (Nx, Ny, 2); output (B, Nx, Ny, 2). Every model draws
+its weights from ``generator`` on the CPU, moves to ``device`` (CUDA unless the caller
+passes another) and is built in eval mode.
+
+In train mode (``model.train()``) the forward first subsamples the set
+(:func:`~blindno_torch.nn.setops.subsample_set` with ``l_min``) from the ``generator``
+it is given, or from the ``subsample=(indices, mask)`` it is handed; BatchNorm then
+uses batch statistics, and the attention's keys, the fusion's mean or both are masked.
 """
 from __future__ import annotations
 
@@ -11,20 +20,46 @@ from blindno_torch import default_device
 from blindno_torch.nn.cnn import Encoder2D
 from blindno_torch.nn.deeponet import FFN, DeepOnetNoBias
 from blindno_torch.nn.fno import FNO2d
-from blindno_torch.nn.setops import MeanFieldFusion, subsample_set
+from blindno_torch.nn.setops import (MeanFieldFusion, TokenMeanFusion, set_self_attention,
+                                     subsample_set)
+
+
+def _fno_heads(modes, width, layers, g):
+    """The two single-channel FNO2d heads (drift and diffusion, or Fx and Fy)."""
+    return nn.ModuleList(FNO2d(modes, width, layers, width, 1, generator=g) for _ in range(2))
+
+
+def _heads(heads, feats):
+    return torch.cat([head(feats) for head in heads], dim=-1)
+
+
+def _maybe_subsample(model, x, generator, subsample):
+    if model.training:
+        return subsample_set(x, model.l_min, generator, *(subsample or ()))
+    return x, None
+
+
+def _grid_feats(grid, b):
+    return grid.unsqueeze(0).expand(b, *grid.shape)
+
+
+def _token_attention_tokens(fields, grid, mask):
+    """The grid's two channels and the L per-snapshot fields as T = L + 2 tokens of
+    dimension Nx·Ny, through the unparameterized set self-attention
+    (``blindno/models/nio2d.py:124-136``). fields (B, L, Nx, Ny); mask (L,) or None, whose
+    keys the grid tokens join as always valid. Returns the attended tokens (B, T, Nx, Ny)
+    and the full (T,) mask."""
+    b, l, nx, ny = fields.shape
+    grid_tokens = grid.permute(2, 0, 1).unsqueeze(0).expand(b, 2, nx, ny)
+    tokens = torch.cat([grid_tokens, fields], dim=1)
+    full_mask = None if mask is None else torch.cat([mask.new_ones(2), mask])
+    z = set_self_attention(tokens.reshape(b, l + 2, nx * ny), full_mask)
+    return z.reshape(b, l + 2, nx, ny), full_mask
 
 
 class NIOFP2D(nn.Module):
     """Encoder2D branch + FFN trunk (3 hidden layers) DeepONet + mean-field fusion +
-    two single-channel FNO2d heads (drift, diffusion). Weights are drawn from
-    ``generator`` on the CPU and the model moves to ``device`` (CUDA unless the caller
-    passes another). It is built in eval mode.
-
-    In train mode (``model.train()``) the forward first subsamples the set
-    (:func:`~blindno_torch.nn.setops.subsample_set` with ``l_min``) from the
-    ``generator`` it is given, or from the ``subsample=(indices, mask)`` it is handed;
-    BatchNorm then uses batch statistics, and the fusion masks its mean.
-    """
+    two single-channel FNO2d heads (drift, diffusion); the "NIO" baseline."""
 
     def __init__(self, neurons: int = 100, n_basis: int = 25, fno_layers: int = 3,
                  width: int = 12, modes: int = 32, encoder_final_kernel=(2, 1),
@@ -36,18 +71,78 @@ class NIOFP2D(nn.Module):
         trunk = FFN(2, n_basis, 3, neurons, generator=g)
         self.deeponet = DeepOnetNoBias(branch, trunk)
         self.fusion = MeanFieldFusion(width, grid_channels=2, generator=g)
-        self.heads = nn.ModuleList(
-            FNO2d(modes, width, fno_layers, width, 1, generator=g)
-            for _ in range(2))
+        self.heads = _fno_heads(modes, width, fno_layers, g)
         self.eval()
         self.to(default_device(device))
 
-    def forward(self, x, grid, *, generator: torch.Generator | None = None, subsample=None):
-        mask = None
-        if self.training:
-            x, mask = subsample_set(x, self.l_min, generator, *(subsample or ()))
+    def fields(self, x, grid):
+        """The DeepONet's field per snapshot, (B, L, Nx, Ny)."""
         b, l, nx, ny = x.shape
-        fields = self.deeponet(x, grid.reshape(-1, 2)).reshape(b, l, nx, ny)
-        grid_feats = grid.unsqueeze(0).expand(b, *grid.shape)
-        feats = self.fusion(grid_feats, fields, mask)
-        return torch.cat([head(feats) for head in self.heads], dim=-1)
+        return self.deeponet(x, grid.reshape(-1, 2)).reshape(b, l, nx, ny)
+
+    def forward(self, x, grid, *, generator: torch.Generator | None = None, subsample=None):
+        x, mask = _maybe_subsample(self, x, generator, subsample)
+        feats = self.fusion(_grid_feats(grid, x.shape[0]), self.fields(x, grid), mask)
+        return _heads(self.heads, feats)
+
+
+class NIOAttn2D(NIOFP2D):
+    """:class:`NIOFP2D` with the token self-attention between the DeepONet and the
+    fusion (``blindno/models/nio2d.py:201-226``): the attended grid tokens become the
+    fusion's grid features and the attended snapshot tokens its fields. Its parameters
+    and their names are :class:`NIOFP2D`'s (the attention has none)."""
+
+    def forward(self, x, grid, *, generator: torch.Generator | None = None, subsample=None):
+        x, mask = _maybe_subsample(self, x, generator, subsample)
+        z, _ = _token_attention_tokens(self.fields(x, grid), grid, mask)
+        return _heads(self.heads, self.fusion(z[:, :2].movedim(1, -1), z[:, 2:], mask))
+
+
+class NIOFNO2D(nn.Module):
+    """FNO-branch NIO, the "NIO-FNO" baseline (``blindno/models/nio2d.py:66-90``): a small
+    FNO2d (``branch``: 12 modes, width 4, 2 layers) shared by all snapshots lifts each
+    (value, grid x, grid y) point to a field, then the mean-field fusion and the two FNO2d
+    heads as in :class:`NIOFP2D`."""
+
+    def __init__(self, fno_layers: int = 3, width: int = 12, modes: int = 32,
+                 inner_modes: int = 12, inner_width: int = 4, inner_layers: int = 2,
+                 l_min: int = 50, generator: torch.Generator | None = None, device=None):
+        super().__init__()
+        g = torch.Generator().manual_seed(0) if generator is None else generator
+        self.l_min = l_min
+        self.branch = FNO2d(inner_modes, inner_width, inner_layers, 3, 1, generator=g)
+        self.fusion = self._fusion(width, g)
+        self.heads = _fno_heads(modes, width, fno_layers, g)
+        self.eval()
+        self.to(default_device(device))
+
+    @staticmethod
+    def _fusion(width, g):
+        return MeanFieldFusion(width, grid_channels=2, generator=g)
+
+    def fields(self, x, grid):
+        """The inner FNO2d over all B·L snapshots, each with the grid as two more
+        channels: (B, L, Nx, Ny)."""
+        b, l, nx, ny = x.shape
+        snaps = torch.cat([x.reshape(b * l, nx, ny, 1), _grid_feats(grid, b * l)], dim=-1)
+        return self.branch(snaps).reshape(b, l, nx, ny)
+
+    def forward(self, x, grid, *, generator: torch.Generator | None = None, subsample=None):
+        x, mask = _maybe_subsample(self, x, generator, subsample)
+        feats = self.fusion(_grid_feats(grid, x.shape[0]), self.fields(x, grid), mask)
+        return _heads(self.heads, feats)
+
+
+class NIOFNOAttn2D(NIOFNO2D):
+    """:class:`NIOFNO2D` with the token self-attention after the inner FNO2d and a
+    :class:`~blindno_torch.nn.setops.TokenMeanFusion` over all T = L + 2 attended tokens
+    in place of the mean-field fusion (``blindno/models/nio2d.py:173-198``)."""
+
+    @staticmethod
+    def _fusion(width, g):
+        return TokenMeanFusion(width, n_always=2, generator=g)
+
+    def forward(self, x, grid, *, generator: torch.Generator | None = None, subsample=None):
+        x, mask = _maybe_subsample(self, x, generator, subsample)
+        z, _ = _token_attention_tokens(self.fields(x, grid), grid, mask)
+        return _heads(self.heads, self.fusion(z, mask))

@@ -1,5 +1,6 @@
 """Set operations of the NIO family (counterpart of ``blindno/nn/setops.py``): train-time
-set subsampling, masked means, set self-attention and the frozen mean-field fusion."""
+set subsampling, masked means, set self-attention and the two frozen fusions, over the
+mean field and over all tokens."""
 from __future__ import annotations
 
 import math
@@ -109,3 +110,25 @@ class MeanFieldFusion(nn.Module):
         gc = self.grid_channels
         out = grid_feats @ self.weight[:, :gc].T + mean[..., None] * self.weight[:, gc]
         return out + self.bias
+
+
+class TokenMeanFusion(nn.Module):
+    """The fusion of the FNO-branch attention NIO (``blindno/nn/setops.py:142-167``): a
+    frozen Linear(1 -> width) applied to the mean over ALL T tokens,
+    ``mean_T(tokens)[..., None] * W[:, 0] + b``. The first ``n_always`` tokens (the grid
+    tokens) always count; ``mask`` (L,) covers the T - n_always tokens after them.
+    tokens: (B, T, *spatial) -> (B, *spatial, width)."""
+
+    def __init__(self, width: int, n_always: int, generator: torch.Generator):
+        super().__init__()
+        self.n_always = n_always
+        self.weight = nn.Parameter(torch.empty(width, 1), requires_grad=False)
+        self.bias = nn.Parameter(torch.empty(width), requires_grad=False)
+        tinit.torch_default_(self, 1, generator)
+
+    def forward(self, tokens, mask=None):
+        if mask is None:
+            mean = tokens.mean(1)
+        else:
+            mean = masked_mean(tokens, torch.cat([mask.new_ones(self.n_always), mask]), 1)
+        return mean[..., None] * self.weight[:, 0] + self.bias

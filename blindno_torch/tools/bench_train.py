@@ -1,14 +1,18 @@
 """Training throughput of the fpe2d models on a CUDA card (counterpart of ``bench.py``'s
 timed loop, which stays as it is).
 
-``python3 -m blindno_torch.tools.bench_train [--model nio|unet]`` builds the model, by
-default ``NIOFP2D`` at ``bench.py``'s config (width 12, 32 modes, 25 basis functions, 100
-neurons, 3 layers), with ``--model unet`` the fpe2d suite's BlinDNO UNet
-(``PermInvUNetAttn``: depth 4, width 12, 32 modes; ``blindno/suites/registry.py:196-198``),
-weights from seed 0. It draws the batch as ``bench.py:128-139`` does (B=4 sets of L=100
-snapshots of a 61x61 grid, targets and inputs standard normal from numpy seed 0, the grid
-on [-1, 1]^2), and times the training step of :mod:`blindno_torch.train.step` in float32
-and, for the NIO, in bfloat16 ``encoder_bn32`` (the policy casts no leaf of the UNet):
+``python3 -m blindno_torch.tools.bench_train [--model nio|unet|fno|attn|fno_attn]`` builds
+the model, by default ``NIOFP2D`` at ``bench.py``'s config (width 12, 32 modes, 25 basis
+functions, 100 neurons, 3 layers); ``--model attn`` is ``NIOAttn2D`` at the same config,
+``--model fno`` and ``--model fno_attn`` the FNO-branch ``NIOFNO2D`` and ``NIOFNOAttn2D``
+(width 12, 32 modes, 3 layers; ``blindno/suites/registry.py:195,201``), and ``--model
+unet`` the fpe2d suite's BlinDNO UNet (``PermInvUNetAttn``: depth 4, width 12, 32 modes;
+``blindno/suites/registry.py:196-198``); weights from seed 0. It draws the batch as
+``bench.py:128-139`` does (B=4 sets of L=100 snapshots of a 61x61 grid, targets and
+inputs standard normal from numpy seed 0, the grid on [-1, 1]^2), and times the
+training step of :mod:`blindno_torch.train.step` in float32 and, for the two models
+with an Encoder2D (``nio``, ``attn``), in bfloat16 ``encoder_bn32`` (the policy casts
+no leaf of the others):
 each mode from fresh weights, 3 warm-up steps and then the timed steps with a
 synchronize before each clock read, every step with a fresh set subsample. TF32 stays
 off, as the reference runs its products at float32 HIGHEST. It prints one JSON line.
@@ -27,9 +31,15 @@ import torch
 CONFIG = dict(width=12, modes=32, n_basis=25, neurons=100, fno_layers=3)  # bench.py:127
 UNET_CONFIG = dict(input_size=(61, 61), depth=4, width=12, fno_modes=32, head_dims=(1, 1),
                    subsample=True)  # blindno/suites/registry.py:196-198
+FNO_CONFIG = dict(width=12, modes=32, fno_layers=3)  # blindno/suites/registry.py:195,201
 BATCH = dict(b=4, l=100, n=61)                                            # bench.py:133-135
 MODES = {"f32": None, "bf16_encoder_bn32": "bfloat16"}
-MODEL_MODES = {"nio": MODES, "unet": {"f32": None}}
+# --model -> (class name, config, compute modes)
+MODELS = {"nio": ("NIOFP2D", CONFIG, MODES),
+          "unet": ("PermInvUNetAttn", UNET_CONFIG, {"f32": None}),
+          "fno": ("NIOFNO2D", FNO_CONFIG, {"f32": None}),
+          "attn": ("NIOAttn2D", CONFIG, MODES),
+          "fno_attn": ("NIOFNOAttn2D", FNO_CONFIG, {"f32": None})}
 WARMUP, STEPS = 3, 20
 
 
@@ -45,17 +55,16 @@ def bench_batch(device):
 
 
 def fresh_model(device, model="nio"):
-    """``NIOFP2D`` at the bench config, or with ``model="unet"`` the suite's UNet; weights
-    from seed 0, in train mode."""
-    from blindno_torch.models.blindno_unet import PermInvUNetAttn
-    from blindno_torch.models.nio2d import NIOFP2D
+    """The model of :data:`MODELS` at its config, weights from seed 0, in train mode."""
+    from blindno_torch.models import blindno_unet, nio2d
 
-    cls, config = (NIOFP2D, CONFIG) if model == "nio" else (PermInvUNetAttn, UNET_CONFIG)
+    name, config, _ = MODELS[model]
+    cls = getattr(blindno_unet if model == "unet" else nio2d, name)
     return cls(**config, generator=torch.Generator().manual_seed(0), device=device).train()
 
 
 def steps_per_sec(compute_dtype=None, model="nio"):
-    """Training steps per second of ``model`` ("nio" or "unet") on the card in one mode,
+    """Training steps per second of ``model`` (a key of :data:`MODELS`) on the card in one mode,
     from fresh weights: WARMUP steps, then STEPS timed on the host clock between two
     synchronizes."""
     from blindno_torch.train.step import make_optimizer, train_step
@@ -80,7 +89,7 @@ def steps_per_sec(compute_dtype=None, model="nio"):
 
 def main():
     p = argparse.ArgumentParser()
-    p.add_argument("--model", choices=sorted(MODEL_MODES), default="nio")
+    p.add_argument("--model", choices=sorted(MODELS), default="nio")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("bench_train: needs a CUDA card")
@@ -89,11 +98,12 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     name, power = (s.strip() for s in smi.stdout.strip().splitlines()[0].split(","))
+    cls_name, config, modes = MODELS[args.model]
     result = {f"steps_per_sec_{mode}": steps_per_sec(cdtype, args.model)
-              for mode, cdtype in MODEL_MODES[args.model].items()}
-    config = CONFIG if args.model == "nio" else UNET_CONFIG
-    print(json.dumps({**result, "model": args.model, "config": config, "batch": BATCH,
-                      "timed_steps": STEPS, "device": name, "power_limit": power}), flush=True)
+              for mode, cdtype in modes.items()}
+    print(json.dumps({**result, "model": args.model, "class": cls_name, "config": config,
+                      "batch": BATCH, "timed_steps": STEPS, "device": name,
+                      "power_limit": power}), flush=True)
 
 
 if __name__ == "__main__":

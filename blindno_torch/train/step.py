@@ -1,5 +1,5 @@
-"""One training step of a 2-D model, the fpe2d NIO or the BlinDNO UNet (counterpart of
-the step body of ``bench.py:157-186`` and of ``amp_cast_fns``,
+"""One training step of a 2-D model, an NIO of ``models/nio2d.py`` or the BlinDNO UNet
+(counterpart of the step body of ``bench.py:157-186`` and of ``amp_cast_fns``,
 ``blindno/train/loop.py:156-198``).
 
 The step is forward in train mode (set subsampling, batch-statistics BatchNorm), the mean
@@ -15,8 +15,10 @@ torch's). Two compute modes:
   float32. Master weights, gradients and Adam state stay float32. The JAX package's other
   policies, ``all`` and ``encoder``, failed their accuracy gates
   (``blindno/train/loop.py:105-123``) and are not ported. The policy casts the leaves of
-  an Encoder only, so a model without one (the UNet, ``blindno/train/loop.py:128``)
-  has nothing to cast, and the step refuses bfloat16 for it.
+  an Encoder only (``blindno/train/loop.py:172-180``): ``NIOFP2D`` and ``NIOAttn2D``
+  have one; a model without one (the UNet, ``NIOFNO2D``, ``NIOFNOAttn2D``;
+  ``blindno/train/loop.py:128``) has nothing to cast, and the step refuses bfloat16 for
+  it.
 """
 from __future__ import annotations
 

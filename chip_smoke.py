@@ -8,7 +8,7 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``. It
    source, all at once; timed);
 3. holds each kernel against its plain PyTorch version at the serving paths' shapes
    (in 1-D the gpe1d heads' among them), a ragged one and, in 2-D, the ncfpe2d heads'
-   and the NIOFNO2D inner branch's shapes,
+   and the NIOFNO2D inner branch's shapes on the fpe2d and the ncfpe2d grid,
    and times kernel, plain version and a ``torch.fft`` restatement on
    the device (each replayed from a CUDA graph, so host launch costs drop out; the
    kernel's replayed output is held against the plain version too), the wrapper's host
@@ -30,18 +30,25 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``. It
    of 100 snapshots of 80x80; each forward split between the set encoder and the heads,
    on the device (eager and from CUDA graphs, its top kernels in a profiler trace) and
    on the host;
-7. trains the fpe2d NIO at the ``bench.py`` config (4 sets of 100 snapshots of 61x61):
+7. serves the FNO-branch and token-attention NIOs (phase ``serve_nio2d``) the same way:
+   the fpe2d suite's ``NIOFNO2D``, ``NIOAttn2D`` and ``NIOFNOAttn2D`` on 8 sets of 100
+   snapshots of 61x61 and the ncfpe2d suite's ``NIOFNO2D`` on 4 sets of 80x80, each
+   forward split on the device between the per-snapshot fields, the attention, the
+   fusion and the heads;
+8. trains the fpe2d NIO at the ``bench.py`` config (4 sets of 100 snapshots of 61x61):
    one float32 step on the card against the same step on the CPU plain path (same
    seeded weights, batch and injected set subsample), its launches counted; a bfloat16
    ``encoder_bn32`` step from the same weights; twenty float32 steps on one batch with
    fresh draws, whose loss must fall; steps per second in both modes
    (``blindno_torch.tools.bench_train``), the step's split, the FNO2d layer's backward
    per call, the BatchNorm correction's cost and the peak memory;
-8. trains the fpe2d suite's UNet on the same batch (phase ``train_unet``): one float32
+9. trains the fpe2d suite's UNet on the same batch (phase ``train_unet``): one float32
    step on the card against the CPU, its exact zero gradients exact; twenty steps whose
    loss must fall; steps per second (``bench_train --model unet``), the step's split on
-   the device and the host, its top kernels and peak memory;
-9. trains and evaluates the fpe2d NIO through the port's suites CLI at the suite's own
+   the device and the host, its top kernels and peak memory; then the fpe2d suite's
+   ``NIOFNO2D`` the same way (phase ``train_fno``, 8 launches a step, the frozen fusion
+   unchanged), with the FNO2d layer's torch backward timed at the inner shape;
+10. trains and evaluates the fpe2d NIO through the port's suites CLI at the suite's own
    config (phase ``fit``): a synthetic archive of 160 sets of 100 snapshots of 61x61 in
    the JAX datagen's format (numpy seed 0) under a temporary workdir, 2 epochs of
    ``--stage train`` (128 train sets, 8 steps of batch 16 an epoch, d4 augmentation,
@@ -53,8 +60,10 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``. It
    time, the eval with and without the average, the checkpoint saves and peak memory;
    then the same for the suite's UNet (``--model unet``): one epoch and the eval stage,
    launches counted exactly, no host synchronization in a step, predictions against the
-   CPU;
-10. prints one JSON line per phase, the nvidia-smi line, the kernels line, and last
+   CPU; then the ncfpe2d suite at its own config (batch 4, ``c4_vector``) on a
+   synthetic archive of 40 sets of 100 snapshots of 80x80, its ``NIOFNO2D`` and its
+   plain-block UNet each for one epoch and the eval stage, checked the same way;
+11. prints one JSON line per phase, the nvidia-smi line, the kernels line, and last
    ``{"ok": true, "device": {...}}``.
 
 Every path runs with all four kernels' launch counts set to 0 just before it and read
@@ -98,6 +107,8 @@ FIT_SHAPE = (16, 12, 76, 76, 32, 32)   # the layers of the fpe2d suite's batch o
 # and the NIOFNO2D inner FNO2d over B*L = 4 x 100 snapshots (blindno/models/nio2d.py:74-86)
 NCFPE2D_HEADS = (4, 12, 100, 100, 32, 32)
 NIOFNO2D_INNER = (400, 4, 76, 76, 12, 12)
+# the same inner FNO2d on the ncfpe2d suite's 80x80 grid, padded to 100x100
+NCFPE2D_INNER = (400, 4, 100, 100, 12, 12)
 # 1-D (B, C, N, modes, dc_half): the fpe1d heads' layers at batch 16, the FNO-branch
 # model's inner FNO1d over 16 x 100 snapshots, the gpe1d NIO heads (width 20, 40 modes,
 # 128 points padded to 160; blindno/suites/registry.py:139-141), and a ragged shape
@@ -130,6 +141,11 @@ SERVE_UNET_NC = dict(m=4, l=100, n=80, batch=4, timed_rounds=5)
 # phase fit: the fpe2d suite's config (blindno/suites/registry.py:186-220) on a synthetic
 # archive; 160 sets split 128/32, 8 steps of 16 an epoch; a test archive of 16 sets
 FIT = dict(m=160, m_test=16, l=100, n=61, epochs=2, cpu_sets=4, bare_steps=10, unet_epochs=1)
+# phase fit, ncfpe2d: that suite's config (blindno/suites/registry.py:222-253: batch 4,
+# c4_vector, float32 inputs) on a synthetic archive of 40 sets of 100 snapshots of 80x80,
+# split 32/8 (8 steps an epoch), and 8 test sets; one epoch each of the FNO-branch NIO
+# and the plain-block UNet
+FIT_NC = dict(m=40, m_test=8, l=100, n=80, epochs=1)
 
 
 def kernel_wrappers():
@@ -375,7 +391,7 @@ def phase_kernels():
     with torch.inference_mode():
         check_and_time([(MAIN_SHAPE, True, True), (RAGGED_SHAPE, False, False),
                         (NCFPE2D_HEADS, True, False), (NIOFNO2D_INNER, True, False),
-                        (FIT_SHAPE, True, False)],
+                        (NCFPE2D_INNER, True, False), (FIT_SHAPE, True, False)],
                        variants_2d, library, KERNEL_TOL, stats)
         check_and_time([(HEADS_1D, True, True), (RAGGED_1D, False, False)],
                        [layer_1d(True), layer_1d(False), spectral_1d], library,
@@ -671,6 +687,72 @@ def phase_serve_unet():
     return launches
 
 
+def sets_2d(rng, k, l, n):
+    """k sets of l snapshots of n x n, each set's snapshots sharing that set's profile
+    (as :func:`sets_1d`): the untrained FNO-branch models average their inner FNO2d's
+    fields over the set, which would leave sets of independent noise all alike."""
+    return (rng.standard_normal((k, 1, n, n)) + 0.5 * rng.standard_normal((k, l, n, n))
+            ).astype(np.float32)
+
+
+def phase_serve_nio2d():
+    """The FNO-branch and token-attention NIOs' serving paths at their suites' widths:
+    the fpe2d ``NIOFNO2D``, ``NIOAttn2D`` and ``NIOFNOAttn2D`` on SERVE's sizes and the
+    ncfpe2d ``NIOFNO2D`` on SERVE_UNET_NC's; seeded weights, calibrated BatchNorms. Each
+    through ``predict_fields`` with its launches counted exactly (2 inner and 6 head
+    layers a forward, or 6), against the CPU plain path, timed, and split on the device
+    (each part replayed from a CUDA graph) between the per-snapshot fields (the inner
+    FNO2d over all B x L snapshots, or the DeepONet), the token attention, the fusion and
+    the heads, beside the host's time to enqueue a forward."""
+    from blindno_torch.models import nio2d
+    from blindno_torch.tools.bench_train import CONFIG, FNO_CONFIG
+
+    launches = 0
+    # (label, class, config, serving sizes, fno2d_layer launches per forward, least spread
+    # between two sets' outputs). The untrained FNO-branch models' outputs move by about
+    # 6e-4 of their scale between two sets (tests/test_torch_nio2d_models.py), so their
+    # floor is lower.
+    paths = (("fpe2d NIOFNO2D", nio2d.NIOFNO2D, FNO_CONFIG, SERVE, 8, 1e-7),
+             ("fpe2d NIOAttn2D", nio2d.NIOAttn2D, CONFIG, SERVE, 6, 1e-5),
+             ("fpe2d NIOFNOAttn2D", nio2d.NIOFNOAttn2D, FNO_CONFIG, SERVE, 8, 1e-7),
+             ("ncfpe2d NIOFNO2D", nio2d.NIOFNO2D, FNO_CONFIG, SERVE_UNET_NC, 8, 1e-7))
+    for label, cls, config, sizes, per_forward, min_spread in paths:
+        m, l, n, batch = sizes["m"], sizes["l"], sizes["n"], sizes["batch"]
+        inputs, grid = sets_2d(np.random.default_rng(2), m, l, n), grid_2d(n)
+        cpu_model = cls(**config, generator=torch.Generator().manual_seed(0), device="cpu")
+        calibrate_bn(cpu_model, sets_2d(np.random.default_rng(3), 1, l, n), grid,
+                     np.random.default_rng(7))
+        model, counts, fields = serve(label, cpu_model, inputs, grid, batch,
+                                      sizes["timed_rounds"], "fno2d_layer", per_forward,
+                                      min_spread)
+        launches += counts["fno2d_layer"]
+
+        with torch.inference_mode():
+            xb = torch.tensor(inputs[:batch], device="cuda")
+            g = torch.tensor(grid, device="cuda")
+            # the fusion's inputs as the forward hands them, read by a hook
+            fusion_args = []
+            hook = model.fusion.register_forward_hook(lambda mod, a, out: fusion_args.append(a))
+            model(xb, g)
+            hook.remove()
+            snap = model.fields(xb, g)
+            feats = model.fusion(*fusion_args[0])
+            parts = {"fields": lambda: model.fields(xb, g),
+                     "fusion": lambda: model.fusion(*fusion_args[0]),
+                     "heads": lambda: [h(feats) for h in model.heads]}
+            if cls in (nio2d.NIOAttn2D, nio2d.NIOFNOAttn2D):
+                parts["attention"] = lambda: nio2d._token_attention_tokens(snap, g, None)
+            forward_ms, forward_host_ms = time_ms(lambda: model(xb, g), 10, host=True)
+            split = dict(forward_ms=forward_ms, forward_host_ms=forward_host_ms,
+                         forward_graph_ms=graph_ms(lambda: model(xb, g), 5, 5),
+                         **{f"{k}_graph_ms": graph_ms(fn, 5, 5) for k, fn in parts.items()},
+                         h2d_ms=time_ms(lambda: torch.as_tensor(inputs[:batch]).to("cuda"), 10),
+                         top_kernels_ms=top_kernels(lambda: model(xb, g)))
+            del snap, feats, fusion_args
+        emit("serve_nio2d", model=label, config=config, **fields, device_split=split)
+    return launches
+
+
 def rel_l2(got, want):
     return float((got.double() - want.double()).norm() / want.double().norm())
 
@@ -690,7 +772,8 @@ def train_errors(card, cpu):
     (loss, grads, state), (want_loss, want_grads, want_state) = card, cpu
     top = max(float(g.abs().max()) for g in want_grads.values())
     zero = [k for k in want_grads if k.endswith("conv.bias")]
-    worst_zero = max(float(g.abs().max()) for k in zero for g in (grads[k], want_grads[k]))
+    worst_zero = max((float(g.abs().max()) for k in zero for g in (grads[k], want_grads[k])),
+                     default=0.0)
     if worst_zero >= 1e-6 * top:
         raise RuntimeError(f"train: a conv bias's gradient is {worst_zero:.3g}, want < 1e-6 x {top:.3g}")
     errs = {"loss": abs(loss - want_loss) / abs(want_loss)}
@@ -949,6 +1032,111 @@ def phase_train_unet(smi_line):
     return counts["fno2d_layer"]
 
 
+def phase_train_fno(smi_line):
+    """The FNO-branch NIO's training step (``train_step`` on ``NIOFNO2D`` at the fpe2d
+    suite's width, seeded weights) on ``bench.py``'s batch: one float32 step on the card
+    against the same step on the CPU, its 8 launches counted, the frozen fusion unchanged;
+    twenty steps whose loss must fall; steps per second (``bench_train --model fno``), the
+    step's split on the device and the host, its top kernels and peak memory; and the
+    FNO2d layer's torch backward per call at the inner shape, from a graph and eagerly,
+    beside its bound. Returns its ``fno2d_layer`` launches."""
+    from blindno_torch.ops.fno_layer import fno2d_layer_backward_plain
+    from blindno_torch.tools import bench_train
+    from blindno_torch.train.step import make_optimizer, train_step
+
+    b, l = bench_train.BATCH["b"], bench_train.BATCH["l"]
+    rng = np.random.default_rng(5)
+    draw = (rng.integers(0, l, l), (np.arange(l) < rng.integers(50, l)).astype(np.float32))
+    cpu_model = bench_train.fresh_model("cpu", "fno")
+    initial = copy.deepcopy(cpu_model.state_dict())
+    x, y, grid = bench_train.bench_batch("cuda")
+
+    # 1. one f32 step on the card, its launches counted, against the CPU plain path
+    model = copy.deepcopy(cpu_model).to("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    counts, card = counted(lambda: one_step(model, x, y, grid, draw))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expect_launches("NIOFNO2D training step", counts, fno2d_layer=8)
+    frozen = [k for k in initial if k.startswith("fusion.")]
+    if not all(torch.equal(card[2][k], initial[k]) for k in frozen):
+        raise RuntimeError(f"train_fno: the frozen fusion ({frozen}) moved in a step")
+    t0 = time.perf_counter()
+    cpu = one_step(cpu_model, x.cpu(), y.cpu(), grid.cpu(), draw)
+    cpu_s = time.perf_counter() - t0
+    errs = train_errors(card, cpu)
+
+    # 2. twenty f32 steps on the one batch, a fresh draw each: the loss must fall
+    model.load_state_dict(initial)
+    opt = make_optimizer(model)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    step = lambda: train_step(model, opt, x, y, grid, generator=gen)
+    losses = [float(step()) for _ in range(TRAIN_STEPS)]
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"train_fno: loss did not fall over {TRAIN_STEPS} steps: {losses}")
+
+    # 3. throughput, and the step's split: CUDA events around its forward, backward and
+    # Adam, and around the inner FNO2d's and the heads' forward and backward alone; the
+    # host's time to enqueue a step; its kernels by device time in a profiler trace
+    sps = bench_train.steps_per_sec(None, "fno")
+    ev = lambda: torch.cuda.Event(enable_timing=True)
+    split = {k: 0.0 for k in ("forward_ms", "backward_ms", "optimizer_ms", "host_enqueue_ms",
+                             "inner_fno2d_fwd_bwd_ms", "heads_fwd_bwd_ms")}
+    rounds = 5
+    xg, mask = x[:, torch.as_tensor(draw[0], device="cuda")], torch.as_tensor(draw[1], device="cuda")
+    grid_feats = grid.unsqueeze(0).expand(b, *grid.shape)
+    for r in range(rounds + 1):
+        e = [ev() for _ in range(4)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        e[0].record()
+        out = model(x, grid, subsample=draw)
+        loss = torch.mean((out - y) ** 2)
+        e[1].record()
+        loss.backward()
+        e[2].record()
+        opt.step()
+        e[3].record()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        p = [ev() for _ in range(4)]
+        p[0].record()
+        model.fields(xg, grid).sum().backward()
+        p[1].record()
+        with torch.no_grad():
+            feats = model.fusion(grid_feats, model.fields(xg, grid), mask)
+        p[2].record()
+        sum(h(feats).sum() for h in model.heads).backward()
+        p[3].record()
+        torch.cuda.synchronize()
+        if r:  # round 0 warms up
+            split["host_enqueue_ms"] += host_ms / rounds
+            for k, (i, j) in zip(("forward_ms", "backward_ms", "optimizer_ms",
+                                  "inner_fno2d_fwd_bwd_ms", "heads_fwd_bwd_ms"),
+                                 ((e, 0), (e, 1), (e, 2), (p, 0), (p, 2))):
+                split[k] += i[j].elapsed_time(i[j + 1]) / rounds
+    del out, loss, feats
+    split["top_kernels_ms"] = top_kernels(step)  # "all": the device's busy time in a step
+
+    # 4. the layer's torch backward at the inner shape, from a graph and eagerly
+    lx, wr, wi, pk, pb = layer_inputs(NIOFNO2D_INNER, "cuda")
+    du = torch.randn_like(lx)
+    backward = lambda: fno2d_layer_backward_plain(lx, wr, wi, pk, du)
+    backward_ms = graph_ms(backward, calls=5)
+    backward_eager_ms, backward_host_ms = time_ms(backward, 20, host=True)
+    del lx, du
+    emit("train_fno", model="NIOFNO2D", config=bench_train.FNO_CONFIG, batch=bench_train.BATCH,
+         launches=counts, loss_card=card[0], loss_cpu=cpu[0],
+         worst_rel_l2=sorted(errs.items(), key=lambda kv: -kv[1])[:3],
+         tol=f"relative L2: {TRAIN_TOL}", frozen_fusion_unchanged=frozen, cpu_step_s=cpu_s,
+         losses_20_steps=[losses[0], losses[-1]], steps_per_sec_f32=sps, step_split=split,
+         peak_memory_gb_f32_step=peak_gb, fno2d_layer_backward_ms=backward_ms,
+         fno2d_layer_backward_eager_ms=backward_eager_ms,
+         fno2d_layer_backward_host_ms=backward_host_ms,
+         fno2d_layer_backward_bound=layer_backward_bound(NIOFNO2D_INNER),
+         layer_shape=NIOFNO2D_INNER, nvidia_smi=smi_line)
+    return counts["fno2d_layer"]
+
+
 def fpe2d_archive(m, l, n, rng):
     """A synthetic fpe2d archive in the JAX datagen's keys and raw magnitudes
     (trajectories (m, l, n, n) ~ 1e-10, potential ~ 1e-21 and drag ~ 1e-6 (m, n, n)): a
@@ -961,6 +1149,21 @@ def fpe2d_archive(m, l, n, rng):
     return {"trajectories": traj * np.float32(1e-10), "potential": -well * np.float32(1e-21),
             "drag": (1 + 0.3 * well + 0.05 * rng.random((m, n, n), dtype=np.float32))
             * np.float32(1e-6)}
+
+
+def ncfpe2d_archive(m, l, n, rng):
+    """A synthetic ncfpe2d archive in the JAX datagen's keys and raw magnitudes
+    (trajectories (m, l, n, n) ~ 1e-10, the force F (m, 2, n, n) ~ 1e-12): a spiral force
+    about a random centre per set, snapshots of a blob drifting along it, plus noise."""
+    gx, gy = np.meshgrid(np.linspace(-1, 1, n), np.linspace(-1, 1, n), indexing="ij")
+    c = rng.uniform(-0.3, 0.3, (m, 2, 1, 1))
+    a = rng.uniform(0.2, 1.0, (m, 1, 1))
+    dx, dy = (gx - c[:, 0]).astype(np.float32), (gy - c[:, 1]).astype(np.float32)
+    force = np.stack([-dy - a * dx, dx - a * dy], axis=1).astype(np.float32)
+    t = rng.uniform(0.0, 1.0, (m, l, 1, 1)).astype(np.float32)
+    r = (dx[:, None] - 0.3 * np.cos(3 * t)) ** 2 + (dy[:, None] - 0.3 * np.sin(3 * t)) ** 2
+    traj = np.exp(-r / 0.1) + 0.05 * rng.random((m, l, n, n), dtype=np.float32)
+    return {"trajectories": traj * np.float32(1e-10), "F": force * np.float32(1e-12)}
 
 
 @contextlib.contextmanager
@@ -1002,15 +1205,15 @@ def sync_free(fn, syncs):
     return call
 
 
-def cli_stage(workdir, model, *argv):
-    """One stage of the suites CLI for the fpe2d suite's ``model`` on the card, its
-    launches counted and its stdout kept: (counts, result, wall seconds, start time)."""
+def cli_stage(workdir, suite, model, *argv):
+    """One stage of the suites CLI for ``model`` of ``suite`` on the card, its launches
+    counted and its stdout kept: (counts, result, wall seconds, start time)."""
     from blindno_torch.suites.run import main as cli
 
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        counts, res = counted(lambda: cli(["--suite", "fpe2d", "--model", model,
+        counts, res = counted(lambda: cli(["--suite", suite, "--model", model,
                                            "--workdir", workdir, *argv]))
     return counts, res, time.perf_counter() - t0, t0
 
@@ -1027,14 +1230,14 @@ def eval_vs_cpu(workdir, spec, model):
     with np.load(os.path.join(workdir, "data", spec.test_file)) as z:
         inputs = stats.stats["traj"].normalize(z["trajectories"])
     k = FIT["cpu_sets"]
-    best = checkpoint.load_best(os.path.join(workdir, "ckpt", f"fpe2d_{model}"))
+    best = checkpoint.load_best(os.path.join(workdir, "ckpt", f"{spec.name}_{model}"))
     cpu_model = spec.models[model](device="cpu")
     cpu_model.load_state_dict({**best["params"], **best["batch_stats"]})
     t0 = time.perf_counter()
     want = denormalize_predictions(spec, stats, predict_fields(cpu_model, inputs[:k], spec.grid,
                                                                batch=k, device="cpu"))
     cpu_s = time.perf_counter() - t0
-    got = np.load(os.path.join(workdir, "eval", f"fpe2d_{model}", "predictions.npy"))[:k]
+    got = np.load(os.path.join(workdir, "eval", f"{spec.name}_{model}", "predictions.npy"))[:k]
     err = [check_close(f"fit: {model} eval predictions, field {f}, vs the CPU plain path",
                        torch.tensor(got[..., f]), torch.tensor(want[..., f]), SERVE_TOL,
                        float(np.abs(want[..., f]).max()))
@@ -1042,42 +1245,59 @@ def eval_vs_cpu(workdir, spec, model):
     return err, cpu_s, inputs, best
 
 
-def fit_unet(w, spec, smi_line):
-    """The fpe2d suite's UNet through the CLI on phase fit's archive: FIT["unet_epochs"]
-    epochs of ``--stage train`` (no host synchronization inside a step), then ``--stage
-    eval`` with the symmetry average; launches counted exactly, losses finite, one
-    ``best_*`` checkpoint, predictions against the CPU. Returns its launches."""
+def eval_batch():
+    """The eval stage's batch: ``evaluate_suite_model``'s default, not the suite's
+    training batch."""
+    import inspect
+
+    from blindno_torch.eval.field_eval import evaluate_suite_model
+
+    return inspect.signature(evaluate_suite_model).parameters["batch"].default
+
+
+def fit_cli(w, spec, model, m, m_test, epochs, per_forward, smi_line):
+    """``model`` of the suite ``spec`` through the CLI on the archives in ``w`` (``m`` train
+    and ``m_test`` test sets): ``epochs`` epochs of ``--stage train`` (no host
+    synchronization inside a step), then ``--stage eval`` with the symmetry average;
+    ``per_forward`` ``fno2d_layer`` launches a step and a forward, counted exactly;
+    losses finite, one ``best_*`` checkpoint, predictions against the CPU. Returns its
+    launches."""
     from blindno_torch.train import loop
 
     cfg = spec.train_cfg
-    n_train = int(cfg.train_frac * FIT["m"])
-    steps, epochs = n_train // cfg.batch_size, FIT["unet_epochs"]
-    eval_forwards = -(-(FIT["m"] - n_train) // cfg.batch_size)
-    test_forwards = -(-FIT["m_test"] // cfg.batch_size)
+    n_train = int(cfg.train_frac * m)
+    steps = n_train // cfg.batch_size
+    eval_forwards = -(-(m - n_train) // cfg.batch_size)
+    test_forwards = -(-m_test // eval_batch())
+    label = f"fit: {spec.name} {model}"
     syncs = []
     torch.cuda.reset_peak_memory_stats()
     with patched(loop, "train_step", sync_free(loop.train_step, syncs)):
-        counts1, res, wall1, _ = cli_stage(w, "unet", "--stage", "train", "--epochs", str(epochs))
-    expect_launches("fit: UNet training", counts1,
-                    fno2d_layer=6 * steps * epochs + 6 * eval_forwards)
+        counts1, res, wall1, _ = cli_stage(w, spec.name, model, "--stage", "train",
+                                           "--epochs", str(epochs))
+    expect_launches(f"{label} training", counts1,
+                    fno2d_layer=per_forward * (steps * epochs + eval_forwards))
     losses = [v for h in res.history for v in (h["train_loss"], h["test_loss"], *h["field_rel_l2"])]
     if not (res.finished and losses and np.isfinite(losses).all()):
-        raise RuntimeError(f"fit: unfinished or non-finite UNet run: {res.history}")
-    bests = [f for f in os.listdir(os.path.join(w, "ckpt", "fpe2d_unet")) if f.startswith("best_")]
+        raise RuntimeError(f"{label}: unfinished or non-finite run: {res.history}")
+    bests = [f for f in os.listdir(os.path.join(w, "ckpt", f"{spec.name}_{model}"))
+             if f.startswith("best_")]
     if len(bests) != 1:
-        raise RuntimeError(f"fit: want one best_* UNet checkpoint, found {bests}")
+        raise RuntimeError(f"{label}: want one best_* checkpoint, found {bests}")
     if syncs:
-        raise RuntimeError(f"fit: the UNet's training steps synchronized the host {len(syncs)} "
+        raise RuntimeError(f"{label}: the training steps synchronized the host {len(syncs)} "
                            f"times: {sorted(set(syncs))[:3]}")
-    counts2, report, wall2, _ = cli_stage(w, "unet", "--stage", "eval")
+    counts2, report, wall2, _ = cli_stage(w, spec.name, model, "--stage", "eval")
     group = len(loop.make_augment(cfg.augment))
-    expect_launches("fit: UNet eval", counts2, fno2d_layer=6 * test_forwards * (1 + group))
+    expect_launches(f"{label} eval", counts2,
+                    fno2d_layer=per_forward * test_forwards * (1 + group))
     numbers = [report["mean_rel_l2_sum"], report["mean_rel_l2_sum_tta"]]
-    if report["n_test"] != FIT["m_test"] or not np.isfinite(numbers).all():
-        raise RuntimeError(f"fit: UNet eval report {report}")
+    if report["n_test"] != m_test or not np.isfinite(numbers).all():
+        raise RuntimeError(f"{label}: eval report {report}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    err, cpu_s, _, _ = eval_vs_cpu(w, spec, "unet")
-    emit("fit", suite="fpe2d", model="unet", epochs=epochs, steps_per_epoch=steps,
+    err, cpu_s, _, _ = eval_vs_cpu(w, spec, model)
+    emit("fit", suite=spec.name, model=model, epochs=epochs, steps_per_epoch=steps,
+         batch=cfg.batch_size, augment=cfg.augment,
          launches={"train": counts1, "eval": counts2}, history=res.history,
          host_syncs_in_steps=len(syncs), report=report, max_rel_err_vs_cpu=err,
          tol=f"rtol {SERVE_TOL}, atol {SERVE_TOL} x each field's scale", cpu_reference_s=cpu_s,
@@ -1102,7 +1322,7 @@ def phase_fit(smi_line):
     n_train = int(cfg.train_frac * m)
     steps = n_train // cfg.batch_size
     eval_forwards = -(-(m - n_train) // cfg.batch_size)
-    test_forwards = -(-FIT["m_test"] // cfg.batch_size)
+    test_forwards = -(-FIT["m_test"] // eval_batch())
     group = len(loop.make_augment(cfg.augment))
     out, fields = {}, {}
     build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "blindno_torch", "_build")
@@ -1124,7 +1344,7 @@ def phase_fit(smi_line):
 
         def run(*argv):
             epoch_starts.clear()
-            return cli_stage(w, "nio", *argv)
+            return cli_stage(w, "fpe2d", "nio", *argv)
 
         torch.cuda.reset_peak_memory_stats()
         with contextlib.ExitStack() as stack:
@@ -1245,10 +1465,29 @@ def phase_fit(smi_line):
              eval_s=eval_s, checkpoint_save_s=saves, peak_memory_gb=peak_gb, nvidia_smi=smi_line)
 
         # 7. the fpe2d suite's UNet through the CLI on the same archive
-        unet_launches = fit_unet(w, spec, smi_line)
+        unet_launches = fit_cli(w, spec, "unet", m, FIT["m_test"], FIT["unet_epochs"], 6,
+                                smi_line)
 
     return (counts1["fno2d_layer"] + counts2["fno2d_layer"] + counts3["fno2d_layer"]
-            + unet_launches)
+            + unet_launches + fit_ncfpe2d(build, smi_line))
+
+
+def fit_ncfpe2d(build, smi_line):
+    """The ncfpe2d suite through the CLI at its own config on a synthetic archive: the
+    FNO-branch NIO (8 launches a step and a forward) and the plain-block UNet (6), each
+    for FIT_NC["epochs"] epochs and the eval stage with the c4_vector average. Returns
+    their launches."""
+    from blindno_torch.suites import registry
+
+    spec = registry.SUITES["ncfpe2d"]
+    m, m_test, l, n = FIT_NC["m"], FIT_NC["m_test"], FIT_NC["l"], FIT_NC["n"]
+    with tempfile.TemporaryDirectory(dir=build) as w:
+        os.makedirs(os.path.join(w, "data"))
+        rng = np.random.default_rng(0)
+        np.savez(os.path.join(w, "data", spec.train_file), **ncfpe2d_archive(m, l, n, rng))
+        np.savez(os.path.join(w, "data", spec.test_file), **ncfpe2d_archive(m_test, l, n, rng))
+        return sum(fit_cli(w, spec, model, m, m_test, FIT_NC["epochs"], per_forward, smi_line)
+                   for model, per_forward in (("fno", 8), ("unet", 6)))
 
 
 def main():
@@ -1279,8 +1518,10 @@ def main():
     launches = {**phase_serve(), **phase_serve1d()}
     for kernel, count in phase_serve_unet().items():
         launches[kernel] += count
+    launches["fno2d_layer"] += phase_serve_nio2d()
     launches["fno2d_layer"] += phase_train(stats["fno2d_layer"]["kernel_ms"], smi_line)
     launches["fno2d_layer"] += phase_train_unet(smi_line)
+    launches["fno2d_layer"] += phase_train_fno(smi_line)
     launches["fno2d_layer"] += phase_fit(smi_line)
 
     csrc, replaces = "blindno_torch/csrc", "blindno/ops/spectral_pallas.py"

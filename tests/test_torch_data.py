@@ -1,5 +1,8 @@
-"""The port's fpe2d data path against the JAX package's, exactly: loading and
-normalization, denormalization, the train/test split and the padded eval batches."""
+"""The port's fpe2d and ncfpe2d data paths against the JAX package's, exactly: loading
+and normalization, denormalization, the train/test split, the padded eval batches, and
+the suite eval's target branches and statistics sidecar."""
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -73,3 +76,114 @@ def test_eval_batches_equal_jax(n, batch):
         np.testing.assert_array_equal(gi, wi)
         np.testing.assert_array_equal(gm, wm)
         assert gi.dtype == wi.dtype and gm.dtype == wm.dtype
+
+
+# ------------------------------------------------------------------ the ncfpe2d suite
+
+
+def _ncfpe2d_dict(m=10, l=6, n=9, seed=0):
+    """Raw ncfpe2d fields as the datagen writes them: trajectories (m, l, n, n) ~ 1e-10
+    and the force F (m, 2, n, n) ~ 1e-12, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    s = td.NCFPE2D_SCALES
+    return {"trajectories": (rng.random((m, l, n, n)) / s["trajectories"]).astype(np.float32),
+            "F": (rng.standard_normal((m, 2, n, n)) / s["F"]).astype(np.float32)}
+
+
+def test_ncfpe2d_scales_are_the_jax_packages():
+    assert td.NCFPE2D_SCALES == jd.NCFPE2D_SCALES
+
+
+def test_load_ncfpe2d_equals_jax_bit_for_bit():
+    d = _ncfpe2d_dict()
+    got, want = td.load_ncfpe2d(d), jd.load_ncfpe2d(d)
+    assert got.inputs.shape == (10, 6, 9, 9) and got.targets.shape == (10, 9, 9, 2)
+    np.testing.assert_array_equal(got.inputs, want.inputs)
+    np.testing.assert_array_equal(got.targets, want.targets)
+    assert got.targets.dtype == want.targets.dtype == np.float32
+    assert got.stats.keys() == want.stats.keys() == {"traj", "F"}
+    assert got.stats["F"].mean.shape == (1, 2, 9, 9)
+    for k in got.stats:
+        assert got.stats[k].scale == want.stats[k].scale
+        np.testing.assert_array_equal(got.stats[k].mean, want.stats[k].mean)
+        np.testing.assert_array_equal(got.stats[k].std, want.stats[k].std)
+
+
+SUITE_DATA = {"fpe2d": (_fpe2d_dict, td.load_fpe2d, jd.load_fpe2d),
+              "ncfpe2d": (_ncfpe2d_dict, td.load_ncfpe2d, jd.load_ncfpe2d)}
+
+
+@pytest.mark.parametrize("suite", SUITE_DATA)
+def test_test_targets_and_denormalization_equal_jax(suite):
+    """``_normalized_test_targets`` and ``denormalize_predictions`` of the suite eval,
+    the fpe2d branch and the ncfpe2d ``F`` branch, equal the JAX package's bit for bit
+    on train statistics from either loader; the denormalization undoes the targets'
+    normalization within float32 rounding."""
+    import blindno.eval.field_eval as jfe
+    import blindno_torch.eval.field_eval as tfe
+
+    make, load, jload = SUITE_DATA[suite]
+    train, test = make(), make(m=4, seed=1)
+    ts, jts = (mod.TrainStats(ld(train).stats, 2) for mod, ld in ((tfe, load), (jfe, jload)))
+    targets = tfe._normalized_test_targets(None, ts, test)
+    want = jfe._normalized_test_targets(None, jts, test)
+    assert targets.shape == (4, 9, 9, 2) and targets.dtype == np.float32
+    np.testing.assert_array_equal(targets, want)
+    preds = np.random.default_rng(2).standard_normal(targets.shape).astype(np.float32)
+    phys = tfe.denormalize_predictions(None, ts, preds)
+    np.testing.assert_array_equal(phys, np.asarray(jfe.denormalize_predictions(None, jts, preds)))
+    raw = (np.moveaxis(test["F"], 1, -1) if suite == "ncfpe2d"
+           else np.stack([test["potential"], test["drag"]], -1))
+    back = tfe.denormalize_predictions(None, ts, targets)
+    for f in range(2):
+        np.testing.assert_allclose(back[..., f], raw[..., f], rtol=1e-5,
+                                   atol=1e-5 * np.abs(raw[..., f]).max())
+
+
+def test_targets_of_the_1d_suites_still_raise():
+    """The 1-D suites' statistics (fpe1d's scalar drag, the GPE suites' ``max``) come with
+    the 1-D suites, ``ROADMAP.md`` A.7."""
+    import blindno_torch.eval.field_eval as tfe
+
+    rng = np.random.default_rng(4)
+    fpe1d = jd.load_fpe1d({"trajectories": rng.random((6, 5, 8)).astype(np.float32) * 1e-5,
+                           "potential": rng.random((6, 8)).astype(np.float32) * 1e-20,
+                           "drag": rng.random(6).astype(np.float32) * 1e-5}).stats
+    gpe = {"max": jd.MaxStats(1.0, 2.0, 3.0, 4.0)}
+    for stats in (fpe1d, gpe):
+        ts = tfe.TrainStats(stats, 1)
+        for fn, arg in ((tfe._normalized_test_targets, {}),
+                        (tfe.denormalize_predictions, np.zeros((2, 8, 2), np.float32))):
+            with pytest.raises(ValueError, match="A.7"):
+                fn(None, ts, arg)
+
+
+def test_sidecar_round_trips_ncfpe2d_stats(tmp_path):
+    """``cached_train_stats`` writes the ncfpe2d statistics (``F`` with its (1, 2, n, n)
+    mean and std) to the sidecar, the JAX package's file byte for byte in its arrays,
+    and reads them back equal."""
+    from types import SimpleNamespace
+
+    import blindno.eval.field_eval as jfe
+    import blindno_torch.eval.field_eval as tfe
+
+    os.makedirs(tmp_path / "data")
+    np.savez(tmp_path / "data" / "ncfpe2d_train.npz", **_ncfpe2d_dict())
+    sidecar = tmp_path / "data" / "ncfpe2d.stats.npz"
+    spec = SimpleNamespace(name="ncfpe2d", train_file="ncfpe2d_train.npz")
+    jfe.cached_train_stats(SimpleNamespace(**vars(spec), loader=jd.load_ncfpe2d), str(tmp_path))
+    with np.load(sidecar) as z:
+        want = {k: z[k] for k in z.files}
+    os.remove(sidecar)
+    spec.loader = td.load_ncfpe2d
+    written = tfe.cached_train_stats(spec, str(tmp_path))
+    with np.load(sidecar) as z:
+        assert set(z.files) == set(want)
+        for k in z.files:
+            np.testing.assert_array_equal(z[k], want[k], err_msg=k)
+    read = tfe.cached_train_stats(spec, str(tmp_path))
+    assert read.n_fields == written.n_fields == 2 and read.stats.keys() == {"traj", "F"}
+    for k, s in written.stats.items():
+        assert read.stats[k].scale == s.scale
+        np.testing.assert_array_equal(read.stats[k].mean, s.mean)
+        np.testing.assert_array_equal(read.stats[k].std, s.std)
