@@ -1,12 +1,13 @@
-"""Dataset containers, normalization and batching for the 2-D suites, fpe2d and ncfpe2d
-(counterpart of ``blindno/data/datasets.py:27-92,129-154``).
+"""Dataset containers, normalization and batching for every suite (counterpart of
+``blindno/data/datasets.py``).
 
-Everything here is numpy and gives the JAX package's numbers bit for bit: the fixed
-unit rescale, then per-gridpoint standardization with train-set statistics
-(``2d_FPE/train_nio.py:21-38`` and ``2d_Non_conservative_FPE/train_nio.py:21-36`` of the
-reference). :meth:`FieldStats.denormalize` also takes tensors. Whole splits live on the
-device in :func:`blindno_torch.train.loop.train_model`; batches are device-side gathers.
-The other suites' loaders come with their suites.
+Everything here is numpy and gives the JAX package's numbers bit for bit. The FPE suites
+(fpe1d, fpe2d, ncfpe2d) take a fixed unit rescale, then per-gridpoint standardization
+with train-set statistics (``1d_FPE/train_nio.py:19-37``, ``2d_FPE/train_nio.py:21-38``
+and ``2d_Non_conservative_FPE/train_nio.py:21-36`` of the reference); the GPE suites
+(schrodinger1d, gpe1d, gpe1d_vgk) a global division by maxima (:class:`MaxStats`).
+:meth:`FieldStats.denormalize` also takes tensors. Whole splits live on the device in
+:func:`blindno_torch.train.loop.train_model`; batches are device-side gathers.
 """
 from __future__ import annotations
 
@@ -42,7 +43,8 @@ class FieldStats:
         return (norm * self.std + self.mean) / self.scale
 
 
-# Unit-rescale constants (traj, target fields), blindno/data/datasets.py:51-52
+# Unit-rescale constants (traj, target fields), blindno/data/datasets.py:50-52
+FPE1D_SCALES = {"trajectories": 1e5, "potential": 1e20, "drag": 1e5}
 FPE2D_SCALES = {"trajectories": 1e10, "potential": 1e21, "drag": 1e6}
 NCFPE2D_SCALES = {"trajectories": 1e10, "F": 1e12}
 
@@ -55,6 +57,16 @@ class SetToFieldData:
     targets: np.ndarray
     stats: dict = field(default_factory=dict)
     grid: np.ndarray | None = None
+
+
+def load_fpe1d(data: dict) -> SetToFieldData:
+    """1-D FPE: targets = stack(potential, the scalar drag replicated over the grid)
+    (B, Nx, 2) (``1d_FPE/train_nio.py:43-58``)."""
+    traj_stats, traj = FieldStats.standardize(np.asarray(data["trajectories"]), FPE1D_SCALES["trajectories"], (0, 1))
+    pot_stats, pot = FieldStats.standardize(np.asarray(data["potential"]), FPE1D_SCALES["potential"], (0,))
+    drag_stats, drag = FieldStats.standardize(np.asarray(data["drag"]).reshape(-1, 1), FPE1D_SCALES["drag"], (0,))
+    targets = np.stack([pot, np.repeat(drag, pot.shape[1], axis=1)], axis=2)
+    return SetToFieldData(traj, targets, {"traj": traj_stats, "potential": pot_stats, "drag": drag_stats})
 
 
 def load_fpe2d(data: dict) -> SetToFieldData:
@@ -73,6 +85,42 @@ def load_ncfpe2d(data: dict) -> SetToFieldData:
     traj_stats, traj = FieldStats.standardize(np.asarray(data["trajectories"]), NCFPE2D_SCALES["trajectories"], (0, 1))
     f_stats, f_norm = FieldStats.standardize(np.asarray(data["F"]), NCFPE2D_SCALES["F"], (0,))
     return SetToFieldData(traj, np.moveaxis(f_norm, 1, -1), {"traj": traj_stats, "F": f_stats})
+
+
+@dataclass
+class MaxStats:
+    """The GPE suites' global maxima of the snapshots, V, g and kappa."""
+
+    y_max: float
+    v_max: float
+    g_max: float
+    kappa_max: float
+
+
+def load_gpe1d(data: dict, thirds: bool = True, include_gk: bool = False) -> SetToFieldData:
+    """GPE and Schrodinger: division by global maxima. ``thirds`` divides by a third of the
+    snapshots' and V's maxima (``train_nio_GPE.py:46-57``); ``include_gk`` appends g and
+    kappa, each replicated over the grid, as two more target channels (``train_GPE.py:
+    25-53``, targets (Nx, 3))."""
+    y = np.asarray(data["y"], np.float32)
+    v = np.asarray(data["V"], np.float32)
+    g = np.asarray(data["g"], np.float32)
+    kappa = np.asarray(data["kappa"], np.float32)
+    div = 3.0 if thirds else 1.0
+    y_max = float(y.max()) / div
+    v_max = float(v.max()) / div
+    g_max = float(g.max()) if g.max() > 0 else 1.0
+    k_max = float(kappa.max()) if kappa.max() > 0 else 1.0
+    y = y / y_max
+    v = v / v_max
+    nx = v.shape[1]
+    if include_gk:
+        gk = np.stack([np.repeat((g / g_max)[:, None], nx, axis=1),
+                       np.repeat((kappa / k_max)[:, None], nx, axis=1)], axis=2)
+        targets = np.concatenate([v[..., None], gk], axis=2)
+    else:
+        targets = v[..., None]
+    return SetToFieldData(y, targets, {"max": MaxStats(y_max, v_max, g_max, k_max)})
 
 
 def train_test_split(n: int, train_frac: float = 0.8, seed: int = 0):

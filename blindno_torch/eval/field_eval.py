@@ -5,8 +5,8 @@ and writes per-sample metrics and denormalized predictions.
 
 Eval inputs are normalized with the *train-set* statistics, kept in a sidecar npz next
 to the train archive (:func:`cached_train_stats`; the JAX package writes the same
-file). Only the 2-D suites' targets (fpe2d, ncfpe2d) are handled so far; the comparison
-figures (``blindno/eval/plots.py``) are not ported yet (``ROADMAP.md`` A.9).
+file). Every suite's targets are handled; the comparison figures
+(``blindno/eval/plots.py``) are not ported yet (``ROADMAP.md`` A.9).
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from blindno_torch import default_device
-from blindno_torch.data.datasets import FieldStats
+from blindno_torch.data.datasets import FieldStats, MaxStats
 from blindno_torch.eval.metrics import relative_l2_per_field
 from blindno_torch.train.checkpoint import load_best
 
@@ -110,7 +110,9 @@ def _load_npz(path):
 
 def cached_train_stats(spec, workdir: str) -> TrainStats:
     """Train-set normalization stats from a sidecar npz next to the train archive,
-    keyed on the archive's (mtime, size), so regenerating a dataset invalidates it."""
+    keyed on the archive's (mtime, size), so regenerating a dataset invalidates it. The
+    sidecar is named after the suite, not the archive: gpe1d and gpe1d_vgk share one
+    archive and normalize it differently."""
     src = os.path.join(workdir, "data", spec.train_file)
     sidecar = os.path.join(workdir, "data", f"{spec.name}.stats.npz")
     mtime, size = os.path.getmtime(src), os.path.getsize(src)
@@ -128,51 +130,95 @@ def _stats_to_arrays(ts: TrainStats, mtime: float, size: int) -> dict:
     out = {"src_mtime": np.float64(mtime), "src_size": np.int64(size),
            "n_fields": np.int64(ts.n_fields)}
     for name, s in ts.stats.items():
-        out[f"scale__{name}"] = np.float64(s.scale)
-        out[f"mean__{name}"] = s.mean
-        out[f"std__{name}"] = s.std
+        if isinstance(s, MaxStats):
+            out[f"max__{name}"] = np.array([s.y_max, s.v_max, s.g_max, s.kappa_max])
+        else:
+            out[f"scale__{name}"] = np.float64(s.scale)
+            out[f"mean__{name}"] = s.mean
+            out[f"std__{name}"] = s.std
     return out
 
 
 def _stats_from_arrays(arrs: dict) -> TrainStats:
-    stats = {k[7:]: FieldStats(float(v), arrs[f"mean__{k[7:]}"], arrs[f"std__{k[7:]}"])
-             for k, v in arrs.items() if k.startswith("scale__")}
+    stats = {}
+    for k, v in arrs.items():
+        if k.startswith("max__"):
+            stats[k[5:]] = MaxStats(*(float(a) for a in v))
+        elif k.startswith("scale__"):
+            stats[k[7:]] = FieldStats(float(v), arrs[f"mean__{k[7:]}"], arrs[f"std__{k[7:]}"])
     return TrainStats(stats, int(arrs["n_fields"]))
 
 
 def _target_kind(stats: dict) -> str:
-    """The 2-D suites' targets: ``"F"``, the ncfpe2d force (Fx, Fy) with (1, 2, Nx, Ny)
-    statistics, or ``"potential_drag"``, the fpe2d fields with (1, Nx, Ny) statistics.
-    Anything else (the 1-D suites' scalar drag and the GPE suites' ``max`` statistics)
-    raises: their branches come with the 1-D suites (``ROADMAP.md`` A.7)."""
-    if "F" in stats and np.ndim(stats["F"].mean) == 4:
+    """The suite's targets, told by its statistics: ``"max"``, the GPE suites' V (and g
+    and kappa for gpe1d_vgk) under :class:`MaxStats`; ``"F"``, the ncfpe2d force (Fx,
+    Fy); ``"fpe1d"``, the potential on the grid ((1, N) statistics) and the scalar drag
+    ((1, 1)); ``"fpe2d"``, the potential and drag fields ((1, Nx, Ny) statistics)."""
+    if "max" in stats:
+        return "max"
+    if "F" in stats:
         return "F"
-    if {"potential", "drag"} <= stats.keys() and np.ndim(stats["drag"].mean) == 3:
-        return "potential_drag"
-    shapes = {k: np.shape(getattr(v, "mean", None)) for k, v in stats.items()}
-    raise ValueError(f"only the 2-D suites' targets are ported (ROADMAP.md A.7); got stats "
-                     f"{shapes}")
+    if {"potential", "drag"} <= stats.keys():
+        return "fpe1d" if np.ndim(stats["potential"].mean) == 2 else "fpe2d"
+    raise ValueError(f"no suite has the statistics {sorted(stats)}")
+
+
+def normalized_test_inputs(train_ds: TrainStats, test):
+    """The test archive's snapshots normalized with the train statistics: divided by the
+    snapshots' maximum in the GPE suites, standardized in the FPE suites."""
+    if _target_kind(train_ds.stats) == "max":
+        return np.asarray(test["y"], np.float32) / train_ds.stats["max"].y_max
+    return train_ds.stats["traj"].normalize(np.asarray(test["trajectories"]))
 
 
 def _normalized_test_targets(spec, train_ds: TrainStats, test):
-    """Normalize the raw test targets with train statistics, shaped like model output,
-    (M, Nx, Ny, 2)."""
+    """Normalize the raw test targets with train statistics, shaped like model output:
+    (M, N, F) in 1-D, (M, Nx, Ny, 2) in 2-D."""
     stats = train_ds.stats
-    if _target_kind(stats) == "F":
+    kind = _target_kind(stats)
+    if kind == "max":
+        m = stats["max"]
+        v = np.asarray(test["V"], np.float32) / m.v_max
+        if train_ds.n_fields != 3:  # V alone; gpe1d_vgk adds g and kappa
+            return v[..., None]
+        nx = v.shape[1]
+        g = np.asarray(test["g"], np.float32) / m.g_max
+        k = np.asarray(test["kappa"], np.float32) / m.kappa_max
+        return np.concatenate([v[..., None], np.repeat(g[:, None, None], nx, 1),
+                               np.repeat(k[:, None, None], nx, 1)], axis=2)
+    if kind == "F":
         return np.moveaxis(stats["F"].normalize(np.asarray(test["F"])), 1, -1)
     pot = stats["potential"].normalize(np.asarray(test["potential"]))
+    if kind == "fpe1d":  # the scalar drag, replicated over the grid
+        drag = stats["drag"].normalize(np.asarray(test["drag"]).reshape(-1, 1))
+        return np.stack([pot, np.repeat(drag, pot.shape[1], axis=1)], axis=2)
     drag = stats["drag"].normalize(np.asarray(test["drag"]))
     return np.stack([pot, drag], axis=3)
 
 
 def denormalize_predictions(spec, train_ds: TrainStats, preds_norm):
-    """Model-output space -> physical units, channel-last as the model's output."""
+    """Model-output space -> physical units, channel-last as the model's output. In
+    fpe1d the drag is a scalar: the mean of the drag channel over the grid, replicated."""
     stats = train_ds.stats
-    if _target_kind(stats) == "F":
+    kind = _target_kind(stats)
+    if kind == "max":
+        m = stats["max"]
+        out = preds_norm.copy()
+        out[..., 0] *= m.v_max
+        if out.shape[-1] == 3:
+            out[..., 1] *= m.g_max
+            out[..., 2] *= m.kappa_max
+        return out
+    if kind == "F":
         return np.moveaxis(stats["F"].denormalize(np.moveaxis(preds_norm, -1, 1)), 1, -1)
     out = np.empty_like(preds_norm)
     out[..., 0] = stats["potential"].denormalize(preds_norm[..., 0])
-    out[..., 1] = stats["drag"].denormalize(preds_norm[..., 1])
+    if kind == "fpe1d":
+        drag = preds_norm[..., 1]
+        out[..., 1] = (stats["drag"].denormalize(drag.mean(axis=1, keepdims=True))
+                       * np.ones_like(drag))
+    else:
+        out[..., 1] = stats["drag"].denormalize(preds_norm[..., 1])
     return out
 
 
@@ -190,7 +236,7 @@ def evaluate_suite_model(spec, model_name: str, workdir: str, batch: int = 16,
     dev = default_device(device)
     train_ds = cached_train_stats(spec, workdir)
     test = _load_npz(os.path.join(workdir, "data", spec.test_file))
-    inputs = train_ds.stats["traj"].normalize(np.asarray(test["trajectories"]))
+    inputs = normalized_test_inputs(train_ds, test)
 
     ckpt = load_best(os.path.join(workdir, "ckpt", f"{spec.name}_{model_name}"), dev)
     model = spec.models[model_name](device=dev)

@@ -15,7 +15,6 @@ import torch
 from torch import nn
 
 from blindno_torch import default_device
-from blindno_torch.models import check_eval_only
 from blindno_torch.nn.convnext import ConvNeXtBlock, PlainConvBlock
 from blindno_torch.nn.fno import FNO1d, FNO2d
 from blindno_torch.nn.setops import TemporalSelfAttention, masked_mean, subsample_set
@@ -51,8 +50,7 @@ class PermInvUNetAttn(nn.Module):
     last; ``blocks`` likewise; ``attention`` the bottleneck's, then the skip of up step
     i as entry i+1; ``transposes`` and ``skip_norms`` one per up step.
 
-    In train mode (2-D only; the 1-D model is eval-only until 1-D training lands) with
-    ``subsample`` the forward first subsamples the set
+    In train mode with ``subsample`` the forward first subsamples the set
     (:func:`~blindno_torch.nn.setops.subsample_set` with ``l_min``) from ``generator``
     or from the injected ``subsample=(indices, mask)``; BatchNorm uses batch
     statistics, and the set pools mask their means.
@@ -100,8 +98,6 @@ class PermInvUNetAttn(nn.Module):
         return seq.mean(1) if mask is None else masked_mean(seq, mask, 1)
 
     def forward(self, x, grid=None, *, generator: torch.Generator | None = None, subsample=None):
-        if len(self.input_size) == 1:
-            check_eval_only("PermInvUNetAttn in 1-D", False, self)
         mask = None
         if self.training and self.subsample:
             x, mask = subsample_set(x, self.l_min, generator, *(subsample or ()))

@@ -21,7 +21,7 @@ from blindno_torch.nn.cnn import Encoder2D
 from blindno_torch.nn.deeponet import FFN, DeepOnetNoBias
 from blindno_torch.nn.fno import FNO2d
 from blindno_torch.nn.setops import (MeanFieldFusion, TokenMeanFusion, set_self_attention,
-                                     subsample_set)
+                                     train_subsample)
 
 
 def _fno_heads(modes, width, layers, g):
@@ -31,12 +31,6 @@ def _fno_heads(modes, width, layers, g):
 
 def _heads(heads, feats):
     return torch.cat([head(feats) for head in heads], dim=-1)
-
-
-def _maybe_subsample(model, x, generator, subsample):
-    if model.training:
-        return subsample_set(x, model.l_min, generator, *(subsample or ()))
-    return x, None
 
 
 def _grid_feats(grid, b):
@@ -81,7 +75,7 @@ class NIOFP2D(nn.Module):
         return self.deeponet(x, grid.reshape(-1, 2)).reshape(b, l, nx, ny)
 
     def forward(self, x, grid, *, generator: torch.Generator | None = None, subsample=None):
-        x, mask = _maybe_subsample(self, x, generator, subsample)
+        x, mask = train_subsample(self, x, generator, subsample)
         feats = self.fusion(_grid_feats(grid, x.shape[0]), self.fields(x, grid), mask)
         return _heads(self.heads, feats)
 
@@ -93,7 +87,7 @@ class NIOAttn2D(NIOFP2D):
     and their names are :class:`NIOFP2D`'s (the attention has none)."""
 
     def forward(self, x, grid, *, generator: torch.Generator | None = None, subsample=None):
-        x, mask = _maybe_subsample(self, x, generator, subsample)
+        x, mask = train_subsample(self, x, generator, subsample)
         z, _ = _token_attention_tokens(self.fields(x, grid), grid, mask)
         return _heads(self.heads, self.fusion(z[:, :2].movedim(1, -1), z[:, 2:], mask))
 
@@ -128,7 +122,7 @@ class NIOFNO2D(nn.Module):
         return self.branch(snaps).reshape(b, l, nx, ny)
 
     def forward(self, x, grid, *, generator: torch.Generator | None = None, subsample=None):
-        x, mask = _maybe_subsample(self, x, generator, subsample)
+        x, mask = train_subsample(self, x, generator, subsample)
         feats = self.fusion(_grid_feats(grid, x.shape[0]), self.fields(x, grid), mask)
         return _heads(self.heads, feats)
 
@@ -143,6 +137,6 @@ class NIOFNOAttn2D(NIOFNO2D):
         return TokenMeanFusion(width, n_always=2, generator=g)
 
     def forward(self, x, grid, *, generator: torch.Generator | None = None, subsample=None):
-        x, mask = _maybe_subsample(self, x, generator, subsample)
+        x, mask = train_subsample(self, x, generator, subsample)
         z, _ = _token_attention_tokens(self.fields(x, grid), grid, mask)
         return _heads(self.heads, self.fusion(z, mask))

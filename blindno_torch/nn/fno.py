@@ -4,9 +4,9 @@ lift -> n x (spectral conv + 1x1 conv, gelu between layers) -> project, with 1/4
 padding. Each layer runs through the CUDA kernel ``fno1d_layer_cuda`` or
 ``fno2d_layer_cuda``; ``SpectralConv1d`` and ``SpectralConv2d`` called on their own run
 ``spectral_conv1d_cuda`` and ``spectral_conv2d_cuda``. On a CPU tensor all take the
-kernels' plain versions. ``FNO2d`` trains: where autograd needs a gradient, each layer
-runs the kernel without its gelu epilogue inside ``FNO2dLinear`` and gelu after it;
-under ``no_grad`` or ``inference_mode`` the kernel applies gelu itself.
+kernels' plain versions. Both train: where autograd needs a gradient, each layer runs
+the kernel without its gelu epilogue inside ``FNO1dLinear`` or ``FNO2dLinear`` and gelu
+after it; under ``no_grad`` or ``inference_mode`` the kernel applies gelu itself.
 """
 from __future__ import annotations
 

@@ -44,6 +44,15 @@ def subsample_set(x, l_min: int = 50, generator: torch.Generator | None = None,
     return x.index_select(1, indices), mask
 
 
+def train_subsample(model, x, generator=None, subsample=None):
+    """A model's set subsample in train mode (:func:`subsample_set` with the model's
+    ``l_min``, drawn from ``generator`` or the injected ``subsample=(indices, mask)``),
+    and the set as it is with no mask in eval mode. Returns (x, mask or None)."""
+    if model.training:
+        return subsample_set(x, model.l_min, generator, *(subsample or ()))
+    return x, None
+
+
 def masked_mean(x, mask, axis: int = 1):
     """Mean over the set axis counting only mask==1 entries. mask: (L,) or (B, L)."""
     shape = [1] * x.dim()

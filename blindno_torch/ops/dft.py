@@ -5,7 +5,7 @@ An FNO keeps only ``modes << n`` frequencies, so each transform needs just the f
 axis). The spectral layer then becomes a chain of small dense products with explicit
 real and imaginary planes. Every matrix is built in float64 numpy, cast to the target
 dtype, and cached per (n, modes, dtype, device), as a normal tensor even when first asked
-for under ``torch.inference_mode``.
+for under ``torch.inference_mode``, and copied to a card without a host synchronization.
 """
 from __future__ import annotations
 
@@ -20,9 +20,15 @@ __all__ = ["rdft_forward", "rdft_inverse", "dft_forward_pm", "dft_inverse_pm"]
 def _pair(re, im, dtype, device):
     # the cached matrices serve inference and autograd alike: never inference tensors,
     # which autograd refuses to save, even when the first call comes under
-    # torch.inference_mode()
+    # torch.inference_mode(). A card gets them by an asynchronous copy from pinned
+    # memory, so that a training step that first asks for them does not wait on the card
     with torch.inference_mode(False):
-        as_t = lambda a: torch.as_tensor(a, dtype=dtype, device=device).contiguous()
+        def as_t(a):
+            t = torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
+            if torch.device(device).type != "cuda":
+                return t.to(device)
+            return t.pin_memory().to(device, non_blocking=True)
+
         return as_t(re), as_t(im)
 
 

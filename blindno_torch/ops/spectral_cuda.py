@@ -10,12 +10,13 @@
 
 A wrapper given a CPU tensor runs the kernel's plain PyTorch version; given a CUDA
 tensor it launches the kernel or raises. Each wrapper counts its kernel launches in
-its ``launches`` attribute. :func:`fno2d_layer_cuda` is differentiable: where autograd
-needs a gradient through it, its linear part runs as :class:`FNO2dLinear` (the kernel
-with no activation forward, ``fno2d_layer_backward_plain`` backward) and gelu follows
-outside, as ``blindno/ops/fno_layer.py:137-142`` has it. The other three are forward
-only, the two spectral convolutions as in JAX and the 1-D layer until 1-D training
-lands: they raise when autograd would need a gradient through them.
+its ``launches`` attribute. :func:`fno1d_layer_cuda` and :func:`fno2d_layer_cuda` are
+differentiable: where autograd needs a gradient through one, its linear part runs as
+:class:`FNO1dLinear` or :class:`FNO2dLinear` (the kernel with no activation forward,
+``fno1d_layer_backward_plain`` or ``fno2d_layer_backward_plain`` backward) and gelu
+follows outside, as ``blindno/ops/fno_layer.py:78-83,137-142`` has it. The two spectral
+convolutions are forward only, as in JAX (``blindno/ops/config.py:5``): they raise when
+autograd would need a gradient through them.
 """
 from __future__ import annotations
 
@@ -23,8 +24,8 @@ import torch
 import torch.nn.functional as F
 
 from blindno_torch.ops import _build
-from blindno_torch.ops.fno_layer import (fno1d_layer_plain, fno2d_layer_backward_plain,
-                                         fno2d_layer_plain)
+from blindno_torch.ops.fno_layer import (fno1d_layer_backward_plain, fno1d_layer_plain,
+                                         fno2d_layer_backward_plain, fno2d_layer_plain)
 from blindno_torch.ops.spectral import dft_matrices_2d, spectral_conv1d, spectral_conv2d
 
 _INT_MAX = 2**31 - 1
@@ -147,16 +148,45 @@ def _launch1d(name, x, wr, wi, pk, pb, dc_half, epilogue):
     return out
 
 
-def fno1d_layer_cuda(x, wr, wi, pk, pb, dc_half: bool = True, apply_act: bool = True):
-    """One FNO1d layer. x: (B, Cin, N) f32; wr/wi: (Cin, Cout, modes); pk: (Cin, Cout)
-    (any strides); pb: (Cout,). ``dc_half`` halves the DC coefficient before the mix.
-    Returns (B, Cout, N)."""
-    _forward_only("fno1d_layer_cuda", x, wr, wi, pk, pb)
+def _fno1d_layer(x, wr, wi, pk, pb, dc_half, apply_act):
     if x.device.type == "cpu":
         return fno1d_layer_plain(x, wr, wi, pk, pb, dc_half, apply_act)
     out = _launch1d("fno1d_layer_cuda", x, wr, wi, pk, pb, dc_half, 2 if apply_act else 1)
     fno1d_layer_cuda.launches += 1
     return out
+
+
+class FNO1dLinear(torch.autograd.Function):
+    """The FNO1d layer's linear part ``spectral_conv1d(x) + pk^T x + pb`` with its
+    gradient (counterpart of ``_linear1d``, ``blindno/ops/fno_layer.py:36-69``): the
+    kernel with no activation forward (its plain version on the CPU), and
+    :func:`fno1d_layer_backward_plain` backward. ``dc_half`` is not a tensor and gets no
+    gradient; ``dpk`` comes back in the layout of the ``pk`` it was given, as in
+    :class:`FNO2dLinear`."""
+
+    @staticmethod
+    def forward(ctx, x, wr, wi, pk, pb, dc_half):
+        ctx.save_for_backward(x, wr, wi, pk)
+        ctx.dc_half = dc_half
+        return _fno1d_layer(x, wr, wi, pk, pb, dc_half, apply_act=False)
+
+    @staticmethod
+    def backward(ctx, du):
+        return (*fno1d_layer_backward_plain(*ctx.saved_tensors, du.contiguous(), ctx.dc_half),
+                None)
+
+
+def fno1d_layer_cuda(x, wr, wi, pk, pb, dc_half: bool = True, apply_act: bool = True):
+    """One FNO1d layer. x: (B, Cin, N) f32; wr/wi: (Cin, Cout, modes); pk: (Cin, Cout)
+    (any strides); pb: (Cout,). ``dc_half`` halves the DC coefficient before the mix.
+    Returns (B, Cout, N).
+
+    Under no_grad or inference_mode, one call with gelu fused into the kernel's
+    epilogue; where autograd needs a gradient, :class:`FNO1dLinear` and gelu after it."""
+    if _needs_grad(x, wr, wi, pk, pb):
+        u = FNO1dLinear.apply(x, wr, wi, pk, pb, dc_half)
+        return F.gelu(u) if apply_act else u
+    return _fno1d_layer(x, wr, wi, pk, pb, dc_half, apply_act)
 
 
 def spectral_conv1d_cuda(x, wr, wi, dc_half: bool = True):

@@ -1,10 +1,11 @@
 """Suite registry (counterpart of ``blindno/suites/registry.py``): the (suite x model)
 configurations the port trains and evaluates, with the JAX package's hyperparameters.
 
-The two 2-D suites are ported: fpe2d with its NIO, FNO-branch NIO, the two attention NIOs
-and the BlinDNO UNet, and ncfpe2d with its NIO, FNO-branch NIO and plain-block UNet.
-:data:`NOT_PORTED` names the ``ROADMAP.md`` item of every other suite, model and stage of
-the JAX CLI.
+All six suites are ported: the four 1-D ones (fpe1d, schrodinger1d, gpe1d, gpe1d_vgk)
+with their NIO, FNO-branch NIO and BlinDNO UNets; fpe2d with its NIO, FNO-branch NIO, the
+two attention NIOs and the BlinDNO UNet; and ncfpe2d with its NIO, FNO-branch NIO and
+plain-block UNet. :data:`NOT_PORTED` names the ``ROADMAP.md`` item of every other model
+and stage of the JAX CLI.
 """
 from __future__ import annotations
 
@@ -13,10 +14,16 @@ from typing import Callable
 
 import numpy as np
 
-from blindno_torch.data.datasets import load_fpe2d, load_ncfpe2d
+from blindno_torch.data.datasets import load_fpe1d, load_fpe2d, load_gpe1d, load_ncfpe2d
 from blindno_torch.models.blindno_unet import PermInvUNetAttn
+from blindno_torch.models.nio1d import NIOFNO1D, NIOFP1D
 from blindno_torch.models.nio2d import NIOAttn2D, NIOFNO2D, NIOFNOAttn2D, NIOFP2D
+from blindno_torch.nn.cnn import ENC_FPE80, ENC_GPE128
 from blindno_torch.train.loop import TrainConfig
+
+
+def _grid_1d(n):
+    return np.linspace(0.0, 1.0, n, dtype=np.float32).reshape(n, 1)
 
 
 def _grid_2d(n):
@@ -50,7 +57,7 @@ SUITES: dict[str, SuiteSpec] = {}
 
 # What the JAX CLI runs and the port does not yet, with its ROADMAP.md item.
 NOT_PORTED = {
-    "suites": {"fpe1d": "A.7", "schrodinger1d": "A.7", "gpe1d": "A.7", "gpe1d_vgk": "A.7"},
+    "suites": {},
     "models": {"fpe2d": {"trans": "A.6", "trans_attn": "A.6"}},
     "stages": {"datagen": "A.8", "time-error": "A.8"},
 }
@@ -60,6 +67,97 @@ def _register(spec: SuiteSpec):
     SUITES[spec.name] = spec
     return spec
 
+
+# ---------------------------------------------------------------- 1D FPE
+# blindno/suites/registry.py:77-107: batch 32, lr 1e-3, StepLR(100, 0.5), 400 epochs, eval
+# every 10, the parity flip; the bag UNet of depth 5 and the full-set UNet of depth 6
+_register(
+    SuiteSpec(
+        name="fpe1d",
+        grid=_grid_1d(80),
+        loader=load_fpe1d,
+        models={
+            "nio": lambda **kw: NIOFP1D(width=30, modes=15, encoder_final_convs=ENC_FPE80, **kw),
+            "fno": lambda **kw: NIOFNO1D(width=30, modes=15, **kw),
+            "unet": lambda **kw: PermInvUNetAttn(input_size=(80,), depth=5, width=30,
+                                                 fno_modes=15, head_dims=(1, 1), subsample=True,
+                                                 **kw),
+            "unet_nobag": lambda **kw: PermInvUNetAttn(input_size=(80,), depth=6, width=30,
+                                                       fno_modes=15, head_dims=(1, 1),
+                                                       subsample=False, **kw),
+        },
+        train_cfg=TrainConfig(epochs=400, batch_size=32, lr=1e-3, save_interval=10,
+                              augment="flip1d"),
+        m_train=8000,
+        m_test=100,
+    )
+)
+
+# ---------------------------------------------------------------- 1D Schrodinger (g = kappa = 0)
+# blindno/suites/registry.py:109-133: width 10, 30 modes, 128 points, V over a third of
+# the maxima
+_register(
+    SuiteSpec(
+        name="schrodinger1d",
+        grid=_grid_1d(128),
+        loader=lambda d: load_gpe1d(d, thirds=True, include_gk=False),
+        models={
+            "nio": lambda **kw: NIOFP1D(width=10, modes=30, head_dims=(1,),
+                                        encoder_final_convs=ENC_GPE128, **kw),
+            "fno": lambda **kw: NIOFNO1D(width=10, modes=30, head_dims=(1,), **kw),
+            "unet": lambda **kw: PermInvUNetAttn(input_size=(128,), depth=4, width=10,
+                                                 fno_modes=30, head_dims=(1,), subsample=True,
+                                                 **kw),
+        },
+        train_cfg=TrainConfig(epochs=400, batch_size=32, lr=1e-3, save_interval=10,
+                              augment="flip1d"),
+        m_train=6000,
+        m_test=1200,
+    )
+)
+
+# ---------------------------------------------------------------- 1D GPE (g = kappa = 2)
+# blindno/suites/registry.py:135-159: width 20, 40 modes
+_register(
+    SuiteSpec(
+        name="gpe1d",
+        grid=_grid_1d(128),
+        loader=lambda d: load_gpe1d(d, thirds=True, include_gk=False),
+        models={
+            "nio": lambda **kw: NIOFP1D(width=20, modes=40, head_dims=(1,),
+                                        encoder_final_convs=ENC_GPE128, **kw),
+            "fno": lambda **kw: NIOFNO1D(width=20, modes=40, head_dims=(1,), **kw),
+            "unet": lambda **kw: PermInvUNetAttn(input_size=(128,), depth=4, width=20,
+                                                 fno_modes=40, head_dims=(1,), subsample=True,
+                                                 **kw),
+        },
+        train_cfg=TrainConfig(epochs=400, batch_size=32, lr=1e-3, save_interval=10,
+                              augment="flip1d"),
+        m_train=6000,
+        m_test=1200,
+    )
+)
+
+# ---------------------------------------------------------------- 1D GPE with (V, g, kappa) heads
+# blindno/suites/registry.py:161-182: 4 layers, width 25, 32 modes, 1000 epochs, plain
+# maxima; it trains on the gpe1d suite's archives (the same g = kappa = 2 orbits)
+_register(
+    SuiteSpec(
+        name="gpe1d_vgk",
+        grid=_grid_1d(128),
+        loader=lambda d: load_gpe1d(d, thirds=False, include_gk=True),
+        models={
+            "nio": lambda **kw: NIOFP1D(width=25, modes=32, fno_layers=4, head_dims=(1, 2),
+                                        encoder_final_convs=ENC_GPE128, **kw),
+        },
+        train_cfg=TrainConfig(epochs=1000, batch_size=32, lr=1e-3, save_interval=10,
+                              augment="flip1d"),
+        m_train=6000,
+        m_test=1200,
+        train_file="gpe1d_train.npz",
+        test_file="gpe1d_test.npz",
+    )
+)
 
 # ---------------------------------------------------------------- 2D FPE
 # blindno/suites/registry.py:186-220: the DDP-equivalent global batch 16 at the

@@ -1,5 +1,5 @@
-"""Training throughput of the fpe2d models on a CUDA card (counterpart of ``bench.py``'s
-timed loop, which stays as it is).
+"""Training throughput of the fpe2d and 1-D models on a CUDA card (counterpart of
+``bench.py``'s timed loop, which stays as it is).
 
 ``python3 -m blindno_torch.tools.bench_train [--model nio|unet|fno|attn|fno_attn]`` builds
 the model, by default ``NIOFP2D`` at ``bench.py``'s config (width 12, 32 modes, 25 basis
@@ -16,7 +16,13 @@ no leaf of the others):
 each mode from fresh weights, 3 warm-up steps and then the timed steps with a
 synchronize before each clock read, every step with a fresh set subsample. TF32 stays
 off, as the reference runs its products at float32 HIGHEST. It prints one JSON line.
-``chip_smoke.py`` calls :func:`steps_per_sec` and :func:`bench_batch`.
+
+``--suite fpe1d`` or ``--suite gpe1d`` times the 1-D suite's NIO, FNO-branch NIO and
+UNet (``--model nio|fno|unet`` picks one) in float32 as the suites registry builds them,
+on a batch of the suite's size (:data:`BATCHES_1D`: 32 sets of 100 snapshots of 80
+points, or of 101 of 128; numpy seed 0, the grid on [0, 1]).
+``chip_smoke.py`` calls :func:`steps_per_sec`, :func:`fresh_model` and
+:func:`bench_batch`.
 """
 from __future__ import annotations
 
@@ -40,13 +46,26 @@ MODELS = {"nio": ("NIOFP2D", CONFIG, MODES),
           "fno": ("NIOFNO2D", FNO_CONFIG, {"f32": None}),
           "attn": ("NIOAttn2D", CONFIG, MODES),
           "fno_attn": ("NIOFNOAttn2D", FNO_CONFIG, {"f32": None})}
+# the 1-D suites' training batches (blindno/suites/registry.py:77-159: batch 32; fpe1d
+# sets of 100 snapshots of 80 points and two target fields, gpe1d 101 snapshots of 128
+# points and one field) and the models timed on them
+BATCHES_1D = {"fpe1d": dict(b=32, l=100, n=80, fields=2),
+              "gpe1d": dict(b=32, l=101, n=128, fields=1)}
+MODELS_1D = ("nio", "fno", "unet")
 WARMUP, STEPS = 3, 20
 
 
-def bench_batch(device):
-    """``bench.py``'s batch: x (B, L, n, n), y (B, n, n, 2), grid (n, n, 2)."""
-    b, l, n = BATCH["b"], BATCH["l"], BATCH["n"]
+def bench_batch(device, suite="fpe2d"):
+    """``bench.py``'s batch: x (B, L, n, n), y (B, n, n, 2), grid (n, n, 2); or a 1-D
+    suite's: x (B, L, n), y (B, n, fields), grid (n, 1)."""
     rng = np.random.default_rng(0)
+    if suite in BATCHES_1D:
+        b, l, n, fields = BATCHES_1D[suite].values()
+        x = rng.standard_normal((b, l, n)).astype(np.float32)
+        y = rng.standard_normal((b, n, fields)).astype(np.float32)
+        grid = np.linspace(0.0, 1.0, n, dtype=np.float32).reshape(n, 1)
+        return tuple(torch.tensor(a, device=device) for a in (x, y, grid))
+    b, l, n = BATCH["b"], BATCH["l"], BATCH["n"]
     x = rng.standard_normal((b, l, n, n)).astype(np.float32)
     y = rng.standard_normal((b, n, n, 2)).astype(np.float32)
     gx, gy = np.meshgrid(np.linspace(-1, 1, n), np.linspace(-1, 1, n), indexing="ij")
@@ -54,24 +73,30 @@ def bench_batch(device):
     return tuple(torch.tensor(a, device=device) for a in (x, y, grid))
 
 
-def fresh_model(device, model="nio"):
-    """The model of :data:`MODELS` at its config, weights from seed 0, in train mode."""
+def fresh_model(device, model="nio", suite="fpe2d"):
+    """The model of :data:`MODELS` at its config, or a 1-D suite's model as the suites
+    registry builds it; weights from seed 0, in train mode."""
+    g = torch.Generator().manual_seed(0)
+    if suite in BATCHES_1D:
+        from blindno_torch.suites.registry import SUITES
+
+        return SUITES[suite].models[model](generator=g, device=device).train()
     from blindno_torch.models import blindno_unet, nio2d
 
     name, config, _ = MODELS[model]
     cls = getattr(blindno_unet if model == "unet" else nio2d, name)
-    return cls(**config, generator=torch.Generator().manual_seed(0), device=device).train()
+    return cls(**config, generator=g, device=device).train()
 
 
-def steps_per_sec(compute_dtype=None, model="nio"):
-    """Training steps per second of ``model`` (a key of :data:`MODELS`) on the card in one mode,
-    from fresh weights: WARMUP steps, then STEPS timed on the host clock between two
-    synchronizes."""
+def steps_per_sec(compute_dtype=None, model="nio", suite="fpe2d"):
+    """Training steps per second of ``model`` (a key of :data:`MODELS`, or of a 1-D
+    suite's models) on the card in one mode, from fresh weights: WARMUP steps, then STEPS
+    timed on the host clock between two synchronizes."""
     from blindno_torch.train.step import make_optimizer, train_step
 
-    model = fresh_model("cuda", model)
+    model = fresh_model("cuda", model, suite)
     opt = make_optimizer(model)
-    x, y, grid = bench_batch("cuda")
+    x, y, grid = bench_batch("cuda", suite)
     gen = torch.Generator(device="cuda").manual_seed(1)
     step = lambda: train_step(model, opt, x, y, grid, generator=gen, compute_dtype=compute_dtype)
     for _ in range(WARMUP):
@@ -89,8 +114,12 @@ def steps_per_sec(compute_dtype=None, model="nio"):
 
 def main():
     p = argparse.ArgumentParser()
-    p.add_argument("--model", choices=sorted(MODELS), default="nio")
+    p.add_argument("--suite", choices=["fpe2d", *BATCHES_1D], default="fpe2d")
+    p.add_argument("--model", choices=sorted(MODELS), default=None,
+                   help="default: nio for fpe2d, each of nio, fno and unet for a 1-D suite")
     args = p.parse_args()
+    if args.suite in BATCHES_1D and args.model not in (None, *MODELS_1D):
+        p.error(f"--suite {args.suite} times --model nio, fno or unet")
     if not torch.cuda.is_available():
         raise SystemExit("bench_train: needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -98,6 +127,14 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     name, power = (s.strip() for s in smi.stdout.strip().splitlines()[0].split(","))
+    if args.suite in BATCHES_1D:
+        models = [args.model] if args.model else list(MODELS_1D)
+        result = {m: steps_per_sec(None, m, args.suite) for m in models}
+        print(json.dumps({"steps_per_sec_f32": result, "suite": args.suite,
+                          "batch": BATCHES_1D[args.suite], "timed_steps": STEPS,
+                          "device": name, "power_limit": power}), flush=True)
+        return
+    args.model = args.model or "nio"
     cls_name, config, modes = MODELS[args.model]
     result = {f"steps_per_sec_{mode}": steps_per_sec(cdtype, args.model)
               for mode, cdtype in modes.items()}

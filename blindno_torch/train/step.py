@@ -1,4 +1,4 @@
-"""One training step of a 2-D model, an NIO of ``models/nio2d.py`` or the BlinDNO UNet
+"""One training step of a model of ``models/``: a 1-D or 2-D NIO or the BlinDNO UNet
 (counterpart of the step body of ``bench.py:157-186`` and of ``amp_cast_fns``,
 ``blindno/train/loop.py:156-198``).
 
@@ -41,15 +41,18 @@ def check_compute_dtype(model, compute_dtype):
         raise ValueError(f"unknown compute_dtype {compute_dtype!r} (want None or 'bfloat16', "
                          "the encoder_bn32 policy)")
     if compute_dtype is not None and not any(isinstance(m, Encoder2D) for m in model.modules()):
-        raise ValueError(f"compute_dtype={compute_dtype!r}: the encoder_bn32 policy casts an "
-                         f"Encoder's leaves, and {type(model).__name__} has none (in JAX it "
-                         "casts no leaf of it); train it in float32")
+        raise ValueError(f"compute_dtype={compute_dtype!r}: the port's encoder_bn32 mode "
+                         f"casts an Encoder2D, and {type(model).__name__} has none (a model "
+                         "without an Encoder has no leaf for it to cast in JAX either; the "
+                         "1-D Encoder1D's bfloat16 mode is not ported); train it in float32")
 
 
 def train_step(model, optimizer, x, y, grid, *, generator: torch.Generator | None = None,
                subsample=None, compute_dtype=None):
-    """One step on the batch x (B, L, H, W), y (B, H, W, F) and grid (H, W, 2), tensors
-    on the model's device; the model must be in train mode. The set subsample is drawn
+    """One step on the batch x (B, L, *spatial), y (B, *spatial, F) and grid
+    (*spatial, d): (B, L, N), (B, N, F) and (N, 1) for a 1-D model, (B, L, H, W),
+    (B, H, W, F) and (H, W, 2) for a 2-D one; tensors on the model's device, the model
+    in train mode. The set subsample is drawn
     from ``generator``, or injected as ``subsample=(indices, mask)``. Returns the loss (a
     0-d float32 tensor on the device, not synchronized). The parameters' ``.grad`` keep
     this step's gradients until the next step."""

@@ -7,8 +7,9 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``. It
 2. builds the FNO-layer kernels from ``blindno_torch/csrc`` with nvcc (one process per
    source, all at once; timed);
 3. holds each kernel against its plain PyTorch version at the serving paths' shapes
-   (in 1-D the gpe1d heads' among them), a ragged one and, in 2-D, the ncfpe2d heads'
-   and the NIOFNO2D inner branch's shapes on the fpe2d and the ncfpe2d grid,
+   (in 1-D the gpe1d heads' among them, and the 1-D training shapes at batch 32), a
+   ragged one and, in 2-D, the ncfpe2d heads' and the NIOFNO2D inner branch's shapes on
+   the fpe2d and the ncfpe2d grid,
    and times kernel, plain version and a ``torch.fft`` restatement on
    the device (each replayed from a CUDA graph, so host launch costs drop out; the
    kernel's replayed output is held against the plain version too), the wrapper's host
@@ -63,7 +64,20 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``. It
    CPU; then the ncfpe2d suite at its own config (batch 4, ``c4_vector``) on a
    synthetic archive of 40 sets of 100 snapshots of 80x80, its ``NIOFNO2D`` and its
    plain-block UNet each for one epoch and the eval stage, checked the same way;
-11. prints one JSON line per phase, the nvidia-smi line, the kernels line, and last
+11. trains the fpe1d suite's NIOFP1D, NIOFNO1D and BlinDNO UNet at full width on the
+   suite's batch of 32 sets of 100 snapshots of 80 points (phase ``train1d``): for each
+   one float32 step on the card against the CPU (the FNO1d layer's kernel forward in
+   ``FNO1dLinear``, its launches counted exactly: 6, 8 and 6), twenty steps whose loss
+   must fall, steps per second (``bench_train --suite fpe1d``), the step's split and the
+   host's enqueue against the device's busy time, peak memory; then an A/B of three
+   layers trained with Adam writing their weights right before each call, kernel against
+   plain version, and the layer's torch backward at the training shapes;
+12. trains and evaluates the 1-D suites through the CLI at their own configs (phase
+   ``fit1d``) on synthetic archives in the datagen's format (320 sets and 16 test sets):
+   the fpe1d NIO for an epoch and a resumed one, the gpe1d UNet for an epoch, each then
+   the eval stage; launches exact, no host synchronization in a step, predictions with
+   and without the flip average against the CPU;
+13. prints one JSON line per phase, the nvidia-smi line, the kernels line, and last
    ``{"ok": true, "device": {...}}``.
 
 Every path runs with all four kernels' launch counts set to 0 just before it and read
@@ -146,6 +160,20 @@ FIT = dict(m=160, m_test=16, l=100, n=61, epochs=2, cpu_sets=4, bare_steps=10, u
 # split 32/8 (8 steps an epoch), and 8 test sets; one epoch each of the FNO-branch NIO
 # and the plain-block UNet
 FIT_NC = dict(m=40, m_test=8, l=100, n=80, epochs=1)
+# phase train1d: the fpe1d suite's models (blindno/suites/registry.py:77-107) at full width
+# on its training batch (bench_train.BATCHES_1D: 32 sets of 100 snapshots of 80 points);
+# fno1d_layer launches a step, which the phase also derives from the models' FNO1d
+# modules: 3 layers in each of the 2 heads, and NIOFNO1D's 2 inner layers
+TRAIN_1D = {"nio": 6, "fno": 8, "unet": 6}
+# the 1-D layers at the suites' training batch of 32: the fpe1d heads, the FNO-branch
+# model's inner FNO1d over 32 x 100 snapshots, and the gpe1d heads
+TRAIN_HEADS_1D = (32, 30, 100, 15, True)
+TRAIN_BRANCH_1D = (3200, 4, 100, 12, True)
+TRAIN_GPE_HEADS_1D = (32, 20, 160, 40, True)
+# phase fit1d: the fpe1d NIO (an epoch and a resumed one) and the gpe1d UNet (an epoch)
+# through the CLI on synthetic archives in the datagen's format, 320 sets split 256/64
+# (8 steps of 32 an epoch) and 16 test sets each
+FIT_1D = dict(m=320, m_test=16, epochs=1)
 
 
 def kernel_wrappers():
@@ -288,16 +316,21 @@ def layer_bound(shape, epilogue):
 
 
 def layer_backward_bound(shape):
-    """Least time for one call of the 2-D layer's backward at (B, C, H, W, m1, m2), as
-    :func:`layer_bound` reckons the forward: its bytes (x, du and the weights read, dx
-    and the weight gradients written) over the memory rate, and its least operations
-    (x's and du's truncated transforms, dx's inverse, as FFTs; the two mode mixes; the
-    two pointwise products) over the f32 peak."""
-    b, c, h, w, m1, m2 = shape
-    k = 2 * m1
-    transform = 2 * b * c * h * fft_flops(w, True) + 2 * b * c * m2 * fft_flops(h, False)
-    least = 3 * transform + 2 * b * c * c * k * m2 * 8 + 2 * 2 * b * c * c * h * w
-    floats = 3 * b * c * h * w + 4 * c * c * k * m2 + 2 * (c * c + c)
+    """Least time for one call of the layer's backward at the 2-D shape (B, C, H, W, m1,
+    m2) or the 1-D shape (B, C, N, modes), as :func:`layer_bound` reckons the forward:
+    its bytes (x, du and the weights read, dx and the weight gradients written) over the
+    memory rate, and its least operations (x's and du's truncated transforms, dx's
+    inverse, as FFTs; the two mode mixes; the two pointwise products) over the f32
+    peak."""
+    if len(shape) == 4:
+        b, c, n, m = shape
+        transform, points, planes = 2 * b * c * fft_flops(n, True), b * c * n, c * c * m
+    else:
+        b, c, h, w, m1, m2 = shape
+        transform = 2 * b * c * h * fft_flops(w, True) + 2 * b * c * m2 * fft_flops(h, False)
+        points, planes = b * c * h * w, c * c * 2 * m1 * m2
+    least = 3 * transform + 2 * b * planes * 8 + 2 * 2 * c * points
+    floats = 3 * points + 4 * planes + 2 * (c * c + c)
     t_ops, t_bytes = least / PEAK_F32_FLOP_S, 4 * floats / PEAK_BYTES_S
     return dict(bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
@@ -401,6 +434,9 @@ def phase_kernels():
         check_and_time([(GPE_HEADS_1D, True, False)],
                        [layer_1d(True), layer_1d(False), spectral_1d], library, KERNEL_TOL_1D,
                        stats)
+        check_and_time([(TRAIN_HEADS_1D, True, False), (TRAIN_BRANCH_1D, True, False),
+                        (TRAIN_GPE_HEADS_1D, True, False)], [layer_1d(True), layer_1d(False)],
+                       library, KERNEL_TOL_1D, stats)
     return stats
 
 
@@ -1137,6 +1173,258 @@ def phase_train_fno(smi_line):
     return counts["fno2d_layer"]
 
 
+def fno1d_layer_calls(model):
+    """The FNO1d layer calls in one forward of ``model``: one per spectral layer of each
+    of its FNO1d modules (the heads, and NIOFNO1D's inner branch)."""
+    from blindno_torch.nn.fno import FNO1d
+
+    return sum(len(m.spectral) for m in model.modules() if isinstance(m, FNO1d))
+
+
+def masked_train_errors(label, card, cpu, tol, grads64):
+    """Relative L2 errors of a 1-D model's step on the card against the CPU's, as
+    :func:`train_errors` takes them, each within ``tol(key)``. Gradients exactly zero on
+    the CPU (the frozen fusion has none; the one-channel ConvNeXt blocks') stay exactly
+    zero on the card, and gradients zero but for rounding (a whole tensor below 1e-6 of
+    the largest gradient: the conv biases before a BatchNorm) stay below it on both
+    sides. After the step, a parameter is compared where its gradient is not within
+    rounding of zero (its entries from 1e-6 of the tensor's largest up): Adam's first
+    step moves the others by about lr with the rounding's sign, and the trunk's biases,
+    which start at zero, have such entries (a unit whose input keeps one sign over the
+    1-D grid, so that its bias only shifts what the BatchNorm after it centres).
+
+    A gradient beyond ``tol(key)`` but within ENCODER_TOL passes only where float32
+    itself is ill-conditioned there: ``grads64()`` gives the CPU's float64 gradients, and
+    the card's must lie no further from them than ``tol(key)`` or 1.5 times the CPU's
+    float32 gradient does (the NIO's trunk takes a one-dimensional grid: every unit of
+    its first layer is linear in x and the BatchNorms erase each unit of the second that
+    keeps one sign over the grid, so that its first layers' gradients are what survives a
+    cancellation). Returns the errors, the count of parameter entries left out after the
+    step and each such gradient's (card to CPU, card to float64, CPU to float64); raises
+    naming every tensor out of its tolerance."""
+    (loss, grads, state), (want_loss, want_grads, want_state) = card, cpu
+    zero = sorted(k for k, g in want_grads.items() if not g.any())
+    if any(grads[k].any() for k in zero):
+        raise RuntimeError(f"{label}: gradients exactly zero on the CPU ({zero}) are not all "
+                           "zero on the card")
+    top = max(float(g.abs().max()) for g in want_grads.values())
+    rounding = [k for k, g in want_grads.items() if k not in zero and g.abs().max() < 1e-6 * top]
+    worst = max((float(g.abs().max()) for k in rounding for g in (grads[k], want_grads[k])),
+                default=0.0)
+    if worst >= 1e-6 * top:
+        raise RuntimeError(f"{label}: a gradient within rounding of zero on the CPU "
+                           f"({rounding}) is {worst:.3g} on the card, want < 1e-6 x {top:.3g}")
+    errs, left_out = {"loss": abs(loss - want_loss) / abs(want_loss)}, 0
+    for k, g in want_grads.items():
+        if k in zero:
+            continue
+        if k in rounding:
+            errs[f"state {k}"] = rel_l2(state[k], want_state[k])
+            continue
+        kept = g.abs() >= 1e-6 * g.abs().max()
+        left_out += int((~kept).sum())
+        errs[k] = rel_l2(grads[k], g)
+        errs[f"state {k}"] = rel_l2(state[k][kept], want_state[k][kept])
+    errs.update({f"state {k}": rel_l2(state[k], want_state[k]) for k in want_state
+                 if k not in want_grads or k in zero})
+    bad = {k: e for k, e in errs.items() if not e <= tol(k)}
+    conditioned = {}
+    if bad and all(k in want_grads and e <= ENCODER_TOL for k, e in bad.items()):
+        g64 = grads64()
+        conditioned = {k: (e, rel_l2(grads[k], g64[k]), rel_l2(want_grads[k], g64[k]))
+                       for k, e in bad.items()}
+        bad = {k: e for k, (e, card64, cpu64) in conditioned.items()
+               if not card64 <= max(tol(k), 1.5 * cpu64)}
+    if bad:
+        raise RuntimeError(f"{label}: on the card, relative L2 from the CPU beyond its "
+                           f"tolerance: {bad} ((card to CPU, card to float64, CPU to "
+                           f"float64): {conditioned})")
+    return errs, left_out, conditioned
+
+
+def float64_grads(model, state, x, y, grid, draw):
+    """The gradients of one step's loss for ``model`` from ``state`` in float64 on the
+    CPU, the same draw and batch: the reference that tells float32's own rounding from a
+    fault."""
+    model = copy.deepcopy(model)
+    model.load_state_dict(state)
+    model.double().train()
+    out = model(x.cpu().double(), grid.cpu().double(), subsample=draw)
+    torch.mean((out - y.cpu().double()) ** 2).backward()
+    return {k: p.grad.float() for k, p in model.named_parameters() if p.grad is not None}
+
+
+def train1d_tol(model):
+    """The 1-D step's tolerance per entry of :func:`masked_train_errors`: the NIO's as
+    :func:`train_tol` (ENCODER_TOL in its Encoder1D), the UNet's as :func:`unet_tol`,
+    TRAIN_TOL everywhere in the FNO-branch NIO (no conv, no kink but gelu's)."""
+    return {"nio": train_tol, "unet": unet_tol}.get(model, lambda key: TRAIN_TOL)
+
+
+def adam_rewrites_weights_ab(shape, steps=8):
+    """A/B of the 1-D layer in training with its weights written right before each call:
+    ``steps`` steps of three layers (gelu between them) at ``shape`` (B, C, N, modes,
+    dc_half), Adam's kernels and then a ``torch.mul`` writing every weight, pk and pb
+    right before each forward layer call, through the kernel (A) and through the plain
+    layer (B) from the same start on the card. The kernel starts while the kernel
+    before it runs (programmatic dependent launch); a call that read its weights before
+    ``griddepcontrol.wait`` would train on stale ones. Returns the worst relative L2
+    between A's and B's parameters after the steps. A check against the plain version:
+    its launches do not count as the path's."""
+    from blindno_torch.ops.fno_layer import fno1d_layer_plain
+    from blindno_torch.ops.spectral_cuda import fno1d_layer_cuda
+
+    b, c, n, m, dc_half = shape
+    rng = np.random.default_rng(5)
+    t = lambda *sz, scale=1.0: torch.tensor((scale * rng.standard_normal(sz)).astype(np.float32),
+                                            device="cuda")
+    start = [(t(c, c, m, scale=0.1), t(c, c, m, scale=0.1), t(c, c, scale=c ** -0.5), t(c))
+             for _ in range(3)]
+    x, target = t(b, c, n), t(b, c, n)
+
+    def run(layer):
+        params = [[p.clone().requires_grad_() for p in lp] for lp in start]
+        opt = torch.optim.Adam([p for lp in params for p in lp], lr=1e-3)
+        losses = []
+        for _ in range(steps):
+            opt.zero_grad(set_to_none=True)
+            h = x
+            for i, lp in enumerate(params):
+                wr, wi, pk_t, pb = (torch.mul(p, 1.0) for p in lp)
+                h = layer(h, wr, wi, pk_t.t(), pb, dc_half, i < 2)
+            loss = torch.mean((h - target) ** 2)
+            loss.backward()
+            opt.step()
+            losses.append(loss.detach())
+        return torch.stack(losses).cpu(), [p.detach() for lp in params for p in lp]
+
+    counts, (losses, got) = counted(lambda: run(fno1d_layer_cuda))
+    expect_launches("train1d A/B", counts, fno1d_layer=3 * steps)
+    want_losses, want = run(fno1d_layer_plain)
+    worst = max(rel_l2(a, w) for a, w in zip(got, want))
+    loss_gap = float(((losses - want_losses).abs() / want_losses.abs()).max())
+    if not (worst <= 3e-4 and loss_gap <= 3e-4):
+        raise RuntimeError(f"train1d A/B: the kernel's run drifts from the plain layer's: "
+                           f"parameters {worst:.3g}, losses {loss_gap:.3g} (want <= 3e-4)")
+    return dict(shape=shape, steps=steps, worst_param_rel_l2=worst, worst_loss_rel=loss_gap,
+                tol=3e-4)
+
+
+def phase_train1d(smi_line):
+    """The 1-D training step (``train_step``) of the fpe1d suite's NIOFP1D, NIOFNO1D and
+    BlinDNO UNet (``blindno_torch.suites.registry``, full width, seeded weights, the
+    UNet's LayerNorms randomized) on the suite's batch of 32 sets of 100 snapshots of 80
+    points (numpy seed 0): one float32 step on the card against the same step on the
+    CPU, its ``fno1d_layer`` launches counted exactly (the layer's forward in
+    ``FNO1dLinear``; its backward is torch); twenty steps whose loss must fall; steps
+    per second (``bench_train --suite fpe1d``), the step's forward, backward and Adam by
+    CUDA events, the host's time to enqueue a step against the device's busy time, peak
+    memory. Then the A/B of weights written by Adam right before each layer call, and
+    the layer's torch backward at the heads' and branch's training shapes, from a graph
+    and eagerly, beside its bound. Returns its ``fno1d_layer`` launches."""
+    from blindno_torch.ops.fno_layer import fno1d_layer_backward_plain
+    from blindno_torch.tools import bench_train
+    from blindno_torch.train.step import make_optimizer, train_step
+
+    suite = "fpe1d"
+    l = bench_train.BATCHES_1D[suite]["l"]
+    x, y, grid = bench_train.bench_batch("cuda", suite)
+    launches = 0
+    for name, want_calls in TRAIN_1D.items():
+        rng = np.random.default_rng(5)
+        draw = (rng.integers(0, l, l), (np.arange(l) < rng.integers(50, l)).astype(np.float32))
+        cpu_model = bench_train.fresh_model("cpu", name, suite)
+        randomize_layernorms(cpu_model, np.random.default_rng(8))
+        initial = copy.deepcopy(cpu_model.state_dict())
+        calls = fno1d_layer_calls(cpu_model)
+        if calls != want_calls:
+            raise RuntimeError(f"train1d {name}: {calls} FNO1d layer calls a forward, "
+                               f"want {want_calls}")
+
+        # 1. one f32 step on the card, its launches counted, against the CPU plain path
+        model = copy.deepcopy(cpu_model).to("cuda")
+        torch.cuda.reset_peak_memory_stats()
+        counts, card = counted(lambda: one_step(model, x, y, grid, draw))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        expect_launches(f"1-D training step {name}", counts, fno1d_layer=calls)
+        launches += counts["fno1d_layer"]
+        t0 = time.perf_counter()
+        cpu = one_step(cpu_model, x.cpu(), y.cpu(), grid.cpu(), draw)
+        cpu_s = time.perf_counter() - t0
+        tol = train1d_tol(name)
+        errs, left_out, conditioned = masked_train_errors(
+            f"train1d {name}", card, cpu, tol,
+            lambda: float64_grads(cpu_model, initial, x, y, grid, draw))
+        loose = {k: e for k, e in errs.items() if tol(k) > TRAIN_TOL}
+        rest = {k: e for k, e in errs.items() if k not in loose}
+
+        # 2. twenty f32 steps on the one batch, a fresh draw each: the loss must fall
+        model.load_state_dict(initial)
+        opt = make_optimizer(model, 1e-3)
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        step = lambda: train_step(model, opt, x, y, grid, generator=gen)
+        losses = [float(step()) for _ in range(TRAIN_STEPS)]
+        if not losses[-1] < losses[0]:
+            raise RuntimeError(f"train1d {name}: loss did not fall over {TRAIN_STEPS} steps: "
+                               f"{losses}")
+
+        # 3. throughput in a fresh model, and the step's split: CUDA events around its
+        # forward, backward and Adam; the host's time to enqueue a step; the device's busy
+        # time in a step (the sum of its kernels in a profiler trace)
+        sps = bench_train.steps_per_sec(None, name, suite)
+        ev = lambda: torch.cuda.Event(enable_timing=True)
+        split = {k: 0.0 for k in ("forward_ms", "backward_ms", "optimizer_ms", "host_enqueue_ms")}
+        rounds = 5
+        for r in range(rounds + 1):
+            e = [ev() for _ in range(4)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            opt.zero_grad(set_to_none=True)
+            e[0].record()
+            out = model(x, grid, subsample=draw)
+            loss = torch.mean((out - y) ** 2)
+            e[1].record()
+            loss.backward()
+            e[2].record()
+            opt.step()
+            e[3].record()
+            host_ms = 1e3 * (time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            if r:  # round 0 warms up
+                split["host_enqueue_ms"] += host_ms / rounds
+                for k, j in zip(("forward_ms", "backward_ms", "optimizer_ms"), range(3)):
+                    split[k] += e[j].elapsed_time(e[j + 1]) / rounds
+        del out, loss
+        split["top_kernels_ms"] = top_kernels(step)  # "all": the device's busy time in a step
+        emit("train1d", suite=suite, model=name, cls=type(model).__name__,
+             batch=bench_train.BATCHES_1D[suite], launches=counts,
+             fno1d_layer_calls_per_forward=calls, loss_card=card[0], loss_cpu=cpu[0],
+             worst_rel_l2_encoder=max(loose.items(), key=lambda kv: kv[1], default=None),
+             worst_rel_l2_rest=max(rest.items(), key=lambda kv: kv[1]),
+             parameter_entries_left_out_after_the_step=left_out,
+             ill_conditioned_card_cpu_card64_cpu64=conditioned,
+             tol=f"relative L2: {TRAIN_TOL}, {ENCODER_TOL} for the conv encoders' gradients "
+             "and parameters; exact zeros stay exact", cpu_step_s=cpu_s,
+             losses_20_steps=[losses[0], losses[-1]], steps_per_sec_f32=sps, step_split=split,
+             peak_memory_gb_f32_step=peak_gb, nvidia_smi=smi_line)
+        del model, opt, cpu_model
+
+    # 4. the A/B of weights written right before each layer call, and the layer's torch
+    # backward at the training shapes
+    ab = adam_rewrites_weights_ab(TRAIN_HEADS_1D)
+    backward = {}
+    for label, shape in (("heads", TRAIN_HEADS_1D), ("branch", TRAIN_BRANCH_1D)):
+        lx, wr, wi, pk, _, dc_half = layer_inputs(shape, "cuda")
+        du = torch.randn_like(lx)
+        fn = lambda: fno1d_layer_backward_plain(lx, wr, wi, pk, du, dc_half)
+        eager_ms, host_ms = time_ms(fn, 20, host=True)
+        backward[label] = dict(shape=shape, graph_ms=graph_ms(fn, calls=5), eager_ms=eager_ms,
+                               host_ms=host_ms, bound=layer_backward_bound(shape[:4]))
+    emit("train1d", adam_rewrites_weights_ab=ab, fno1d_layer_backward=backward,
+         nvidia_smi=smi_line)
+    return launches
+
+
 def fpe2d_archive(m, l, n, rng):
     """A synthetic fpe2d archive in the JAX datagen's keys and raw magnitudes
     (trajectories (m, l, n, n) ~ 1e-10, potential ~ 1e-21 and drag ~ 1e-6 (m, n, n)): a
@@ -1218,17 +1506,20 @@ def cli_stage(workdir, suite, model, *argv):
     return counts, res, time.perf_counter() - t0, t0
 
 
-def eval_vs_cpu(workdir, spec, model):
+def eval_vs_cpu(workdir, spec, model, tta=False):
     """The first FIT["cpu_sets"] predictions of the eval stage against the CPU plain path
-    on the same ``best_*`` checkpoint, each field relative to its scale; and the CPU's
-    seconds."""
+    on the same ``best_*`` checkpoint, each field relative to its scale; with ``tta``,
+    also the symmetry-averaged predictions of those sets on the card against the CPU's
+    (normalized, each field relative to its scale). Returns the errors, the CPU's
+    seconds, the normalized test inputs and the checkpoint."""
     from blindno_torch.eval.field_eval import (cached_train_stats, denormalize_predictions,
-                                               predict_fields)
+                                               normalized_test_inputs, predict_fields,
+                                               predict_fields_tta)
     from blindno_torch.train import checkpoint
 
     stats = cached_train_stats(spec, workdir)
     with np.load(os.path.join(workdir, "data", spec.test_file)) as z:
-        inputs = stats.stats["traj"].normalize(z["trajectories"])
+        inputs = normalized_test_inputs(stats, z)
     k = FIT["cpu_sets"]
     best = checkpoint.load_best(os.path.join(workdir, "ckpt", f"{spec.name}_{model}"))
     cpu_model = spec.models[model](device="cpu")
@@ -1238,11 +1529,22 @@ def eval_vs_cpu(workdir, spec, model):
                                                                batch=k, device="cpu"))
     cpu_s = time.perf_counter() - t0
     got = np.load(os.path.join(workdir, "eval", f"{spec.name}_{model}", "predictions.npy"))[:k]
-    err = [check_close(f"fit: {model} eval predictions, field {f}, vs the CPU plain path",
-                       torch.tensor(got[..., f]), torch.tensor(want[..., f]), SERVE_TOL,
-                       float(np.abs(want[..., f]).max()))
-           / float(np.abs(want[..., f]).max()) for f in range(2)]
-    return err, cpu_s, inputs, best
+    pairs = {"plain": (got, want)}
+    if tta:
+        card_model = spec.models[model](device="cuda")
+        card_model.load_state_dict({**best["params"], **best["batch_stats"]})
+        kind = spec.train_cfg.augment
+        pairs["tta"] = tuple(predict_fields_tta(m, inputs[:k], spec.grid, kind, batch=k,
+                                                device=dev)
+                             for m, dev in ((card_model, "cuda"), (cpu_model, "cpu")))
+    err = {}
+    for label, (a, b) in pairs.items():
+        scales = [float(np.abs(b[..., f]).max()) for f in range(b.shape[-1])]
+        err[label] = [check_close(f"fit: {spec.name} {model} eval predictions ({label}), "
+                                  f"field {f}, vs the CPU plain path",
+                                  torch.tensor(a[..., f]), torch.tensor(b[..., f]), SERVE_TOL,
+                                  scales[f]) / scales[f] for f in range(b.shape[-1])]
+    return (err if tta else err["plain"]), cpu_s, inputs, best
 
 
 def eval_batch():
@@ -1255,13 +1557,15 @@ def eval_batch():
     return inspect.signature(evaluate_suite_model).parameters["batch"].default
 
 
-def fit_cli(w, spec, model, m, m_test, epochs, per_forward, smi_line):
+def fit_cli(w, spec, model, m, m_test, epochs, per_forward, smi_line, layer="fno2d_layer",
+            resumed=False, tta=False):
     """``model`` of the suite ``spec`` through the CLI on the archives in ``w`` (``m`` train
     and ``m_test`` test sets): ``epochs`` epochs of ``--stage train`` (no host
-    synchronization inside a step), then ``--stage eval`` with the symmetry average;
-    ``per_forward`` ``fno2d_layer`` launches a step and a forward, counted exactly;
-    losses finite, one ``best_*`` checkpoint, predictions against the CPU. Returns its
-    launches."""
+    synchronization inside a step), with ``resumed`` one more epoch by a second
+    ``--stage train`` that resumes, then ``--stage eval`` with the symmetry average;
+    ``per_forward`` launches of the kernel ``layer`` a step and a forward, counted
+    exactly; losses finite, one ``best_*`` checkpoint, predictions against the CPU (with
+    ``tta`` the averaged ones too). Returns its launches."""
     from blindno_torch.train import loop
 
     cfg = spec.train_cfg
@@ -1275,11 +1579,23 @@ def fit_cli(w, spec, model, m, m_test, epochs, per_forward, smi_line):
     with patched(loop, "train_step", sync_free(loop.train_step, syncs)):
         counts1, res, wall1, _ = cli_stage(w, spec.name, model, "--stage", "train",
                                            "--epochs", str(epochs))
-    expect_launches(f"{label} training", counts1,
-                    fno2d_layer=per_forward * (steps * epochs + eval_forwards))
-    losses = [v for h in res.history for v in (h["train_loss"], h["test_loss"], *h["field_rel_l2"])]
+        expect_launches(f"{label} training", counts1,
+                        **{layer: per_forward * (steps * epochs + eval_forwards)})
+        history, walls = list(res.history), [wall1]
+        if resumed:
+            counts_r, res_r, wall_r, _ = cli_stage(w, spec.name, model, "--stage", "train",
+                                                   "--epochs", str(epochs + 1))
+            expect_launches(f"{label} resumed epoch", counts_r,
+                            **{layer: per_forward * (steps + eval_forwards)})
+            if [h["epoch"] for h in res_r.history] != [epochs + 1] or not res_r.finished:
+                raise RuntimeError(f"{label}: the resumed run's history is {res_r.history}, "
+                                   f"want epoch {epochs + 1} only")
+            counts1 = {k: v + counts_r[k] for k, v in counts1.items()}
+            history += res_r.history
+            walls.append(wall_r)
+    losses = [v for h in history for v in (h["train_loss"], h["test_loss"], *h["field_rel_l2"])]
     if not (res.finished and losses and np.isfinite(losses).all()):
-        raise RuntimeError(f"{label}: unfinished or non-finite run: {res.history}")
+        raise RuntimeError(f"{label}: unfinished or non-finite run: {history}")
     bests = [f for f in os.listdir(os.path.join(w, "ckpt", f"{spec.name}_{model}"))
              if f.startswith("best_")]
     if len(bests) != 1:
@@ -1290,20 +1606,20 @@ def fit_cli(w, spec, model, m, m_test, epochs, per_forward, smi_line):
     counts2, report, wall2, _ = cli_stage(w, spec.name, model, "--stage", "eval")
     group = len(loop.make_augment(cfg.augment))
     expect_launches(f"{label} eval", counts2,
-                    fno2d_layer=per_forward * test_forwards * (1 + group))
+                    **{layer: per_forward * test_forwards * (1 + group)})
     numbers = [report["mean_rel_l2_sum"], report["mean_rel_l2_sum_tta"]]
     if report["n_test"] != m_test or not np.isfinite(numbers).all():
         raise RuntimeError(f"{label}: eval report {report}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    err, cpu_s, _, _ = eval_vs_cpu(w, spec, model)
-    emit("fit", suite=spec.name, model=model, epochs=epochs, steps_per_epoch=steps,
+    err, cpu_s, _, _ = eval_vs_cpu(w, spec, model, tta)
+    emit("fit", suite=spec.name, model=model, epochs=epochs + resumed, steps_per_epoch=steps,
          batch=cfg.batch_size, augment=cfg.augment,
-         launches={"train": counts1, "eval": counts2}, history=res.history,
+         launches={"train": counts1, "eval": counts2}, history=history,
          host_syncs_in_steps=len(syncs), report=report, max_rel_err_vs_cpu=err,
          tol=f"rtol {SERVE_TOL}, atol {SERVE_TOL} x each field's scale", cpu_reference_s=cpu_s,
-         loop_steps_per_sec=[h["steps_per_sec"] for h in res.history],
-         stage_wall_s=[wall1, wall2], peak_memory_gb=peak_gb, nvidia_smi=smi_line)
-    return counts1["fno2d_layer"] + counts2["fno2d_layer"]
+         loop_steps_per_sec=[h["steps_per_sec"] for h in history],
+         stage_wall_s=[*walls, wall2], peak_memory_gb=peak_gb, nvidia_smi=smi_line)
+    return counts1[layer] + counts2[layer]
 
 
 def phase_fit(smi_line):
@@ -1490,6 +1806,59 @@ def fit_ncfpe2d(build, smi_line):
                    for model, per_forward in (("fno", 8), ("unet", 6)))
 
 
+def fpe1d_archive(m, l, n, rng):
+    """A synthetic fpe1d archive in the JAX datagen's keys and raw magnitudes
+    (``blindno/data/generate.py:60-120``: trajectories (m, l, n) ~ 1e-2, potential (m, n)
+    ~ 1e-20, drag (m,) ~ 1e-9): a Gaussian well per set, snapshots that sharpen towards
+    it, plus noise."""
+    x = np.linspace(-1, 1, n)
+    well = np.exp(-(x - rng.uniform(-0.5, 0.5, (m, 1))) ** 2 / 0.1).astype(np.float32)
+    t = rng.uniform(0.2, 1.0, (m, l, 1)).astype(np.float32)
+    traj = well[:, None] ** t + 0.05 * rng.random((m, l, n), dtype=np.float32)
+    return {"trajectories": traj * np.float32(1e-2), "potential": -well * np.float32(3e-20),
+            "drag": rng.uniform(0.5, 2.0, m).astype(np.float32) * np.float32(1e-9)}
+
+
+def gpe1d_archive(m, l, n, rng):
+    """A synthetic gpe1d archive in the JAX datagen's keys (``blindno/data/generate.py:
+    272-320``: |psi| snapshots y (m, l, n), the potential V (m, n), g and kappa (m,) at
+    2): a harmonic well about a random centre per set, snapshots of a Gaussian moving in
+    it."""
+    x = np.linspace(-10, 10, n)
+    x0 = rng.uniform(-3, 3, (m, 1))
+    v = rng.uniform(0.1, 0.3, (m, 1)) * (x - x0) ** 2
+    y = np.exp(-(x - x0[:, None] - 2 * np.sin(rng.uniform(0, 6, (m, l, 1)))) ** 2 / 4)
+    return {"y": y.astype(np.float32), "V": v.astype(np.float32), "g": np.full(m, 2.0),
+            "kappa": np.full(m, 2.0)}
+
+
+def phase_fit1d(smi_line):
+    """The 1-D suites through the CLI at their own configs (batch 32, lr 1e-3, the parity
+    flip) on synthetic archives: the fpe1d NIO for an epoch and a resumed one, the gpe1d
+    UNet for an epoch, each then the eval stage with and without the flip average;
+    launches counted exactly, no host synchronization in a step, predictions against the
+    CPU. Returns their ``fno1d_layer`` launches."""
+    from blindno_torch.suites import registry
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "blindno_torch", "_build")
+    os.makedirs(build, exist_ok=True)
+    launches = 0
+    for suite, model, make, (l, n), resumed in (
+            ("fpe1d", "nio", fpe1d_archive, (100, 80), True),
+            ("gpe1d", "unet", gpe1d_archive, (101, 128), False)):
+        spec = registry.SUITES[suite]
+        with tempfile.TemporaryDirectory(dir=build) as w:
+            os.makedirs(os.path.join(w, "data"))
+            rng = np.random.default_rng(0)
+            np.savez(os.path.join(w, "data", spec.train_file), **make(FIT_1D["m"], l, n, rng))
+            np.savez(os.path.join(w, "data", spec.test_file), **make(FIT_1D["m_test"], l, n, rng))
+            per_forward = fno1d_layer_calls(spec.models[model](device="cpu"))
+            launches += fit_cli(w, spec, model, FIT_1D["m"], FIT_1D["m_test"], FIT_1D["epochs"],
+                                per_forward, smi_line, layer="fno1d_layer", resumed=resumed,
+                                tta=True)
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1523,6 +1892,8 @@ def main():
     launches["fno2d_layer"] += phase_train_unet(smi_line)
     launches["fno2d_layer"] += phase_train_fno(smi_line)
     launches["fno2d_layer"] += phase_fit(smi_line)
+    launches["fno1d_layer"] += phase_train1d(smi_line)
+    launches["fno1d_layer"] += phase_fit1d(smi_line)
 
     csrc, replaces = "blindno_torch/csrc", "blindno/ops/spectral_pallas.py"
     kernels = [

@@ -140,24 +140,6 @@ def test_test_targets_and_denormalization_equal_jax(suite):
                                    atol=1e-5 * np.abs(raw[..., f]).max())
 
 
-def test_targets_of_the_1d_suites_still_raise():
-    """The 1-D suites' statistics (fpe1d's scalar drag, the GPE suites' ``max``) come with
-    the 1-D suites, ``ROADMAP.md`` A.7."""
-    import blindno_torch.eval.field_eval as tfe
-
-    rng = np.random.default_rng(4)
-    fpe1d = jd.load_fpe1d({"trajectories": rng.random((6, 5, 8)).astype(np.float32) * 1e-5,
-                           "potential": rng.random((6, 8)).astype(np.float32) * 1e-20,
-                           "drag": rng.random(6).astype(np.float32) * 1e-5}).stats
-    gpe = {"max": jd.MaxStats(1.0, 2.0, 3.0, 4.0)}
-    for stats in (fpe1d, gpe):
-        ts = tfe.TrainStats(stats, 1)
-        for fn, arg in ((tfe._normalized_test_targets, {}),
-                        (tfe.denormalize_predictions, np.zeros((2, 8, 2), np.float32))):
-            with pytest.raises(ValueError, match="A.7"):
-                fn(None, ts, arg)
-
-
 def test_sidecar_round_trips_ncfpe2d_stats(tmp_path):
     """``cached_train_stats`` writes the ncfpe2d statistics (``F`` with its (1, 2, n, n)
     mean and std) to the sidecar, the JAX package's file byte for byte in its arrays,

@@ -9,7 +9,7 @@ import torch
 
 from blindno_torch.ops.fno_layer import fno1d_layer_plain, fno2d_layer_plain
 from blindno_torch.ops.spectral import spectral_conv1d, spectral_conv2d
-from blindno_torch.ops.spectral_cuda import (fno1d_layer_cuda, fno2d_layer_cuda,
+from blindno_torch.ops.spectral_cuda import (FNO1dLinear, fno1d_layer_cuda, fno2d_layer_cuda,
                                              spectral_conv1d_cuda, spectral_conv2d_cuda)
 
 pytestmark = pytest.mark.cuda
@@ -31,6 +31,10 @@ SHAPES_1D = [(16, 30, 100, 15, True), (1600, 4, 100, 12, True), (8, 25, 160, 32,
              (3, 5, 37, 7, False), (16, 20, 160, 40, True), (4, 6, 64, 33, True),
              (1, 6, 50, 9, True, 11), (2, 8, 4096, 64, False), (2, 1, 2000, 1001, False)]
 TOL_1D = 2e-4  # the 1-D Pallas kernels' tolerance, tests/test_spectral_pallas.py
+# 1-D training shapes at the suites' batch of 32: the fpe1d heads, the FNO-branch model's
+# inner FNO1d over 32 x 100 snapshots, and the gpe1d heads
+TRAIN_SHAPES_1D = [(32, 30, 100, 15, True), (3200, 4, 100, 12, True), (32, 20, 160, 40, True)]
+GRAD_RTOL, GRAD_ATOL = 5e-4, 5e-5  # tests/test_fno_layer_fused.py:49,64
 
 
 @pytest.fixture
@@ -270,9 +274,9 @@ def test_1d_layer_reads_weights_written_just_before_each_call(cuda_device):
 
 def _train_loop(layer, params, x, target, steps, graph=False):
     """``steps`` steps of forward, backward and ``Adam.step()`` through a chain of three
-    FNO2d layers (gelu between them) whose weights, pk and pb a device kernel writes
-    (``torch.mul``) right before each layer call, pk as the transposed view ``FNO2d``
-    passes. With ``graph``, three eager warm-up steps on a side stream, then the rest
+    FNO layers (gelu between them) whose weights, pk and pb a device kernel writes
+    (``torch.mul``) right before each layer call, pk as the transposed view ``FNO1d``
+    and ``FNO2d`` pass. With ``graph``, three eager warm-up steps on a side stream, then the rest
     replayed from one captured CUDA graph. Returns the losses of the eager steps and
     the parameters after the last step."""
     params = [[p.clone().requires_grad_() for p in layer_params] for layer_params in params]
@@ -358,3 +362,65 @@ def test_2d_layer_backward_on_the_card_matches_its_cpu_run(cuda_device):
         assert fno2d_layer_cuda.launches == before + 1
         for name, a, want in zip(("dx", "dwr", "dwi", "dpk", "dpb"), got, grads("cpu")):
             torch.testing.assert_close(a, want, rtol=5e-4, atol=5e-5, msg=name)
+
+
+@pytest.mark.parametrize("shape", TRAIN_SHAPES_1D)
+def test_fno1d_linear_on_the_card_matches_plain(cuda_device, shape):
+    """``FNO1dLinear`` at the 1-D training shapes: its forward (the kernel with the
+    epilogue off) against the plain layer without gelu at the kernel's tolerance, and its
+    ``dx, dwr, dwi, dpk, dpb`` (through the transposed pk view ``FNO1d`` passes, gelu
+    after it) against the same call on the CPU at the CPU test's gradient tolerance.
+    Weights scaled by 0.1, and the loss ``sum(out * g)``."""
+    b, c, n, modes, dc_half = shape
+    rng = np.random.default_rng(7)
+    r = lambda *s, scale=1.0: (scale * rng.standard_normal(s)).astype(np.float32)
+    args = (r(b, c, n), r(c, c, modes, scale=0.1), r(c, c, modes, scale=0.1),
+            r(c, c, scale=c ** -0.5), r(c))
+    g = r(b, c, n)
+    x, wr, wi, pk_t, pb = (torch.tensor(a, device=cuda_device) for a in args)
+    before = fno1d_layer_cuda.launches
+    with torch.no_grad():
+        got = FNO1dLinear.apply(x, wr, wi, pk_t.t(), pb, dc_half)
+        want = fno1d_layer_plain(x, wr, wi, pk_t.t(), pb, dc_half, False)
+    assert fno1d_layer_cuda.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=TOL_1D, atol=TOL_1D)
+
+    def grads(device):
+        ts = [torch.tensor(a, device=device, requires_grad=True) for a in args]
+        xx, wr_, wi_, pk_, pb_ = ts
+        out = fno1d_layer_cuda(xx, wr_, wi_, pk_.t(), pb_, dc_half, True)
+        torch.sum(out * torch.tensor(g, device=device)).backward()
+        return [t.grad.cpu() for t in ts]
+
+    before = fno1d_layer_cuda.launches
+    got = grads(cuda_device)
+    assert fno1d_layer_cuda.launches == before + 1
+    for name, a, w in zip(("dx", "dwr", "dwi", "dpk", "dpb"), got, grads("cpu")):
+        torch.testing.assert_close(a, w, rtol=GRAD_RTOL, atol=GRAD_ATOL, msg=name)
+
+
+def test_1d_layer_trains_with_weights_written_just_before_each_call(cuda_device):
+    """The 1-D layer in training (``FNO1dLinear``): Adam's kernels and then a
+    ``torch.mul`` write every weight right before each forward layer call, and each call
+    may start while the kernel before it still runs (programmatic dependent launch), so
+    a call that read its weights before waiting would train on stale ones. Eight steps
+    of three layers at the fpe1d heads' training shape, eagerly and replayed from a CUDA
+    graph, against eight steps of the plain layer from the same start."""
+    b, c, n, modes, dc_half = TRAIN_SHAPES_1D[0]
+    rng = np.random.default_rng(5)
+    t = lambda *s, scale=1.0: torch.tensor((scale * rng.standard_normal(s)).astype(np.float32),
+                                           device=cuda_device)
+    params = [(t(c, c, modes, scale=0.1), t(c, c, modes, scale=0.1), t(c, c, scale=c ** -0.5),
+               t(c)) for _ in range(3)]
+    x, target = t(b, c, n), t(b, c, n)
+    layer = lambda fn: lambda h, wr, wi, pk, pb, act: fn(h, wr, wi, pk, pb, dc_half, act)
+    want_losses, want = _train_loop(layer(fno1d_layer_plain), params, x, target, 8)
+    before = fno1d_layer_cuda.launches
+    losses, got = _train_loop(layer(fno1d_layer_cuda), params, x, target, 8)
+    assert fno1d_layer_cuda.launches == before + 8 * 3
+    np.testing.assert_allclose(losses, want_losses, rtol=3e-4)
+    _, got_graph = _train_loop(layer(fno1d_layer_cuda), params, x, target, 8, graph=True)
+    rel = lambda a, b: float((a - b).norm() / b.norm())
+    for a, g_, p in zip((p for lp in got for p in lp), (p for lp in got_graph for p in lp),
+                        (p for lp in want for p in lp)):
+        assert rel(a, p) <= 3e-4 and rel(g_, p) <= 3e-4, (rel(a, p), rel(g_, p))

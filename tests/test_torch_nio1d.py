@@ -186,12 +186,34 @@ def test_from_flax_raises_on_missing_or_extra_1d_keys(fault):
 
 
 @pytest.mark.parametrize("name", sorted(SMALL))
-def test_training_forward_raises(name):
+def test_train_mode_subsamples(name):
+    """In train mode the forward gathers the set by the subsample's indices and masks
+    the fusion's mean: handing it (indices, mask) equals handing it the gathered set with
+    the identity indices; a generator's draw is the same for the same seed and another
+    for another seed; with no BatchNorm (``NIOFNO1D``) the masked-out snapshots do not
+    enter at all, and the output is the eval-mode forward of the kept ones. Every
+    trainable parameter gets a finite gradient and the frozen fusion none."""
     _, cls, cfg = SMALL[name]
-    model = cls(**cfg, device="cpu")
-    x, grid = torch.zeros(1, 2, N), torch.tensor(_grid())
-    with torch.inference_mode(), pytest.raises(NotImplementedError, match="training slice"):
-        model(x, grid, training=True)
-    model.train()
-    with torch.inference_mode(), pytest.raises(NotImplementedError, match="eval mode only"):
-        model(x, grid)
+    model = cls(**cfg, l_min=2, device="cpu").train()
+    rng = np.random.default_rng(1)
+    x = torch.tensor((rng.standard_normal((2, 1, N)) + rng.standard_normal((2, 6, N)))
+                     .astype(np.float32))
+    grid = torch.tensor(_grid())
+    idx, mask = torch.tensor([5, 0, 0, 3, 1, 2]), torch.tensor([1, 1, 1, 0, 0, 0.0])
+    out = model(x, grid, subsample=(idx, mask))
+    torch.testing.assert_close(out, model(x[:, idx], grid, subsample=(torch.arange(6), mask)),
+                               rtol=0, atol=0)
+    drawn = [model(x, grid, generator=torch.Generator().manual_seed(s)) for s in (0, 0, 1)]
+    torch.testing.assert_close(drawn[0], drawn[1], rtol=0, atol=0)
+    assert not torch.allclose(drawn[0], drawn[2]) and not torch.allclose(out, drawn[0])
+    if name == "fno":
+        with torch.no_grad():
+            want = model.eval()(x[:, idx[:3]], grid)
+        model.train()
+        torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-6)
+    (out ** 2).mean().backward()
+    for key, p in model.named_parameters():
+        if key.startswith("fusion."):
+            assert not p.requires_grad and p.grad is None, key
+        else:
+            assert p.grad is not None and torch.isfinite(p.grad).all(), key

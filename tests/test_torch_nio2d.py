@@ -127,7 +127,8 @@ def test_masked_mean_and_fusion_match_jax():
 
 def test_training_forward_raises():
     """NIOFP2D trains: in train mode every trainable parameter gets a finite gradient and
-    the frozen fusion none. The 1-D models still refuse train mode until 1-D training."""
+    the frozen fusion none. So does the 1-D NIOFP1D, which refused train mode until 1-D
+    training came."""
     from blindno_torch.models.nio1d import NIOFP1D
 
     model = NIOFP2D(width=4, modes=4, n_basis=3, neurons=8, fno_layers=1, l_min=2,
@@ -140,6 +141,9 @@ def test_training_forward_raises():
             assert not p.requires_grad and p.grad is None, name
         else:
             assert p.grad is not None and torch.isfinite(p.grad).all(), name
-    model_1d = NIOFP1D(width=4, modes=4, fno_layers=1, device="cpu").train()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        model_1d(torch.zeros(1, 2, 80), torch.zeros(80, 1))
+    model_1d = NIOFP1D(width=4, modes=4, fno_layers=1, l_min=2, device="cpu").train()
+    x_1d = torch.tensor(np.random.default_rng(1).standard_normal((2, 3, 80)).astype(np.float32))
+    grid_1d = torch.linspace(0, 1, 80).reshape(80, 1)
+    (model_1d(x_1d, grid_1d, generator=torch.Generator().manual_seed(0)) ** 2).mean().backward()
+    assert all(p.grad is not None and torch.isfinite(p.grad).all()
+               for k, p in model_1d.named_parameters() if not k.startswith("fusion."))

@@ -1,6 +1,6 @@
 """Package rules of the port: no JAX imports, the device rule, wrappers that take the plain
-path only for CPU tensors (forward only but for the FNO2d layer), and a converter that
-refuses partial trees."""
+path only for CPU tensors (forward only but for the FNO1d and FNO2d layers), and a
+converter that refuses partial trees."""
 import ast
 import pathlib
 
@@ -126,11 +126,14 @@ def test_1d_wrappers_take_the_plain_path_on_cpu():
 
 
 def test_1d_wrappers_raise_under_autograd():
+    """``spectral_conv1d_cuda`` stays forward only, as in JAX; ``fno1d_layer_cuda``
+    gives gradients under autograd (held against JAX in ``test_torch_train1d.py``)."""
     x, wr, wi, pk, pb = _layer_inputs_1d(requires_grad=True)
     with pytest.raises(RuntimeError, match="forward only"):
-        fno1d_layer_cuda(x, wr, wi, pk, pb)
-    with pytest.raises(RuntimeError, match="forward only"):
         spectral_conv1d_cuda(x, wr, wi)
+    fno1d_layer_cuda(x, wr, wi, pk, pb).sum().backward()
+    for t in (x, wr, wi, pk, pb):
+        assert t.grad is not None and t.grad.shape == t.shape and torch.isfinite(t.grad).all()
     with torch.no_grad():
         assert fno1d_layer_cuda(x, wr, wi, pk, pb).shape == (2, 4, 20)
 

@@ -176,11 +176,12 @@ def _assert_eval_matches_jax(report, jreport, w, jw, suite, model, n_test):
         np.testing.assert_allclose(report[k], jreport[k], rtol=EVAL_TOL, err_msg=k)
     # the TTA column is its own number, not the single pass again
     assert report["mean_rel_l2_sum_tta"] != report["mean_rel_l2_sum"]
-    (head, rows), (jhead, jrows) = (_read_csv(os.path.join(d, "metrics.csv")) for d in (out, jout))
-    assert head == jhead and rows.shape == jrows.shape == (n_test, 4)
-    np.testing.assert_allclose(rows, jrows, rtol=EVAL_TOL, atol=2e-6)
     preds, jpreds = (np.load(os.path.join(d, "predictions.npy")) for d in (out, jout))
-    for f in range(2):  # each field in its own physical units
+    assert preds.shape == jpreds.shape and preds.shape[0] == n_test
+    (head, rows), (jhead, jrows) = (_read_csv(os.path.join(d, "metrics.csv")) for d in (out, jout))
+    assert head == jhead and rows.shape == jrows.shape == (n_test, preds.shape[-1] + 2)
+    np.testing.assert_allclose(rows, jrows, rtol=EVAL_TOL, atol=2e-6)
+    for f in range(preds.shape[-1]):  # each field in its own physical units
         scale = np.abs(jpreds[..., f]).max()
         np.testing.assert_allclose(preds[..., f], jpreds[..., f], rtol=EVAL_TOL,
                                    atol=EVAL_TOL * scale, err_msg=f"field {f}")

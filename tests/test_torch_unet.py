@@ -325,13 +325,17 @@ def test_unet_f32_train_step_matches_jax(monkeypatch):
 
 
 def test_unet_train_mode_limits():
-    """The 1-D UNet refuses train mode until 1-D training lands; bfloat16 compute is
-    refused on the UNet, whose JAX AMP policies cast no leaf."""
-    model_1d = PermInvUNetAttn(input_size=(80,), depth=2, **SMALL, device="cpu").train()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        model_1d(torch.zeros(1, 2, 80), None)
+    """The 1-D UNet trains (it refused train mode until 1-D training came; its step is
+    held to JAX in ``test_torch_train1d.py``); bfloat16 compute is refused on the UNet,
+    in 1-D and 2-D, whose JAX AMP policies cast no leaf."""
+    model_1d = PermInvUNetAttn(input_size=(80,), depth=2, **SMALL, subsample=True, l_min=2,
+                               device="cpu").train()
+    args_1d = (torch.randn(1, 3, 80), torch.zeros(1, 80, 2), torch.zeros(80, 1))
+    loss = train_step(model_1d, make_optimizer(model_1d), *args_1d, generator=torch.Generator())
+    assert torch.isfinite(loss)
     model = PermInvUNetAttn(**dict(STEP_CFG, depth=1), device="cpu").train()
     args = (torch.zeros(1, 3, 29, 29), torch.zeros(1, 29, 29, 2), torch.zeros(29, 29, 2))
-    with pytest.raises(ValueError, match="compute_dtype"):
-        train_step(model, make_optimizer(model), *args, generator=torch.Generator(),
-                   compute_dtype="bfloat16")
+    for m, a in ((model, args), (model_1d, args_1d)):
+        with pytest.raises(ValueError, match="compute_dtype"):
+            train_step(m, make_optimizer(m), *a, generator=torch.Generator(),
+                       compute_dtype="bfloat16")
