@@ -1,7 +1,8 @@
 """blindno_torch: the PyTorch + CUDA port of ``blindno`` for NVIDIA Hopper (H100).
 
-Layout mirrors ``blindno/`` (``ops``, ``nn``, ``models``, ``eval``, ``utils``) so each
-module's counterpart is found by name. Public functions keep the JAX package's layouts
+Layout mirrors ``blindno/`` (``ops``, ``nn``, ``models``, ``solvers``, ``data``,
+``train``, ``eval``, ``suites``, ``utils``) so each module's counterpart is found by
+name. Public functions keep the JAX package's layouts
 (snapshot sets (B, L, N) or (B, L, H, W), grids (N, 1) or (H, W, 2), outputs
 (B, N, F) or (B, H, W, 2), channel-first FNO interiors (B, C, N) or (B, C, H, W)), so
 the parity tests compare like with like.

@@ -3,7 +3,8 @@
 ``from_flax(params, batch_stats)`` takes the nested dicts of numpy arrays that the JAX
 package's checkpoints hold and returns the state dict of
 :class:`blindno_torch.models.nio2d.NIOFP2D` (and ``NIOAttn2D``, whose tree is the same),
-``NIOFNO2D``, ``NIOFNOAttn2D``, :class:`blindno_torch.models.nio1d.NIOFP1D`,
+``NIOFNO2D``, ``NIOFNOAttn2D``, ``NIOTrans2D`` (and ``NIOTransAttn2D``),
+:class:`blindno_torch.models.nio1d.NIOFP1D`,
 :class:`blindno_torch.models.nio1d.NIOFNO1D` or
 :class:`blindno_torch.models.blindno_unet.PermInvUNetAttn`:
 
@@ -14,14 +15,16 @@ package's checkpoints hold and returns the state dict of
 - LayerNorm scale/bias become weight/bias as they stand (the port's set attention
   flattens its tokens in JAX's order);
 - dense kernels (also the 1x1 ``PointwiseConv`` and either fusion map) from (in, out)
-  to (out, in);
+  to (out, in), with their bias (the slice attention's q, k and v have none);
 - BatchNorm scale/bias/mean/var become weight/bias/running_mean/running_var;
 - spectral ``weights_re`` / ``weights_im`` stay (Cin, Cout, modes) or
   (Cin, Cout, 2*m1, m2) planes;
+- the Transolver NIOs' ``Transolver_0`` becomes ``trans``, with its ``temperature``
+  and ``placeholder`` parameters as they stand;
 - ``FNO1d_k`` / ``FNO2d_k`` become ``heads.k``, except in the FNO-branch models, whose
-  tree has a fusion map (``MeanFieldFusion_0`` or ``TokenMeanFusion_0``) but no
-  DeepONet: there ``FNO1d_0`` / ``FNO2d_0`` is the ``branch`` and ``FNO*d_k`` becomes
-  ``heads.{k-1}``.
+  tree has a fusion map (``MeanFieldFusion_0`` or ``TokenMeanFusion_0``) but neither a
+  DeepONet nor a Transolver: there ``FNO1d_0`` / ``FNO2d_0`` is the ``branch`` and
+  ``FNO*d_k`` becomes ``heads.{k-1}``.
 
 Every flax leaf must map to one torch key and every torch module must receive all of
 its tensors: a left-over or missing key raises ``KeyError``. A tree with no statistics at
@@ -60,6 +63,21 @@ _RULES = [
     (r"TemporalSelfAttention_(\d+)/LayerNorm_0", "attention.{0}.norm", "ln"),
     (r"TorchConvTranspose_(\d+)/ConvTranspose_0", "transposes.{0}", "conv_transpose"),
     (r"TorchBatchNorm_(\d+)/BatchNorm_0", "skip_norms.{0}", "bn"),
+    # the Transolver NIOs: each Transolver module keeps flax's Dense_k, LayerNorm_k and
+    # TorchConv_k as entry k of a list (blindno_torch/nn/transolver.py)
+    (r"Transolver_0", "trans", "placeholder"),
+    (r"Transolver_0/TransolverMLP_0/Dense_(\d+)", "trans.preprocess.layers.{0}", "dense"),
+    (r"Transolver_0/Dense_(\d+)", "trans.time_fc.{0}", "dense"),
+    (r"Transolver_0/TransolverBlock_(\d+)/PhysicsAttention_0", "trans.blocks.{0}.attn",
+     "temperature"),
+    (r"Transolver_0/TransolverBlock_(\d+)/PhysicsAttention_0/TorchConv_(\d+)/Conv_0",
+     "trans.blocks.{0}.attn.convs.{1}", "conv"),
+    (r"Transolver_0/TransolverBlock_(\d+)/PhysicsAttention_0/Dense_(\d+)",
+     "trans.blocks.{0}.attn.dense.{1}", "attention_dense"),
+    (r"Transolver_0/TransolverBlock_(\d+)/LayerNorm_(\d+)", "trans.blocks.{0}.norms.{1}", "ln"),
+    (r"Transolver_0/TransolverBlock_(\d+)/TransolverMLP_0/Dense_(\d+)",
+     "trans.blocks.{0}.mlp.layers.{1}", "dense"),
+    (r"Transolver_0/TransolverBlock_(\d+)/Dense_0", "trans.blocks.{0}.out", "dense"),
 ]
 
 # kind -> {flax leaf (in params, or in batch_stats for "stats:"): (torch name, transform)}
@@ -71,11 +89,15 @@ _KINDS = {
             a, tuple(range(a.ndim - 2))).transpose(a.ndim - 2, a.ndim - 1, *range(a.ndim - 2)))),
         "bias": ("bias", None)},
     "dense": {"kernel": ("weight", lambda a: a.T), "bias": ("bias", None)},
+    # the slice attention's Dense_k: q, k and v have no bias, the others have one
+    "attention_dense": {"kernel": ("weight", lambda a: a.T), "bias?": ("bias", None)},
     "ln": {"scale": ("weight", None), "bias": ("bias", None)},
     "bn": {"scale": ("weight", None), "bias": ("bias", None),
            "stats:mean": ("running_mean", None), "stats:var": ("running_var", None)},
     "spectral": {"weights_re": ("weights_re", None), "weights_im": ("weights_im", None)},
     "scalar": {"b0": ("b0", None)},
+    "temperature": {"temperature": ("temperature", None)},
+    "placeholder": {"placeholder": ("placeholder", None)},
 }
 
 
@@ -117,6 +139,9 @@ def from_flax(params, batch_stats) -> dict:
         table = _KINDS[kind]
         if batch_stats is None:
             table = {k: v for k, v in table.items() if not k.startswith("stats:")}
+        # a leaf marked "?" (an attention Dense's bias) is there or not, as the module has it
+        table = {k.rstrip("?"): v for k, v in table.items()
+                 if not k.endswith("?") or k.rstrip("?") in leaves}
         missing, extra = table.keys() - leaves.keys(), leaves.keys() - table.keys()
         if missing or extra:
             raise KeyError(f"flax module {module_path!r}: missing {sorted(missing)}, "
@@ -127,6 +152,6 @@ def from_flax(params, batch_stats) -> dict:
         if kind == "bn" and batch_stats is not None:
             state[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
     if ({"MeanFieldFusion_0", "TokenMeanFusion_0"} & params.keys()
-            and "DeepOnetNoBias_0" not in params):
+            and not {"DeepOnetNoBias_0", "Transolver_0"} & params.keys()):
         state = {_fno_branch_names(k): v for k, v in state.items()}
     return state

@@ -1,6 +1,6 @@
 """The 2-D NIO models (counterpart of ``blindno/models/nio2d.py``): the DeepONet NIO
-``NIOFP2D``, the FNO-branch ``NIOFNO2D``, and their token-attention variants
-``NIOAttn2D`` and ``NIOFNOAttn2D``.
+``NIOFP2D``, the FNO-branch ``NIOFNO2D``, the Transolver NIO ``NIOTrans2D``, and their
+token-attention variants ``NIOAttn2D``, ``NIOFNOAttn2D`` and ``NIOTransAttn2D``.
 
 Input x (B, L, Nx, Ny) and grid (Nx, Ny, 2); output (B, Nx, Ny, 2). Every model draws
 its weights from ``generator`` on the CPU, moves to ``device`` (CUDA unless the caller
@@ -22,6 +22,7 @@ from blindno_torch.nn.deeponet import FFN, DeepOnetNoBias
 from blindno_torch.nn.fno import FNO2d
 from blindno_torch.nn.setops import (MeanFieldFusion, TokenMeanFusion, set_self_attention,
                                      train_subsample)
+from blindno_torch.nn.transolver import Transolver
 
 
 def _fno_heads(modes, width, layers, g):
@@ -140,3 +141,50 @@ class NIOFNOAttn2D(NIOFNO2D):
         x, mask = train_subsample(self, x, generator, subsample)
         z, _ = _token_attention_tokens(self.fields(x, grid), grid, mask)
         return _heads(self.heads, self.fusion(z, mask))
+
+
+class NIOTrans2D(nn.Module):
+    """Transolver NIO (``blindno/models/nio2d.py:93-115``): a structured-mesh
+    :class:`~blindno_torch.nn.transolver.Transolver` (``trans``) shared by all snapshots
+    turns each snapshot's (value, grid x, grid y) tokens into a field, then the
+    mean-field fusion and the two FNO2d heads as in :class:`NIOFP2D`."""
+
+    def __init__(self, fno_layers: int = 3, width: int = 12, modes: int = 32,
+                 trans_layers: int = 3, trans_hidden: int = 32, trans_heads: int = 4,
+                 slice_num: int = 16, l_min: int = 50, generator: torch.Generator | None = None,
+                 device=None):
+        super().__init__()
+        g = torch.Generator().manual_seed(0) if generator is None else generator
+        self.l_min = l_min
+        self.trans = Transolver(space_dim=2, n_layers=trans_layers, n_hidden=trans_hidden,
+                                n_head=trans_heads, fun_dim=1, out_dim=1, slice_num=slice_num,
+                                mesh_ndim=2, generator=g)
+        self.fusion = MeanFieldFusion(width, grid_channels=2, generator=g)
+        self.heads = _fno_heads(modes, width, fno_layers, g)
+        self.eval()
+        self.to(default_device(device))
+
+    def fields(self, x, grid):
+        """The Transolver over all B·L snapshots, called as the JAX package calls it:
+        the snapshot's values as ``x`` and the grid as ``fx``, so each token's features
+        are (value, grid x, grid y). (B, L, Nx, Ny)."""
+        b, l, nx, ny = x.shape
+        vals = x.reshape(b * l, nx * ny, 1)
+        g = grid.reshape(1, nx * ny, 2).expand(b * l, nx * ny, 2)
+        return self.trans(vals, g, mesh_shape=(nx, ny)).reshape(b, l, nx, ny)
+
+    def forward(self, x, grid, *, generator: torch.Generator | None = None, subsample=None):
+        x, mask = train_subsample(self, x, generator, subsample)
+        feats = self.fusion(_grid_feats(grid, x.shape[0]), self.fields(x, grid), mask)
+        return _heads(self.heads, feats)
+
+
+class NIOTransAttn2D(NIOTrans2D):
+    """:class:`NIOTrans2D` with the token self-attention between the Transolver and the
+    fusion (``blindno/models/nio2d.py:139-170``), as :class:`NIOAttn2D` has it after its
+    DeepONet. Its parameters and their names are :class:`NIOTrans2D`'s."""
+
+    def forward(self, x, grid, *, generator: torch.Generator | None = None, subsample=None):
+        x, mask = train_subsample(self, x, generator, subsample)
+        z, _ = _token_attention_tokens(self.fields(x, grid), grid, mask)
+        return _heads(self.heads, self.fusion(z[:, :2].movedim(1, -1), z[:, 2:], mask))

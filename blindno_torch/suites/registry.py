@@ -1,11 +1,11 @@
 """Suite registry (counterpart of ``blindno/suites/registry.py``): the (suite x model)
 configurations the port trains and evaluates, with the JAX package's hyperparameters.
 
-All six suites are ported: the four 1-D ones (fpe1d, schrodinger1d, gpe1d, gpe1d_vgk)
-with their NIO, FNO-branch NIO and BlinDNO UNets; fpe2d with its NIO, FNO-branch NIO, the
-two attention NIOs and the BlinDNO UNet; and ncfpe2d with its NIO, FNO-branch NIO and
-plain-block UNet. :data:`NOT_PORTED` names the ``ROADMAP.md`` item of every other model
-and stage of the JAX CLI.
+Every suite and model of the JAX registry is here: the four 1-D suites (fpe1d,
+schrodinger1d, gpe1d, gpe1d_vgk) with their NIO, FNO-branch NIO and BlinDNO UNets; fpe2d
+with its NIO, FNO-branch NIO, the two Transolver NIOs, the two attention NIOs and the
+BlinDNO UNet; and ncfpe2d with its NIO, FNO-branch NIO and plain-block UNet. Each suite's
+``datagen_train`` and ``datagen_test`` make its archives (``blindno_torch.data.generate``).
 """
 from __future__ import annotations
 
@@ -14,10 +14,12 @@ from typing import Callable
 
 import numpy as np
 
+from blindno_torch.data import generate as G
 from blindno_torch.data.datasets import load_fpe1d, load_fpe2d, load_gpe1d, load_ncfpe2d
 from blindno_torch.models.blindno_unet import PermInvUNetAttn
 from blindno_torch.models.nio1d import NIOFNO1D, NIOFP1D
-from blindno_torch.models.nio2d import NIOAttn2D, NIOFNO2D, NIOFNOAttn2D, NIOFP2D
+from blindno_torch.models.nio2d import (NIOAttn2D, NIOFNO2D, NIOFNOAttn2D, NIOFP2D,
+                                        NIOTrans2D, NIOTransAttn2D)
 from blindno_torch.nn.cnn import ENC_FPE80, ENC_GPE128
 from blindno_torch.train.loop import TrainConfig
 
@@ -36,10 +38,13 @@ def _grid_2d(n):
 @dataclass
 class SuiteSpec:
     """``models`` maps a name to a factory taking the model's ``generator`` and
-    ``device`` keywords."""
+    ``device`` keywords; ``datagen_train`` and ``datagen_test`` take ``(seed, m)`` and a
+    ``device`` keyword and return an archive's dict."""
 
     name: str
     grid: np.ndarray
+    datagen_train: Callable  # (seed, m, device=...) -> dict
+    datagen_test: Callable
     loader: Callable  # dict -> SetToFieldData
     models: dict
     train_cfg: TrainConfig
@@ -55,13 +60,6 @@ class SuiteSpec:
 
 SUITES: dict[str, SuiteSpec] = {}
 
-# What the JAX CLI runs and the port does not yet, with its ROADMAP.md item.
-NOT_PORTED = {
-    "suites": {},
-    "models": {"fpe2d": {"trans": "A.6", "trans_attn": "A.6"}},
-    "stages": {"datagen": "A.8", "time-error": "A.8"},
-}
-
 
 def _register(spec: SuiteSpec):
     SUITES[spec.name] = spec
@@ -75,6 +73,8 @@ _register(
     SuiteSpec(
         name="fpe1d",
         grid=_grid_1d(80),
+        datagen_train=G.generate_fpe1d,
+        datagen_test=G.generate_fpe1d,
         loader=load_fpe1d,
         models={
             "nio": lambda **kw: NIOFP1D(width=30, modes=15, encoder_final_convs=ENC_FPE80, **kw),
@@ -100,6 +100,8 @@ _register(
     SuiteSpec(
         name="schrodinger1d",
         grid=_grid_1d(128),
+        datagen_train=lambda seed, m, **kw: G.generate_gpe1d(seed, m, g=0.0, kappa=0.0, **kw),
+        datagen_test=lambda seed, m, **kw: G.generate_gpe1d(seed, m, g=0.0, kappa=0.0, **kw),
         loader=lambda d: load_gpe1d(d, thirds=True, include_gk=False),
         models={
             "nio": lambda **kw: NIOFP1D(width=10, modes=30, head_dims=(1,),
@@ -122,6 +124,8 @@ _register(
     SuiteSpec(
         name="gpe1d",
         grid=_grid_1d(128),
+        datagen_train=lambda seed, m, **kw: G.generate_gpe1d(seed, m, g=2.0, kappa=2.0, **kw),
+        datagen_test=lambda seed, m, **kw: G.generate_gpe1d(seed, m, g=2.0, kappa=2.0, **kw),
         loader=lambda d: load_gpe1d(d, thirds=True, include_gk=False),
         models={
             "nio": lambda **kw: NIOFP1D(width=20, modes=40, head_dims=(1,),
@@ -145,6 +149,8 @@ _register(
     SuiteSpec(
         name="gpe1d_vgk",
         grid=_grid_1d(128),
+        datagen_train=lambda seed, m, **kw: G.generate_gpe1d(seed, m, g=2.0, kappa=2.0, **kw),
+        datagen_test=lambda seed, m, **kw: G.generate_gpe1d(seed, m, g=2.0, kappa=2.0, **kw),
         loader=lambda d: load_gpe1d(d, thirds=False, include_gk=True),
         models={
             "nio": lambda **kw: NIOFP1D(width=25, modes=32, fno_layers=4, head_dims=(1, 2),
@@ -167,6 +173,8 @@ _register(
     SuiteSpec(
         name="fpe2d",
         grid=_grid_2d(61),
+        datagen_train=G.generate_fpe2d,
+        datagen_test=G.generate_fpe2d,
         loader=load_fpe2d,
         models={
             "nio": lambda **kw: NIOFP2D(width=12, modes=32, encoder_final_kernel=(2, 1), **kw),
@@ -174,6 +182,8 @@ _register(
             "unet": lambda **kw: PermInvUNetAttn(input_size=(61, 61), depth=4, width=12,
                                                  fno_modes=32, head_dims=(1, 1), subsample=True,
                                                  **kw),
+            "trans": lambda **kw: NIOTrans2D(width=12, modes=32, **kw),
+            "trans_attn": lambda **kw: NIOTransAttn2D(width=12, modes=32, **kw),
             "fno_attn": lambda **kw: NIOFNOAttn2D(width=12, modes=32, **kw),
             "attn": lambda **kw: NIOAttn2D(width=12, modes=32, encoder_final_kernel=(2, 1), **kw),
         },
@@ -191,6 +201,8 @@ _register(
     SuiteSpec(
         name="ncfpe2d",
         grid=_grid_2d(80),
+        datagen_train=G.generate_ncfpe2d,
+        datagen_test=G.generate_ncfpe2d,
         loader=load_ncfpe2d,
         models={
             "nio": lambda **kw: NIOFP2D(width=12, modes=32, encoder_final_kernel=(3, 2), **kw),

@@ -1,16 +1,18 @@
-"""CLI entry point: training and evaluation of the ported suites (counterpart of
-``blindno/suites/run.py``).
+"""CLI entry point: dataset generation, training, evaluation and the time-error metric
+for every suite (counterpart of ``blindno/suites/run.py``).
 
 Usage:
+    python -m blindno_torch.suites.run --suite fpe2d --stage datagen --workdir W
     python -m blindno_torch.suites.run --suite fpe2d --model nio --stage train --workdir W
     python -m blindno_torch.suites.run --suite fpe2d --model nio --stage eval --workdir W
+    python -m blindno_torch.suites.run --suite fpe2d --model nio --stage time-error --workdir W
 
-The archives are the JAX datagen's npz files under ``{workdir}/data/`` (made with
-``python -m blindno.suites.run --suite fpe2d --stage datagen``); checkpoints land under
-``ckpt/{suite}_{model}/``, the metrics JSONL and the run's summary under ``logs/``, and
-the eval's metrics and predictions under ``eval/{suite}_{model}/``. ``--device`` picks
-the device (``cuda`` by default). A suite, model or stage that is not ported yet exits
-non-zero naming its ``ROADMAP.md`` item.
+The archives are npz files under ``{workdir}/data/`` in the JAX datagen's format (either
+package's ``--stage datagen`` makes them: ``--m`` and ``--m-test`` sets, seed ``--seed``
+and ``--seed`` + 1000, an existing archive kept unless ``--force``); checkpoints land
+under ``ckpt/{suite}_{model}/``, the metrics JSONL and the run's summary under ``logs/``,
+and the eval's metrics and predictions and the time-error report under
+``eval/{suite}_{model}/``. ``--device`` picks the device (``cuda`` by default).
 """
 from __future__ import annotations
 
@@ -18,19 +20,33 @@ import argparse
 import dataclasses
 import json
 import os
-import sys
 
 import numpy as np
 import torch
 
 from blindno_torch import default_device
-from blindno_torch.suites.registry import NOT_PORTED, SUITES
+from blindno_torch.suites.registry import SUITES
 
 STAGES = ["datagen", "train", "eval", "time-error"]
 
 
 def _data_path(workdir, name):
     return os.path.join(workdir, "data", name)
+
+
+def stage_datagen(spec, args):
+    os.makedirs(os.path.join(args.workdir, "data"), exist_ok=True)
+    dev = default_device(args.device)
+    for split, make, m, seed in (("train", spec.datagen_train, args.m or spec.m_train, args.seed),
+                                 ("test", spec.datagen_test, args.m_test or spec.m_test,
+                                  args.seed + 1000)):
+        path = _data_path(args.workdir, getattr(spec, f"{split}_file"))
+        if os.path.exists(path) and not args.force:
+            print(f"[{spec.name}] {split} set exists: {path}")
+            continue
+        print(f"[{spec.name}] generating {split} set (m={m}) on {dev}...")
+        np.savez(path, **make(seed, m, device=dev))
+        print(f"  -> {path}")
 
 
 def _load_npz(path):
@@ -71,50 +87,42 @@ def stage_eval(spec, args):
     return report
 
 
-def _not_ported(args):
-    """(what, ROADMAP.md item) for a suite, model or stage the port does not run yet,
-    or None."""
-    item = NOT_PORTED["stages"].get(args.stage)
-    if item:
-        return f"stage {args.stage!r}", item
-    item = NOT_PORTED["suites"].get(args.suite)
-    if item:
-        return f"suite {args.suite!r}", item
-    item = NOT_PORTED["models"].get(args.suite, {}).get(args.model)
-    if item:
-        return f"model {args.model!r} of suite {args.suite!r}", item
-    return None
+def stage_time_error(spec, args):
+    from blindno_torch.eval.time_error import time_error_suite
+
+    report = time_error_suite(spec, args.model, args.workdir, num_samples=args.m or 100,
+                              device=args.device)
+    print(json.dumps(report, indent=1))
+    return report
 
 
 def main(argv=None):
     p = argparse.ArgumentParser()
-    p.add_argument("--suite", required=True,
-                   choices=sorted({*SUITES, *NOT_PORTED["suites"]}))
+    p.add_argument("--suite", required=True, choices=sorted(SUITES))
     p.add_argument("--model", default="nio")
     p.add_argument("--stage", required=True, choices=STAGES)
     p.add_argument("--workdir", default="runs")
     p.add_argument("--epochs", type=int, default=None)
-    p.add_argument("--m", type=int, default=None)
+    p.add_argument("--m", type=int, default=None,
+                   help="datagen: train sets (default: the suite's); time-error: samples "
+                        "(default 100)")
     p.add_argument("--m-test", type=int, default=None)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--tp", type=int, default=None,
                    help="tensor-parallel factor (only 1 is ported; ROADMAP.md A.10)")
     p.add_argument("--force", action="store_true")
     p.add_argument("--device", default="cuda",
-                   help="the device to train or evaluate on (default: cuda)")
+                   help="the device to run the stage on (default: cuda)")
     args = p.parse_args(argv)
-    what = _not_ported(args)
-    if what:
-        sys.exit(f"blindno_torch: {what[0]} is not ported yet (ROADMAP.md {what[1]}); "
-                 f"the JAX CLI runs it: python -m blindno.suites.run")
     spec = SUITES[args.suite]
-    if args.model not in spec.models:
+    if args.stage != "datagen" and args.model not in spec.models:
         p.error(
             f"unknown model {args.model!r} for suite {args.suite!r}; "
             f"choose from: {', '.join(sorted(spec.models))}"
         )
     os.makedirs(os.path.join(args.workdir, "logs"), exist_ok=True)
-    return {"train": stage_train, "eval": stage_eval}[args.stage](spec, args)
+    return {"datagen": stage_datagen, "train": stage_train, "eval": stage_eval,
+            "time-error": stage_time_error}[args.stage](spec, args)
 
 
 if __name__ == "__main__":

@@ -1,12 +1,14 @@
 """Training throughput of the fpe2d and 1-D models on a CUDA card (counterpart of
 ``bench.py``'s timed loop, which stays as it is).
 
-``python3 -m blindno_torch.tools.bench_train [--model nio|unet|fno|attn|fno_attn]`` builds
-the model, by default ``NIOFP2D`` at ``bench.py``'s config (width 12, 32 modes, 25 basis
-functions, 100 neurons, 3 layers); ``--model attn`` is ``NIOAttn2D`` at the same config,
-``--model fno`` and ``--model fno_attn`` the FNO-branch ``NIOFNO2D`` and ``NIOFNOAttn2D``
-(width 12, 32 modes, 3 layers; ``blindno/suites/registry.py:195,201``), and ``--model
-unet`` the fpe2d suite's BlinDNO UNet (``PermInvUNetAttn``: depth 4, width 12, 32 modes;
+``python3 -m blindno_torch.tools.bench_train [--model
+nio|unet|fno|attn|fno_attn|trans|trans_attn]`` builds the model, by default ``NIOFP2D`` at
+``bench.py``'s config (width 12, 32 modes, 25 basis functions, 100 neurons, 3 layers);
+``--model attn`` is ``NIOAttn2D`` at the same config, ``--model fno`` and ``--model
+fno_attn`` the FNO-branch ``NIOFNO2D`` and ``NIOFNOAttn2D``, ``--model trans`` and
+``--model trans_attn`` the Transolver NIOs ``NIOTrans2D`` and ``NIOTransAttn2D`` (width
+12, 32 modes, 3 layers, the Transolver's defaults; ``blindno/suites/registry.py:195-201``),
+and ``--model unet`` the fpe2d suite's BlinDNO UNet (``PermInvUNetAttn``: depth 4, width 12, 32 modes;
 ``blindno/suites/registry.py:196-198``); weights from seed 0. It draws the batch as
 ``bench.py:128-139`` does (B=4 sets of L=100 snapshots of a 61x61 grid, targets and
 inputs standard normal from numpy seed 0, the grid on [-1, 1]^2), and times the
@@ -37,7 +39,8 @@ import torch
 CONFIG = dict(width=12, modes=32, n_basis=25, neurons=100, fno_layers=3)  # bench.py:127
 UNET_CONFIG = dict(input_size=(61, 61), depth=4, width=12, fno_modes=32, head_dims=(1, 1),
                    subsample=True)  # blindno/suites/registry.py:196-198
-FNO_CONFIG = dict(width=12, modes=32, fno_layers=3)  # blindno/suites/registry.py:195,201
+# blindno/suites/registry.py:195,199-201: the FNO-branch and Transolver NIOs
+FNO_CONFIG = dict(width=12, modes=32, fno_layers=3)
 BATCH = dict(b=4, l=100, n=61)                                            # bench.py:133-135
 MODES = {"f32": None, "bf16_encoder_bn32": "bfloat16"}
 # --model -> (class name, config, compute modes)
@@ -45,7 +48,9 @@ MODELS = {"nio": ("NIOFP2D", CONFIG, MODES),
           "unet": ("PermInvUNetAttn", UNET_CONFIG, {"f32": None}),
           "fno": ("NIOFNO2D", FNO_CONFIG, {"f32": None}),
           "attn": ("NIOAttn2D", CONFIG, MODES),
-          "fno_attn": ("NIOFNOAttn2D", FNO_CONFIG, {"f32": None})}
+          "fno_attn": ("NIOFNOAttn2D", FNO_CONFIG, {"f32": None}),
+          "trans": ("NIOTrans2D", FNO_CONFIG, {"f32": None}),
+          "trans_attn": ("NIOTransAttn2D", FNO_CONFIG, {"f32": None})}
 # the 1-D suites' training batches (blindno/suites/registry.py:77-159: batch 32; fpe1d
 # sets of 100 snapshots of 80 points and two target fields, gpe1d 101 snapshots of 128
 # points and one field) and the models timed on them

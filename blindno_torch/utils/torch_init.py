@@ -46,3 +46,17 @@ def kaiming_uniform_leaky_(weight, a: float, generator: torch.Generator):
 def spectral_uniform_(t, scale: float, generator: torch.Generator):
     """The reference's spectral weights: ``scale * U[0, 1)`` per real/imaginary plane."""
     return t.uniform_(0.0, 1.0, generator=generator).mul_(scale)
+
+
+@torch.no_grad()
+def trunc_normal_(t, std: float, generator: torch.Generator):
+    """timm's ``trunc_normal_`` as the JAX package draws it (``trunc_normal``): N(0, std)
+    cut at +-2 std. The Transolver's linear weights."""
+    return torch.nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+@torch.no_grad()
+def orthogonal_(weight, generator: torch.Generator):
+    """torch's ``orthogonal_`` on an (out, in) weight, the JAX package's
+    ``orthogonal_init`` (the Transolver's slice projection)."""
+    return torch.nn.init.orthogonal_(weight, generator=generator)

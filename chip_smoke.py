@@ -77,13 +77,32 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``. It
    the fpe1d NIO for an epoch and a resumed one, the gpe1d UNet for an epoch, each then
    the eval stage; launches exact, no host synchronization in a step, predictions with
    and without the flip average against the CPU;
-13. prints one JSON line per phase, the nvidia-smi line, the kernels line, and last
+13. serves and trains the Transolver NIOs (phase ``trans``): the fpe2d suite's
+   ``NIOTrans2D`` and ``NIOTransAttn2D`` (Transolver weights drawn at random) through
+   ``predict_fields`` on 8 sets of 100 snapshots of 61x61, batch 4, against the CPU,
+   timed and split on the device between the Transolver, the attention, the fusion and
+   the heads, with peak memory; one float32 step of each on ``bench.py``'s batch against
+   the CPU's step, 6 ``fno2d_layer`` launches a forward or step counted exactly, and
+   twenty timed steps whose loss must fall;
+14. generates every FPE and GPE suite's archives through the CLI (phase ``datagen``) at
+   each suite's full grid and time axis and a few sets (64 fpe1d, 256 gpe1d, 8 fpe2d, 2
+   ncfpe2d), with TF32 on for matrix products, timed per set: the parameters equal to a
+   CPU run's bit for bit, the trajectories within 1e-3 of the CPU's on the first set (of
+   a float64 run on the card for ncfpe2d, every set), the FPE masses at 1; then the
+   time-error stage through the CLI on an fpe1d NIO and a gpe1d FNO-branch NIO trained
+   for one epoch on those archives, and on one fpe2d sample of an untrained
+   ``NIOTrans2D``, each against the CPU's errors;
+15. prints one JSON line per phase, the nvidia-smi line, the kernels line, and last
    ``{"ok": true, "device": {...}}``.
 
 Every path runs with all four kernels' launch counts set to 0 just before it and read
 just after. Any failed check raises, and the script exits non-zero without the last
 line. TF32 is off for matmul and cuDNN throughout, so every comparison is in full
-float32.
+float32, except around the datagen stage, where the solver must turn it off itself.
+
+The CPU references of phases 13 and 14 run in CPU_WORKERS worker processes, started
+before the build on the cores it leaves idle and stopped (SIGSTOP) from the build's end
+until after phase 12: phases 3 to 12 run with no other process of this script running.
 """
 from __future__ import annotations
 
@@ -94,6 +113,7 @@ import json
 import math
 import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -174,6 +194,12 @@ TRAIN_GPE_HEADS_1D = (32, 20, 160, 40, True)
 # through the CLI on synthetic archives in the datagen's format, 320 sets split 256/64
 # (8 steps of 32 an epoch) and 16 test sets each
 FIT_1D = dict(m=320, m_test=16, epochs=1)
+# phase datagen: (train, test) sets per suite, each suite's full grid and time axis
+# (blindno/data/generate.py); the card's archives against the CPU's (or float64) within
+# DATAGEN_TOL relative L2 per set, the FPE masses within DATAGEN_MASS_TOL of 1, the
+# time-error stage's errors within TIME_ERROR_TOL of the CPU's, relative
+DATAGEN = {"fpe1d": (64, 8), "gpe1d": (256, 16), "fpe2d": (8, 2), "ncfpe2d": (2, 1)}
+DATAGEN_TOL, DATAGEN_MASS_TOL, TIME_ERROR_TOL = 1e-3, 1e-3, 1e-3
 
 
 def kernel_wrappers():
@@ -468,11 +494,12 @@ def calibrate_bn(model, x, grid, rng):
 
 
 def serve(label, cpu_model, inputs, grid, batch, rounds, layer, per_forward, min_spread=1e-5,
-          out_dim=2):
+          out_dim=2, cpu_reference=None):
     """One model's main path: ``predict_fields`` on the card with every launch counted
-    (``per_forward`` launches of kernel ``layer`` per forward and no other), its output
-    of ``out_dim`` fields checked against the CPU plain path on the first batch, and its
-    throughput. The
+    (``per_forward`` launches of kernel ``layer`` per forward and no other), its
+    throughput, and its output of ``out_dim`` fields checked against the CPU plain path
+    on the first batch of sets, computed here or handed in by ``cpu_reference()`` as
+    (output, seconds). The
     outputs of the first two sets must differ by ``min_spread`` at least, so that the
     output depends on the input. Returns the model on the card, the launch counts and
     the fields of its phase line."""
@@ -491,14 +518,6 @@ def serve(label, cpu_model, inputs, grid, batch, rounds, layer, per_forward, min
         raise RuntimeError(f"serving {label}: shape {out.shape} (want {want_shape}), finite "
                            f"{np.isfinite(out).all()}, difference between two sets {spread:.3g}")
 
-    # the same weights on the CPU plain path; the tolerance scales with the output
-    t0 = time.perf_counter()
-    want = torch.tensor(predict_fields(cpu_model, inputs[:batch], grid, batch=batch, device="cpu"))
-    cpu_s = time.perf_counter() - t0
-    scale = want.abs().max().item()
-    err_cpu = check_close(f"serving {label} vs the CPU plain path", torch.tensor(out[:batch]),
-                          want, SERVE_TOL, scale)
-
     # throughput of the entry point (numpy in, numpy out), host clock
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -506,10 +525,23 @@ def serve(label, cpu_model, inputs, grid, batch, rounds, layer, per_forward, min
         predict_fields(model, inputs, grid, batch=batch)
     wall = time.perf_counter() - t0
     forwards = rounds * n_batches
+
+    # the same weights on the CPU plain path; the tolerance scales with the output
+    k = batch
+    if cpu_reference is None:
+        t0 = time.perf_counter()
+        want = predict_fields(cpu_model, inputs[:k], grid, batch=k, device="cpu")
+        cpu_s = time.perf_counter() - t0
+    else:
+        want, cpu_s = cpu_reference()
+    want = torch.tensor(want)
+    scale = want.abs().max().item()
+    err_cpu = check_close(f"serving {label} vs the CPU plain path", torch.tensor(out[:k]),
+                          want, SERVE_TOL, scale)
     fields = dict(sets=m, snapshots=inputs.shape[1], grid=list(grid.shape), batch=batch,
                   launches=counts, launches_per_forward=counts[layer] / n_batches,
                   output_abs_max=scale, output_set_spread=float(spread),
-                  max_abs_err_vs_cpu=err_cpu,
+                  max_abs_err_vs_cpu=err_cpu, sets_vs_cpu=k,
                   tol=f"rtol {SERVE_TOL}, atol {SERVE_TOL} x output_abs_max",
                   first_call_s=first_s, cpu_reference_s=cpu_s, timed_forwards=forwards,
                   forwards_per_s=forwards / wall, ms_per_forward=1e3 * wall / forwards,
@@ -753,40 +785,63 @@ def phase_serve_nio2d():
              ("fpe2d NIOFNOAttn2D", nio2d.NIOFNOAttn2D, FNO_CONFIG, SERVE, 8, 1e-7),
              ("ncfpe2d NIOFNO2D", nio2d.NIOFNO2D, FNO_CONFIG, SERVE_UNET_NC, 8, 1e-7))
     for label, cls, config, sizes, per_forward, min_spread in paths:
-        m, l, n, batch = sizes["m"], sizes["l"], sizes["n"], sizes["batch"]
-        inputs, grid = sets_2d(np.random.default_rng(2), m, l, n), grid_2d(n)
-        cpu_model = cls(**config, generator=torch.Generator().manual_seed(0), device="cpu")
-        calibrate_bn(cpu_model, sets_2d(np.random.default_rng(3), 1, l, n), grid,
-                     np.random.default_rng(7))
-        model, counts, fields = serve(label, cpu_model, inputs, grid, batch,
-                                      sizes["timed_rounds"], "fno2d_layer", per_forward,
-                                      min_spread)
+        counts, fields, split = serve_split(label, cls, config, sizes, per_forward, min_spread)
         launches += counts["fno2d_layer"]
-
-        with torch.inference_mode():
-            xb = torch.tensor(inputs[:batch], device="cuda")
-            g = torch.tensor(grid, device="cuda")
-            # the fusion's inputs as the forward hands them, read by a hook
-            fusion_args = []
-            hook = model.fusion.register_forward_hook(lambda mod, a, out: fusion_args.append(a))
-            model(xb, g)
-            hook.remove()
-            snap = model.fields(xb, g)
-            feats = model.fusion(*fusion_args[0])
-            parts = {"fields": lambda: model.fields(xb, g),
-                     "fusion": lambda: model.fusion(*fusion_args[0]),
-                     "heads": lambda: [h(feats) for h in model.heads]}
-            if cls in (nio2d.NIOAttn2D, nio2d.NIOFNOAttn2D):
-                parts["attention"] = lambda: nio2d._token_attention_tokens(snap, g, None)
-            forward_ms, forward_host_ms = time_ms(lambda: model(xb, g), 10, host=True)
-            split = dict(forward_ms=forward_ms, forward_host_ms=forward_host_ms,
-                         forward_graph_ms=graph_ms(lambda: model(xb, g), 5, 5),
-                         **{f"{k}_graph_ms": graph_ms(fn, 5, 5) for k, fn in parts.items()},
-                         h2d_ms=time_ms(lambda: torch.as_tensor(inputs[:batch]).to("cuda"), 10),
-                         top_kernels_ms=top_kernels(lambda: model(xb, g)))
-            del snap, feats, fusion_args
         emit("serve_nio2d", model=label, config=config, **fields, device_split=split)
     return launches
+
+
+def served_model(cls, config, sizes, prepare):
+    """A 2-D NIO on the CPU, its weights from seed 0 and then ``prepare(model, sets, grid,
+    rng)``, and seeded sets of ``sizes`` with their grid."""
+    m, l, n = sizes["m"], sizes["l"], sizes["n"]
+    inputs, grid = sets_2d(np.random.default_rng(2), m, l, n), grid_2d(n)
+    cpu_model = cls(**config, generator=torch.Generator().manual_seed(0), device="cpu")
+    prepare(cpu_model, sets_2d(np.random.default_rng(3), 1, l, n), grid, np.random.default_rng(7))
+    return cpu_model, inputs, grid
+
+
+def serve_split(label, cls, config, sizes, per_forward, min_spread, prepare=calibrate_bn,
+                parts_of=("forward", "fields", "fusion", "heads", "attention"),
+                cpu_reference=None):
+    """One 2-D NIO's serving path (:func:`serve`, ``cpu_reference`` as there) on
+    :func:`served_model`'s model and sets; and each forward split on the device (each
+    part replayed from a CUDA graph) between the per-snapshot fields, the token attention
+    where the model has it, the fusion and the heads (the parts named in ``parts_of``),
+    beside the host's time to enqueue a forward and the forward's top kernels. Returns
+    the launch counts, the serving fields and the split."""
+    from blindno_torch.models import nio2d
+
+    batch = sizes["batch"]
+    cpu_model, inputs, grid = served_model(cls, config, sizes, prepare)
+    model, counts, fields = serve(label, cpu_model, inputs, grid, batch, sizes["timed_rounds"],
+                                  "fno2d_layer", per_forward, min_spread,
+                                  cpu_reference=cpu_reference)
+    with torch.inference_mode():
+        xb = torch.tensor(inputs[:batch], device="cuda")
+        g = torch.tensor(grid, device="cuda")
+        # the fusion's inputs as the forward hands them, read by a hook
+        fusion_args = []
+        hook = model.fusion.register_forward_hook(lambda mod, a, out: fusion_args.append(a))
+        model(xb, g)
+        hook.remove()
+        snap = model.fields(xb, g)
+        feats = model.fusion(*fusion_args[0])
+        parts = {"fields": lambda: model.fields(xb, g),
+                 "fusion": lambda: model.fusion(*fusion_args[0]),
+                 "heads": lambda: [h(feats) for h in model.heads]}
+        if cls in (nio2d.NIOAttn2D, nio2d.NIOFNOAttn2D, nio2d.NIOTransAttn2D):
+            parts["attention"] = lambda: nio2d._token_attention_tokens(snap, g, None)
+        parts["forward"] = lambda: model(xb, g)
+        forward_ms, forward_host_ms = time_ms(lambda: model(xb, g), 10, host=True)
+        split = dict(forward_ms=forward_ms, forward_host_ms=forward_host_ms,
+                     **{f"{k}_graph_ms": graph_ms(fn, 5, 5) for k, fn in parts.items()
+                        if k in parts_of},
+                     h2d_ms=time_ms(lambda: torch.as_tensor(inputs[:batch]).to("cuda"), 10))
+        if "fields" in parts_of:
+            split["top_kernels_ms"] = top_kernels(lambda: model(xb, g))
+        del snap, feats, fusion_args
+    return counts, fields, split
 
 
 def rel_l2(got, want):
@@ -1171,6 +1226,155 @@ def phase_train_fno(smi_line):
          fno2d_layer_backward_bound=layer_backward_bound(NIOFNO2D_INNER),
          layer_shape=NIOFNO2D_INNER, nvidia_smi=smi_line)
     return counts["fno2d_layer"]
+
+
+def randomize_transolver(model, sets, grid, rng):
+    """The Transolver's weights drawn at random, as ``tests/test_torch_transolver.py``
+    draws them (weights ~ N(0, 1/fan_in), LayerNorm scales ~ U(0.6, 1.4), biases ~
+    N(0, 0.1), temperatures ~ U(0.3, 1)): flax's init leaves the slice attention's output
+    near 1e-4 of its input, where a fault would hide. ``sets`` and ``grid`` are unused
+    (the signature of :func:`calibrate_bn`)."""
+    with torch.no_grad():
+        for name, p in model.trans.named_parameters():
+            if name.endswith("temperature"):
+                draw = rng.uniform(0.3, 1.0, p.shape)
+            elif p.dim() > 1:
+                draw = rng.standard_normal(p.shape) / math.sqrt(p[0].numel())
+            elif ".norms." in name and name.endswith("weight"):
+                draw = rng.uniform(0.6, 1.4, p.shape)
+            else:
+                draw = 0.1 * rng.standard_normal(p.shape)
+            p.copy_(torch.tensor(draw))
+
+
+TRANS_MODELS = {"trans": "NIOTrans2D", "trans_attn": "NIOTransAttn2D"}
+
+
+def trans_draw(l):
+    """The injected subsample of phase ``trans``'s step: (indices, mask)."""
+    rng = np.random.default_rng(5)
+    return rng.integers(0, l, l), (np.arange(l) < rng.integers(50, l)).astype(np.float32)
+
+
+def trans_step_model(name):
+    """Phase ``trans``'s model to train, on the CPU: the suite's config from seed 0,
+    the Transolver's weights drawn at random."""
+    from blindno_torch.tools import bench_train
+
+    model = bench_train.fresh_model("cpu", name)
+    randomize_transolver(model, None, None, np.random.default_rng(8))
+    return model
+
+
+def trans_serve_reference(name):
+    """On the CPU: the served Transolver NIO's output on its first batch of sets, and
+    the seconds it took."""
+    from blindno_torch.eval.field_eval import predict_fields
+    from blindno_torch.models import nio2d
+    from blindno_torch.tools import bench_train
+
+    t0 = time.perf_counter()
+    cpu_model, inputs, grid = served_model(getattr(nio2d, TRANS_MODELS[name]),
+                                           bench_train.MODELS[name][1], SERVE,
+                                           randomize_transolver)
+    k = SERVE["batch"]
+    out = predict_fields(cpu_model, inputs[:k], grid, batch=k, device="cpu")
+    return out, time.perf_counter() - t0
+
+
+def trans_step_reference(name):
+    """On the CPU: phase ``trans``'s training step (:func:`one_step`) and its seconds."""
+    from blindno_torch.tools import bench_train
+
+    model = trans_step_model(name)
+    x, y, grid = bench_train.bench_batch("cpu")
+    t0 = time.perf_counter()
+    loss, grads, state = one_step(model, x, y, grid, trans_draw(bench_train.BATCH["l"]))
+    # numpy arrays: torch tensors would cross through shared memory, which may be small
+    as_numpy = lambda d: {k: v.numpy() for k, v in d.items()}
+    return (loss, as_numpy(grads), as_numpy(state)), time.perf_counter() - t0
+
+
+def submit_cpu_references(pool):
+    """Queue the CPU references of phases ``trans`` and ``datagen`` on ``pool``'s worker:
+    each Transolver NIO's served output and training step, each suite's generator run."""
+    return {"serve": {name: pool.submit(trans_serve_reference, name) for name in TRANS_MODELS},
+            "step": {name: pool.submit(trans_step_reference, name) for name in TRANS_MODELS},
+            "datagen": {suite: pool.submit(datagen_reference, suite, m, 0)
+                        for suite, (m, _) in DATAGEN.items()}}
+
+
+def phase_trans(smi_line, refs):
+    """The Transolver NIOs (``NIOTrans2D``, ``NIOTransAttn2D``) at the fpe2d suite's
+    config: served on SERVE's sets through ``predict_fields`` (Transolver weights drawn
+    at random), against the CPU, timed and split on the device between the Transolver,
+    the attention, the fusion and the heads, with peak memory; then one float32
+    ``train_step`` on ``bench.py``'s batch against the CPU's step, 6 ``fno2d_layer``
+    launches counted, the frozen fusion unchanged, and twenty steps whose loss must fall,
+    timed. The CPU's outputs and steps are ``refs``' futures (:func:`submit_cpu_references`).
+    Returns their ``fno2d_layer`` launches."""
+    from blindno_torch.models import nio2d
+    from blindno_torch.tools import bench_train
+    from blindno_torch.train.step import make_optimizer, train_step
+
+    served, stepped = refs["serve"], refs["step"]
+    launches = 0
+    # the attention model's Transolver, fusion and heads are the plain one's: its split
+    # times the attention alone
+    for name, parts_of in (("trans", ("forward", "fields", "fusion", "heads")),
+                           ("trans_attn", ("attention",))):
+        cls, config = getattr(nio2d, TRANS_MODELS[name]), bench_train.MODELS[name][1]
+        torch.cuda.reset_peak_memory_stats()
+        counts, fields, split = serve_split(f"fpe2d {cls.__name__}", cls, config, SERVE, 6,
+                                            1e-5, prepare=randomize_transolver,
+                                            parts_of=parts_of,
+                                            cpu_reference=served[name].result)
+        serve_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        launches += counts["fno2d_layer"]
+
+        draw = trans_draw(bench_train.BATCH["l"])
+        cpu_model = trans_step_model(name)
+        initial = copy.deepcopy(cpu_model.state_dict())
+        x, y, grid = bench_train.bench_batch("cuda")
+        model = cpu_model.to("cuda")
+        torch.cuda.reset_peak_memory_stats()
+        counts, card = counted(lambda: one_step(model, x, y, grid, draw))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        expect_launches(f"{cls.__name__} training step", counts, fno2d_layer=6)
+        launches += counts["fno2d_layer"]
+        frozen = [k for k in initial if k.startswith("fusion.")]
+        if not all(torch.equal(card[2][k], initial[k]) for k in frozen):
+            raise RuntimeError(f"trans: the frozen fusion ({frozen}) moved in a step")
+        (loss_cpu, grads_cpu, state_cpu), cpu_s = stepped[name].result()
+        as_torch = lambda d: {k: torch.from_numpy(v) for k, v in d.items()}
+        cpu = (loss_cpu, as_torch(grads_cpu), as_torch(state_cpu))
+        errs = train_errors(card, cpu)
+
+        # twenty f32 steps on the one batch, a fresh draw each: the loss must fall
+        model.load_state_dict(initial)
+        opt = make_optimizer(model)
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        train_step(model, opt, x, y, grid, generator=gen)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        counts, losses = counted(lambda: [train_step(model, opt, x, y, grid, generator=gen)
+                                          for _ in range(TRAIN_STEPS)])
+        losses = [float(v) for v in losses]
+        wall = time.perf_counter() - t0
+        expect_launches(f"{cls.__name__} training steps", counts, fno2d_layer=6 * TRAIN_STEPS)
+        launches += counts["fno2d_layer"]
+        if not losses[-1] < losses[0]:
+            raise RuntimeError(f"trans: loss did not fall over {TRAIN_STEPS} steps: {losses}")
+        emit("trans", model=cls.__name__, config=config, serve=fields, device_split=split,
+             serve_peak_memory_gb=serve_peak_gb, train_batch=bench_train.BATCH,
+             train_launches_per_step=counts["fno2d_layer"] / TRAIN_STEPS,
+             loss_card=card[0], loss_cpu=cpu[0],
+             worst_rel_l2=sorted(errs.items(), key=lambda kv: -kv[1])[:3],
+             tol=f"relative L2: {TRAIN_TOL}", frozen_fusion_unchanged=frozen, cpu_step_s=cpu_s,
+             losses_20_steps=[losses[0], losses[-1]], steps_per_sec_f32=TRAIN_STEPS / wall,
+             peak_memory_gb_f32_step=peak_gb, nvidia_smi=smi_line)
+        del model, opt
+    return launches
 
 
 def fno1d_layer_calls(model):
@@ -1859,6 +2063,255 @@ def phase_fit1d(smi_line):
     return launches
 
 
+CPU_WORKERS = 2
+
+
+def _low_priority():
+    os.nice(19)
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // CPU_WORKERS))
+
+
+@contextlib.contextmanager
+def cpu_pool():
+    """CPU_WORKERS spawned worker processes, at the lowest priority and with a share of
+    the cores each, for the CPU references of phases ``trans`` and ``datagen``: the pool
+    and the workers' pids. Work not started when the block ends is dropped."""
+    import concurrent.futures
+    import multiprocessing
+
+    pool = concurrent.futures.ProcessPoolExecutor(
+        CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"), initializer=_low_priority)
+    for _ in range(CPU_WORKERS):
+        pool.submit(int)  # starts a worker
+    try:
+        yield pool, [p.pid for p in multiprocessing.active_children()]
+    finally:
+        pool.shutdown(cancel_futures=True)
+
+
+def _stopped(pid):
+    """Whether process ``pid`` is stopped (state T in /proc), or gone."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] in "Tt"
+    except (OSError, IndexError):
+        return True
+
+
+@contextlib.contextmanager
+def stopped(pids):
+    """The processes ``pids`` stopped by SIGSTOP for the block and resumed after it."""
+    for pid in pids:
+        with contextlib.suppress(ProcessLookupError):  # a worker that died: its futures raise
+            os.kill(pid, signal.SIGSTOP)
+    deadline = time.perf_counter() + 5.0
+    while not all(map(_stopped, pids)) and time.perf_counter() < deadline:
+        time.sleep(1e-3)
+    try:
+        yield
+    finally:
+        for pid in pids:
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, signal.SIGCONT)
+
+
+def first_set_on_cpu(solve, batched):
+    """``solve``, a batched solver whose arguments at the positions ``batched`` (and
+    whose tensor keywords) have the batch axis first, run on the first set of each batch
+    only, the others left zero: the CPU's trajectories of set 0 without the cost of
+    every set."""
+    def call(*args, **kwargs):
+        b = args[batched[0]].shape[0]
+        first = lambda a: a[:1] if torch.is_tensor(a) and a.dim() and a.shape[0] == b else a
+        args = [first(a) if i in batched else a for i, a in enumerate(args)]
+        out = solve(*args, **{k: first(v) for k, v in kwargs.items()})
+        return torch.cat([out, out.new_zeros((b - 1,) + out.shape[1:])])
+    return call
+
+
+def datagen_on_cpu(suite, m, seed):
+    """The port's generator of ``suite`` on the CPU with ``m`` sets from ``seed``: every
+    parameter as the card's run draws it; the trajectories of the first set of each
+    batch (all of ncfpe2d's left at the uniform density, unsolved: a 6400-cell series
+    takes minutes on the CPU)."""
+    from blindno_torch.data import generate
+    from blindno_torch.solvers import gpe as gpe_solver
+    from blindno_torch.suites import registry
+
+    make = lambda: registry.SUITES[suite].datagen_train(seed, m, device="cpu")
+    if suite == "gpe1d":  # solve_gpe(psi0, x, dt, nt, g, kappa, v): the batch is v's
+        with patched(gpe_solver, "solve_gpe", first_set_on_cpu(gpe_solver.solve_gpe, (6,))):
+            return make()
+    if suite == "ncfpe2d":
+        uniform = lambda u, *a, **kw: torch.full(
+            (u.shape[0], a[4].shape[0], u[0].numel()), 1.0 / u[0].numel(), dtype=u.dtype)
+        with patched(generate, "propagate_expm", uniform):
+            return make()
+    with patched(generate, "propagate_expm", first_set_on_cpu(generate.propagate_expm, (0, 1))):
+        return make()
+
+
+def datagen_reference(suite, m, seed):
+    """:func:`datagen_on_cpu` and its seconds."""
+    t0 = time.perf_counter()
+    out = datagen_on_cpu(suite, m, seed)
+    return out, time.perf_counter() - t0
+
+
+def time_error_reference(suite, model, workdir, num_samples):
+    """The time-error stage's report on the CPU for ``model`` of ``suite`` in
+    ``workdir``, and its seconds."""
+    from blindno_torch.eval.time_error import time_error_suite
+    from blindno_torch.suites import registry
+
+    t0 = time.perf_counter()
+    report = time_error_suite(registry.SUITES[suite], model, workdir, num_samples=num_samples,
+                              device="cpu")
+    return report, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def tf32_matmul():
+    """TF32 on for CUDA matrix products inside the block, restored after it: what the
+    solver computes there is full float32 only if it turns TF32 off itself."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def trajectory_errors(got, want, sets):
+    """Relative L2 of ``got`` from ``want``, per set, over the sets given."""
+    return [float(np.linalg.norm((got[i] - want[i]).ravel()) / np.linalg.norm(want[i].ravel()))
+            for i in sets]
+
+
+def phase_datagen(smi_line, pool, refs):
+    """The port's datagen through the CLI (``--stage datagen``) at each suite's full
+    grid and time axis, at DATAGEN's set counts, with TF32 on for matrix products (the
+    solver must turn it off for its own), timed per set and extrapolated to the
+    suite's default train archive; its parameters against a CPU run of the same generator
+    bit for bit, its trajectories against the CPU's on the first set (1-D suites and
+    fpe2d) or against a float64 run on the card (ncfpe2d, every set), masses at 1. Then
+    the time-error stage through the CLI on an fpe1d NIO and a gpe1d FNO-branch NIO
+    trained for one epoch on those archives, and on one fpe2d sample of an untrained
+    Transolver NIO, each error against the CPU's. The CPU's generator runs are ``refs``'
+    futures (:func:`submit_cpu_references`), its time errors come from ``pool``'s worker
+    while the card works. Returns the launches of both layers."""
+    from blindno_torch.data import generate
+    from blindno_torch.suites import registry
+    from blindno_torch.train import checkpoint
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "blindno_torch", "_build")
+    os.makedirs(build, exist_ok=True)
+    launches = {"fno1d_layer": 0, "fno2d_layer": 0}
+    suites, walls, runs = {}, {}, {}
+    on_cpu = refs["datagen"]
+    with tempfile.TemporaryDirectory(dir=build) as w:
+        # TF32 on: the trajectory checks below then hold the solver's own guard
+        with tf32_matmul():
+            for suite, (m, m_test) in DATAGEN.items():
+                _, _, walls[suite], _ = cli_stage(w, suite, "nio", "--stage", "datagen", "--m",
+                                                  str(m), "--m-test", str(m_test),
+                                                  "--device", "cuda")
+
+        def time_error_run(suite, name, m_te, train):
+            """The time-error stage on the card (after an epoch of training where
+            ``train``), its CPU reference queued on ``pool`` first."""
+            if train:
+                counts = cli_stage(w, suite, name, "--stage", "train", "--epochs", "1",
+                                   "--device", "cuda")[0]
+                for k in launches:
+                    launches[k] += counts[k]
+            on_cpu_te = pool.submit(time_error_reference, suite, name, w, m_te)
+            counts, card, card_s, _ = cli_stage(w, suite, name, "--stage", "time-error",
+                                                "--m", str(m_te), "--device", "cuda")
+            for k in launches:
+                launches[k] += counts[k]
+            runs[(suite, name)] = (card, card_s, train, on_cpu_te)
+
+        # fpe2d's time error first (an untrained Transolver NIO on one sample): its CPU
+        # reference is the longest and runs while the card goes on
+        model = registry.SUITES["fpe2d"].models["trans"](
+            generator=torch.Generator().manual_seed(0), device="cpu")
+        checkpoint.save_best(os.path.join(w, "ckpt", "fpe2d_trans"),
+                             dict(model.named_parameters()), dict(model.named_buffers()), 0, 1.0)
+        time_error_run("fpe2d", "trans", 1, False)
+
+        for suite, (m, m_test) in DATAGEN.items():
+            spec = registry.SUITES[suite]
+            with np.load(os.path.join(w, "data", spec.train_file)) as z:
+                card = {k: z[k] for k in z.files}
+            cpu, cpu_s = on_cpu[suite].result()
+            traj = "y" if suite == "gpe1d" else "trajectories"
+            unequal = [k for k in cpu if k != traj and not np.array_equal(card[k], cpu[k])]
+            if unequal or card.keys() != cpu.keys():
+                raise RuntimeError(f"datagen {suite}: parameters {unequal} differ from the CPU's")
+            if suite == "ncfpe2d":
+                t0 = time.perf_counter()
+                ref = generate.generate_ncfpe2d(0, m, device="cuda", dtype=torch.float64)[traj]
+                ref_label, ref_s, sets = "float64 on the card", time.perf_counter() - t0, range(m)
+            else:
+                ref, ref_label, ref_s, sets = cpu[traj], "the CPU", cpu_s, [0]
+            errs = trajectory_errors(card[traj], ref, sets)
+            fields = dict(traj_rel_l2_vs_reference=max(errs), reference=ref_label,
+                          reference_s=ref_s, sets_compared=len(sets))
+            if suite != "gpe1d":
+                mass = card[traj].reshape(card[traj].shape[:2] + (-1,)).sum(-1)
+                fields["max_mass_deviation"] = float(np.abs(mass - 1.0).max())
+                if not fields["max_mass_deviation"] <= DATAGEN_MASS_TOL:
+                    raise RuntimeError(f"datagen {suite}: masses {fields['max_mass_deviation']}"
+                                       f" from 1 (want <= {DATAGEN_MASS_TOL})")
+            if not max(errs) <= DATAGEN_TOL:
+                raise RuntimeError(f"datagen {suite}: trajectories {max(errs):.3g} from "
+                                   f"{ref_label}'s (relative L2, want <= {DATAGEN_TOL})")
+            per_set = walls[suite] / (m + m_test)
+            suites[suite] = dict(sets=m, test_sets=m_test, stage_s=walls[suite],
+                                 s_per_set=per_set,
+                                 default_train_archive_s_extrapolated=per_set * spec.m_train,
+                                 default_m_train=spec.m_train, cpu_run_s=cpu_s, **fields)
+
+        # checkpoints trained for an epoch on the archives just made
+        time_error_run("fpe1d", "nio", DATAGEN["fpe1d"][1], True)
+        time_error_run("gpe1d", "fno", DATAGEN["gpe1d"][1], True)
+        terr = {}
+        for (suite, name), (card, card_s, train, on_cpu_te) in runs.items():
+            cpu, cpu_s = on_cpu_te.result()
+            err = {k: abs(card[k] - cpu[k]) / abs(cpu[k]) for k in ("mean_err_l2", "std_err_l2")
+                   if cpu[k]}
+            if not (np.isfinite(card["mean_err_l2"]) and all(e <= TIME_ERROR_TOL
+                                                             for e in err.values())):
+                raise RuntimeError(f"time-error {suite} {name}: card {card}, CPU {cpu}, "
+                                   f"relative {err} (want <= {TIME_ERROR_TOL})")
+            terr[f"{suite} {name}"] = dict(card=card, cpu=cpu, rel_err_vs_cpu=err,
+                                           stage_s=card_s, cpu_s=cpu_s,
+                                           trained_one_epoch=train)
+    emit("datagen", suites=suites, time_error=terr, launches=launches,
+         tol=f"trajectories {DATAGEN_TOL} relative L2, masses {DATAGEN_MASS_TOL}, "
+             f"time errors {TIME_ERROR_TOL} relative", nvidia_smi=smi_line)
+    return launches
+
+
+def earlier_phases(timed, smi_line):
+    """Phases ``kernels`` to ``fit1d``, each timed by ``timed``: their launches of each
+    kernel, and under ``"stats"`` phase ``kernels``' figures."""
+    stats = timed("kernels", phase_kernels)
+    launches = {**timed("serve", phase_serve), **timed("serve1d", phase_serve1d)}
+    for kernel, count in timed("serve_unet", phase_serve_unet).items():
+        launches[kernel] += count
+    launches["fno2d_layer"] += timed("serve_nio2d", phase_serve_nio2d)
+    launches["fno2d_layer"] += timed("train", phase_train,
+                                     stats["fno2d_layer"]["kernel_ms"], smi_line)
+    launches["fno2d_layer"] += timed("train_unet", phase_train_unet, smi_line)
+    launches["fno2d_layer"] += timed("train_fno", phase_train_fno, smi_line)
+    launches["fno2d_layer"] += timed("fit", phase_fit, smi_line)
+    launches["fno1d_layer"] += timed("train1d", phase_train1d, smi_line)
+    launches["fno1d_layer"] += timed("fit1d", phase_fit1d, smi_line)
+    return {**launches, "stats": stats}
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1875,25 +2328,34 @@ def main():
     emit("device", name=name, count=torch.cuda.device_count(), nvidia_smi=smi_line,
          torch=torch.__version__, cuda=torch.version.cuda)
 
-    cached = _build.build_dir().joinpath("libblindno_torch_kernels.so").exists()
-    t0 = time.perf_counter()
-    lib_path = _build.build()
-    _build.library()
-    log = (lib_path.parent / "build.log").read_text().splitlines()
-    emit("build", seconds=time.perf_counter() - t0, cached=cached,
-         ptxas=[ln.strip() for ln in log if "registers" in ln or "spill" in ln])
+    phase_s = {}
 
-    stats = phase_kernels()
-    launches = {**phase_serve(), **phase_serve1d()}
-    for kernel, count in phase_serve_unet().items():
-        launches[kernel] += count
-    launches["fno2d_layer"] += phase_serve_nio2d()
-    launches["fno2d_layer"] += phase_train(stats["fno2d_layer"]["kernel_ms"], smi_line)
-    launches["fno2d_layer"] += phase_train_unet(smi_line)
-    launches["fno2d_layer"] += phase_train_fno(smi_line)
-    launches["fno2d_layer"] += phase_fit(smi_line)
-    launches["fno1d_layer"] += phase_train1d(smi_line)
-    launches["fno1d_layer"] += phase_fit1d(smi_line)
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+        return out
+
+    # the CPU references of the last two phases (a Transolver step takes 12-19 s on the
+    # card host's CPU) start here, on the cores the build leaves idle, and are stopped
+    # from the build's end until after phase fit1d: the phases before trans run with no
+    # other process of this script running
+    with cpu_pool() as (pool, workers):
+        refs = submit_cpu_references(pool)
+        cached = _build.build_dir().joinpath("libblindno_torch_kernels.so").exists()
+        t0 = time.perf_counter()
+        lib_path = _build.build()
+        _build.library()
+        log = (lib_path.parent / "build.log").read_text().splitlines()
+        emit("build", seconds=time.perf_counter() - t0, cached=cached,
+             cpu_references_beside=True,
+             ptxas=[ln.strip() for ln in log if "registers" in ln or "spill" in ln])
+        with stopped(workers):
+            launches = earlier_phases(timed, smi_line)
+        stats = launches.pop("stats")
+        launches["fno2d_layer"] += timed("trans", phase_trans, smi_line, refs)
+        for kernel, count in timed("datagen", phase_datagen, smi_line, pool, refs).items():
+            launches[kernel] += count
 
     csrc, replaces = "blindno_torch/csrc", "blindno/ops/spectral_pallas.py"
     kernels = [
@@ -1911,7 +2373,7 @@ def main():
         k.update(launches=launches[k["name"]], max_abs_err=s["max_abs_err"], ms=s["kernel_ms"],
                  plain_ms=s["plain_ms"], bound_ms=s["bound_ms"], bound_by=s["bound_by"],
                  library_ms=s["library_ms"])
-    emit("done", wall_s=time.perf_counter() - t_start, nvidia_smi=smi_line)
+    emit("done", wall_s=time.perf_counter() - t_start, phase_s=phase_s, nvidia_smi=smi_line)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -17,8 +17,7 @@ tiny synthetic fpe2d archives with the suite's config but a small ``NIOFP2D`` an
   the port's CLI trains and evaluates ``--suite ncfpe2d --model fno`` into the JAX CLI's
   layout, and its eval on the weights JAX trained equals JAX's;
 - the port's eval of the committed ``runs/ckpt/ncfpe2d_unet`` (through ``from_flax``)
-  equals JAX's eval of it on the same synthetic 80x80 archive;
-- a suite, model or stage that is not ported exits non-zero naming its ROADMAP item.
+  equals JAX's eval of it on the same synthetic 80x80 archive.
 """
 import contextlib
 import csv
@@ -353,26 +352,6 @@ def test_ncfpe2d_unet_checkpoint_eval_matches_jax(tmp_path):
     report = evaluate_suite_model(spec, "unet", w, device="cpu")
     assert report["ckpt_epoch"] == 400
     _assert_eval_matches_jax(report, jreport, w, jw, "ncfpe2d", "unet", 2)
-
-
-NOT_PORTED_CASES = (
-    [(["--suite", "fpe2d", "--stage", stage], item)
-     for stage, item in registry.NOT_PORTED["stages"].items()]
-    + [(["--suite", suite, "--stage", "train"], item)
-       for suite, item in registry.NOT_PORTED["suites"].items()]
-    + [(["--suite", suite, "--model", model, "--stage", "eval"], item)
-       for suite, models in registry.NOT_PORTED["models"].items()
-       for model, item in models.items()])
-
-
-@pytest.mark.parametrize("argv,item", NOT_PORTED_CASES,
-                         ids=[" ".join(a[1::2]) for a, _ in NOT_PORTED_CASES])
-def test_unported_parts_exit_nonzero_naming_their_item(argv, item, tmp_path):
-    with pytest.raises(SystemExit) as exc:
-        main(argv + ["--workdir", str(tmp_path), "--device", "cpu"])
-    assert exc.value.code not in (0, None)
-    assert f"ROADMAP.md {item}" in str(exc.value.code)
-    assert not os.listdir(tmp_path)
 
 
 def test_cli_defaults_to_cuda(monkeypatch, tmp_path):

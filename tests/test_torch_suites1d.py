@@ -257,7 +257,8 @@ MODELS_1D = [(s, m) for s in SUITES_1D for m in registry.SUITES[s].models]
 def test_every_model_of_the_jax_registry_is_registered():
     assert {s: set(registry.SUITES[s].models) for s in SUITES_1D} == {
         s: set(jax_registry.SUITES[s].models) for s in SUITES_1D}
-    assert not registry.NOT_PORTED["suites"]
+    assert {s: set(spec.models) for s, spec in registry.SUITES.items()} == {
+        s: set(spec.models) for s, spec in jax_registry.SUITES.items()}
 
 
 @pytest.mark.parametrize("suite,model", MODELS_1D, ids=[f"{s}-{m}" for s, m in MODELS_1D])
