@@ -7,6 +7,11 @@ padding. Each layer runs through the CUDA kernel ``fno1d_layer_cuda`` or
 kernels' plain versions. Both train: where autograd needs a gradient, each layer runs
 the kernel without its gelu epilogue inside ``FNO1dLinear`` or ``FNO2dLinear`` and gelu
 after it; under ``no_grad`` or ``inference_mode`` the kernel applies gelu itself.
+
+``tp_group`` is None but in tensor-parallel training, where
+:func:`blindno_torch.parallel.tp.shard_fno_layers` has cut every layer to this rank's
+out-channel slice: each layer then runs its kernel on the slice, ``(Cin, Cout/tp)``, and
+the slices are gathered (:func:`~blindno_torch.parallel.tp.column_parallel`).
 """
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from blindno_torch.nn.torch_layers import gelu, linear
+from blindno_torch.parallel.tp import column_parallel
 from blindno_torch.ops.spectral_cuda import (fno1d_layer_cuda, fno2d_layer_cuda,
                                              spectral_conv1d_cuda, spectral_conv2d_cuda)
 from blindno_torch.utils import torch_init as tinit
@@ -68,6 +74,8 @@ class PointwiseConv(nn.Module):
 class FNO1d(nn.Module):
     """(B, N, input_dim) -> (B, N, output_dim)."""
 
+    tp_group = None  # the ``model`` process group once its layers are sharded
+
     def __init__(self, modes: int, width: int, n_layers: int, input_dim: int,
                  output_dim: int = 1, generator: torch.Generator | None = None):
         super().__init__()
@@ -89,6 +97,11 @@ class FNO1d(nn.Module):
         x = self.lift(x)
         last = len(self.spectral) - 1
         for k, (sc, pc) in enumerate(zip(self.spectral, self.pointwise)):
+            if self.tp_group is not None:
+                x = column_parallel(fno1d_layer_cuda, x, self.tp_group, sc.weights_re,
+                                    sc.weights_im, pc.weight.t(), pc.bias, dc_half=sc.dc_half,
+                                    apply_act=k != last)
+                continue
             x = fno1d_layer_cuda(x, sc.weights_re, sc.weights_im, pc.weight.t(), pc.bias,
                                  dc_half=sc.dc_half, apply_act=k != last)
         x = x[..., :n].permute(0, 2, 1)
@@ -97,6 +110,8 @@ class FNO1d(nn.Module):
 
 class FNO2d(nn.Module):
     """(B, H, W, input_dim) -> (B, H, W, output_dim)."""
+
+    tp_group = None  # the ``model`` process group once its layers are sharded
 
     def __init__(self, modes: int, width: int, n_layers: int, input_dim: int,
                  output_dim: int = 1, generator: torch.Generator | None = None):
@@ -120,6 +135,10 @@ class FNO2d(nn.Module):
         x = self.lift(x)
         last = len(self.spectral) - 1
         for k, (sc, pc) in enumerate(zip(self.spectral, self.pointwise)):
+            if self.tp_group is not None:
+                x = column_parallel(fno2d_layer_cuda, x, self.tp_group, sc.weights_re,
+                                    sc.weights_im, pc.weight.t(), pc.bias, apply_act=k != last)
+                continue
             x = fno2d_layer_cuda(x, sc.weights_re, sc.weights_im, pc.weight.t(), pc.bias,
                                  apply_act=k != last)
         x = x[..., :h, :w].permute(0, 2, 3, 1)

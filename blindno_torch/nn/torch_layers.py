@@ -12,6 +12,7 @@ average), with flax's running-variance update in train mode. :class:`ConvTranspo
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.nn.utils import skip_init
@@ -32,7 +33,14 @@ class _FlaxRunningVar:
     batch norm takes a bfloat16 input with float32 parameters and statistics), and the
     result has the input's dtype, as flax's ``dtype=float32`` plus the cast back gives.
     Eval mode is torch's, unchanged.
+
+    In data-parallel training ``sync_group`` is the ``data`` process group, when it has
+    more than one rank: the statistics are then the whole batch's, as JAX's jitted step
+    takes them over the global batch (:class:`_SyncedBatchNorm`), and the running
+    variance is flax's update with the global count.
     """
+
+    sync_group = None
 
     def forward(self, x):
         if not self.training:
@@ -41,6 +49,13 @@ class _FlaxRunningVar:
         # torch's factor: the momentum, or a cumulative average without one
         m = (self.momentum if self.momentum is not None
              else 1.0 / float(self.num_batches_tracked))
+        if self.sync_group is not None:
+            y, mean, var = _SyncedBatchNorm.apply(x, self.weight, self.bias, self.eps,
+                                                  self.sync_group)
+            with torch.no_grad():
+                self.running_mean.lerp_(mean, m)
+                self.running_var.lerp_(var, m)
+            return y
         mean, var = self.running_mean.clone(), self.running_var.clone()
         y = F.batch_norm(x, mean, var, self.weight, self.bias, True, m, self.eps)
         n = x.numel() // x.shape[1]
@@ -49,6 +64,53 @@ class _FlaxRunningVar:
             self.running_var.copy_(kept + (var - kept) * ((n - 1) / n))
             self.running_mean.copy_(mean)
         return y.to(x.dtype)
+
+
+class _SyncedBatchNorm(torch.autograd.Function):
+    """Train-mode batch norm over the rows of every rank of ``group``, in float32.
+
+    Each rank takes its per-channel count, mean and sum of squared deviations (M2); the
+    ranks gather them and combine them by Chan's formula (in float64), so no rank sums
+    squares about zero, which loses digits where a channel's mean is large against its
+    spread. Returns the output in the input's dtype and the global mean and biased
+    variance. Backward: the two reduced terms of ``dx`` (the sums of ``dy`` and of
+    ``dy * xhat``) are summed over the group; the weight's and the bias's gradients are
+    this rank's own sums, which data parallelism then averages as any other gradient."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        xf = x.float()
+        dims = [0, *range(2, x.dim())]
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        mean = xf.mean(dims)
+        m2 = (xf - mean.view(shape)).square().sum(dims)
+        local = torch.stack([torch.full_like(mean, xf.numel() // xf.shape[1]), mean, m2]).double()
+        parts = [torch.empty_like(local) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, local, group=group)
+        counts, means, m2s = torch.stack(parts).unbind(1)
+        n = counts.sum(0)
+        g_mean = (counts * means).sum(0) / n
+        var = ((m2s.sum(0) + (counts * (means - g_mean) ** 2).sum(0)) / n).float()
+        g_mean = g_mean.float()
+        invstd = torch.rsqrt(var + eps)
+        xhat = (xf - g_mean.view(shape)) * invstd.view(shape)
+        ctx.save_for_backward(xhat, weight, invstd)
+        ctx.n, ctx.group, ctx.dtype = float(n[0]), group, x.dtype
+        ctx.mark_non_differentiable(g_mean, var)
+        return (xhat * weight.view(shape) + bias.view(shape)).to(x.dtype), g_mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        xhat, weight, invstd = ctx.saved_tensors
+        dims = [0, *range(2, xhat.dim())]
+        shape = [1, -1] + [1] * (xhat.dim() - 2)
+        dy = dy.float()
+        sum_dy, sum_dy_xhat = dy.sum(dims), (dy * xhat).sum(dims)
+        total = torch.stack([sum_dy, sum_dy_xhat])
+        dist.all_reduce(total, group=ctx.group)
+        g_dy, g_dy_xhat = total / ctx.n
+        dx = (weight * invstd).view(shape) * (dy - g_dy.view(shape) - xhat * g_dy_xhat.view(shape))
+        return dx.to(ctx.dtype), sum_dy_xhat, sum_dy, None, None
 
 
 class BatchNorm1d(_FlaxRunningVar, nn.BatchNorm1d):

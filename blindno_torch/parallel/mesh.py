@@ -1,0 +1,228 @@
+"""Process groups, the ``(data, model)`` device mesh and the rank launcher (counterpart of
+``blindno/parallel/mesh.py``).
+
+JAX runs one jitted program on a mesh of 1 or N devices and XLA adds the collectives.
+The port runs one process per rank instead: :func:`init_distributed` joins the process
+group (torchrun's ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK``, or an explicit
+``file://`` store), :func:`data_model_mesh` lays the ranks out as JAX's
+``devices.reshape(n // n_model, n_model)`` does, and the training loop adds the
+collectives itself (:mod:`blindno_torch.parallel.tp`,
+:class:`blindno_torch.nn.torch_layers.BatchNorm2d`, ``DistributedDataParallel``).
+:func:`run_ranks` spawns a group of ranks on one host, for the CPU tests, the dry run
+and ``chip_smoke.py``.
+"""
+from __future__ import annotations
+
+import multiprocessing
+import os
+import shutil
+import tempfile
+import time
+import traceback
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from blindno_torch import default_device
+
+
+def world_size() -> int:
+    """The ranks of the process group that is up, else torchrun's ``WORLD_SIZE`` (1 when
+    unset)."""
+    return dist.get_world_size() if dist.is_initialized() else int(os.environ.get("WORLD_SIZE", 1))
+
+
+def is_distributed() -> bool:
+    """Whether this process is one rank of several, or runs in a process group already
+    up (a group of one included)."""
+    return dist.is_initialized() or world_size() > 1
+
+
+def init_distributed(backend: str | None = None, init_method: str | None = None,
+                     device=None) -> torch.device:
+    """Join the process group (once) and return this rank's device.
+
+    The rank and world size come from torchrun's ``RANK`` and ``WORLD_SIZE``; the store
+    is ``init_method`` (e.g. ``file:///tmp/store``), else torchrun's ``env://``. The
+    device is ``device`` (CUDA unless the caller asks otherwise), and on CUDA the card
+    ``LOCAL_RANK % device_count``, made current. The backend is ``backend``, else
+    ``nccl`` on CUDA and ``gloo`` on the CPU."""
+    dev = default_device(device)
+    if dev.type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", os.environ.get("RANK", 0)))
+        dev = torch.device("cuda", local % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    if not dist.is_initialized():
+        dist.init_process_group(backend or ("nccl" if dev.type == "cuda" else "gloo"),
+                                init_method=init_method or "env://",
+                                rank=int(os.environ.get("RANK", 0)), world_size=world_size())
+    return dev
+
+
+def data_parallel_size(world: int, batch_size: int) -> int:
+    """JAX's ``data_mesh(batch_size=...)`` rule (``blindno/parallel/mesh.py:19-28``): the
+    largest rank count <= ``world`` that divides ``batch_size``."""
+    n = world
+    while n > 1 and batch_size % n:
+        n -= 1
+    return n
+
+
+def mesh_layout(world: int, n_model: int = 1) -> np.ndarray:
+    """The ranks laid out as JAX's ``data_model_mesh`` lays out its devices
+    (``blindno/parallel/mesh.py:31-35``): ``arange(world).reshape(world // n_model,
+    n_model)``, so rank r sits at ``(r // n_model, r % n_model)``. Raises ``ValueError``
+    when ``n_model`` does not divide ``world``, where JAX's assert fails."""
+    if n_model < 1 or world % n_model:
+        raise ValueError(f"{world} rank(s) not divisible by tp={n_model} (the model axis)")
+    return np.arange(world).reshape(world // n_model, n_model)
+
+
+def data_model_mesh(n_model: int = 1, device_type: str = "cuda"):
+    """The process group's ranks as a ``DeviceMesh`` with axes ``("data", "model")``,
+    laid out by :func:`mesh_layout`."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    return DeviceMesh(device_type, mesh_layout(world_size(), n_model),
+                      mesh_dim_names=("data", "model"))
+
+
+def shard_batch(x, mesh):
+    """This rank's rows of the global batch ``x``: the ``data`` axis' contiguous block, as
+    JAX's ``P("data")`` sharding places them. Raises ``ValueError`` unless the axis
+    divides the batch."""
+    n, i = mesh.size(0), mesh.get_local_rank("data")
+    if x.shape[0] % n:
+        raise ValueError(f"batch of {x.shape[0]} not divisible by the data axis ({n})")
+    rows = x.shape[0] // n
+    return x[i * rows:(i + 1) * rows]
+
+
+def replicate(module):
+    """Broadcast every parameter and buffer of ``module`` from rank 0, in place, one flat
+    broadcast per dtype; returns ``module``."""
+    items = list(module.parameters()) + list(module.buffers())
+    with torch.no_grad():
+        for dtype in sorted({t.dtype for t in items}, key=str):  # one order on every rank
+            same = [t for t in items if t.dtype == dtype]
+            flat = torch.cat([t.reshape(-1) for t in same])
+            dist.broadcast(flat, 0)
+            for t, part in zip(same, flat.split([t.numel() for t in same])):
+                t.copy_(part.view_as(t))
+    return module
+
+
+def is_main_process() -> bool:
+    """Rank 0, or the only process (reference: ``accelerator.is_local_main_process``)."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def barrier():
+    """Wait for every rank; nothing to wait for in a single process."""
+    if dist.is_initialized():
+        dist.barrier()
+
+
+# ------------------------------------------------------------------ the rank launcher
+
+
+def _worker(jobs, workdir, initializer):
+    """A spawned worker: on one torch thread and after ``initializer()``, run each job
+    that arrives as one rank of a new process group (a ``file://`` store in
+    ``workdir``), leave its result or its traceback in ``workdir``, and leave the group.
+    A job that fails ends the worker: the other ranks of its group may be waiting for
+    it."""
+    torch.set_num_threads(1)
+    if initializer is not None:
+        initializer()
+    while (job := jobs.get()) is not None:
+        tag, fn, args, rank, world, device, backend = job
+        out = os.path.join(workdir, f"{tag}.{rank}")
+        os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
+        try:
+            init_distributed(backend, f"file://{os.path.join(workdir, f'{tag}.store')}", device)
+            torch.save(fn(*args), out + ".tmp")
+            os.replace(out + ".tmp", out + ".pt")
+        except BaseException:
+            with open(out + ".err", "w") as f:
+                f.write(traceback.format_exc())
+            raise
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+
+
+class RankPool:
+    """``size`` spawned worker processes that run groups of ranks on this host, one group
+    at a time: :meth:`run` makes workers 0 to ``world - 1`` the ranks of a new process
+    group. The workers import torch once, so a run after the first starts in well under
+    a second. ``initializer``, a picklable function, runs first in each worker (to set
+    the backends' flags, say). Use it as a context manager; a run that fails or times
+    out closes the pool."""
+
+    def __init__(self, size: int, initializer=None):
+        self.workdir = tempfile.mkdtemp(prefix="ranks_")
+        ctx = multiprocessing.get_context("spawn")
+        self.queues = [ctx.SimpleQueue() for _ in range(size)]
+        self.procs = [ctx.Process(target=_worker, args=(q, self.workdir, initializer),
+                                  daemon=True) for q in self.queues]
+        self.runs = 0
+        for p in self.procs:
+            p.start()
+
+    def run(self, fn, world: int, *args, device="cpu", backend: str | None = None,
+            timeout: float = 300.0):
+        """``fn(*args)`` in ``world`` ranks and their results, rank by rank.
+
+        ``fn`` must be importable without JAX (a spawned worker imports its module) and
+        its arguments and result picklable; pass arrays as numpy. Each rank runs on
+        ``device`` (on CUDA the card ``rank % device_count``) over ``backend``
+        (:func:`init_distributed`'s default unless given). Raises ``RuntimeError`` with
+        the traceback of the first rank that fails and ``TimeoutError`` after
+        ``timeout`` seconds; either way every worker is stopped first."""
+        if world > len(self.procs):
+            raise ValueError(f"{world} ranks asked of a pool of {len(self.procs)}")
+        tag, self.runs = f"run{self.runs}", self.runs + 1
+        for rank in range(world):
+            self.queues[rank].put((tag, fn, args, rank, world, device, backend))
+        files = [os.path.join(self.workdir, f"{tag}.{r}") for r in range(world)]
+        deadline = time.monotonic() + timeout
+        try:
+            while not all(os.path.exists(f + ".pt") for f in files):
+                for r, f in enumerate(files):  # the others may wait for it: stop them
+                    if os.path.exists(f + ".err") or self.procs[r].exitcode is not None:
+                        time.sleep(0.2)  # its traceback is written before it exits
+                        text = open(f + ".err").read() if os.path.exists(f + ".err") else ""
+                        raise RuntimeError(f"rank {r} of {world} ({fn.__name__}) failed "
+                                           f"(exit {self.procs[r].exitcode}):\n{text}")
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"{world} ranks of {fn.__name__} still running after "
+                                       f"{timeout} s")
+                time.sleep(0.01)
+        except BaseException:
+            self.close()
+            raise
+        return [torch.load(f + ".pt", weights_only=False) for f in files]
+
+    def close(self):
+        """Stop every worker (those that do not finish at once are killed) and remove the
+        pool's files."""
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+        shutil.rmtree(self.workdir, ignore_errors=True)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def run_ranks(fn, world: int, *args, device="cpu", backend: str | None = None,
+              timeout: float = 300.0):
+    """:meth:`RankPool.run` in a pool of ``world`` workers of its own."""
+    with RankPool(world) as pool:
+        return pool.run(fn, world, *args, device=device, backend=backend, timeout=timeout)

@@ -13,6 +13,16 @@ and ``--seed`` + 1000, an existing archive kept unless ``--force``); checkpoints
 under ``ckpt/{suite}_{model}/``, the metrics JSONL and the run's summary under ``logs/``,
 and the eval's metrics and predictions and the time-error report under
 ``eval/{suite}_{model}/``. ``--device`` picks the device (``cuda`` by default).
+
+The train stage also runs data- and tensor-parallel, one process per rank under
+torchrun (``--tp K`` shards the FNO layers' channels over K of them; the batch shards
+over the rest)::
+
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m blindno_torch.suites.run --suite fpe2d --model nio --stage train --workdir W --tp 2
+
+Each rank takes the card ``LOCAL_RANK``; with ``--device cpu`` the ranks run over gloo.
+The other stages run in one process.
 """
 from __future__ import annotations
 
@@ -55,6 +65,7 @@ def _load_npz(path):
 
 
 def stage_train(spec, args):
+    from blindno_torch.parallel.mesh import init_distributed, is_distributed, is_main_process
     from blindno_torch.train.loop import train_model
 
     data = spec.loader(_load_npz(_data_path(args.workdir, spec.train_file)))
@@ -66,11 +77,18 @@ def stage_train(spec, args):
         seed=args.seed,
         **({"tp": args.tp} if args.tp else {}),
     )
-    dev = default_device(args.device)
-    model = spec.models[args.model](generator=torch.Generator().manual_seed(args.seed),
-                                    device=dev)
-    print(f"[{spec.name}/{args.model}] training {cfg.epochs} epochs on {dev}...")
-    res = train_model(model, data, spec.grid, cfg, device=dev)
+    dev = init_distributed(device=args.device) if is_distributed() else default_device(args.device)
+    try:
+        model = spec.models[args.model](generator=torch.Generator().manual_seed(args.seed),
+                                        device=dev)
+        if is_main_process():
+            print(f"[{spec.name}/{args.model}] training {cfg.epochs} epochs on {dev}...")
+        res = train_model(model, data, spec.grid, cfg, device=dev)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    if not is_main_process():
+        return res
     print(f"[{spec.name}/{args.model}] best test rel-L2 (sum over fields): {res.best_test_loss:.6f}")
     summary_path = os.path.join(args.workdir, "logs", f"{spec.name}_{args.model}_summary.json")
     with open(summary_path, "w") as fh:
@@ -109,7 +127,9 @@ def main(argv=None):
     p.add_argument("--m-test", type=int, default=None)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--tp", type=int, default=None,
-                   help="tensor-parallel factor (only 1 is ported; ROADMAP.md A.10)")
+                   help="tensor-parallel factor: shard FNO channel dims over a 'model' "
+                        "mesh axis of this many ranks; the batch shards over the "
+                        "remaining ranks (data axis). Default: registry config (1).")
     p.add_argument("--force", action="store_true")
     p.add_argument("--device", default="cuda",
                    help="the device to run the stage on (default: cuda)")
@@ -120,6 +140,9 @@ def main(argv=None):
             f"unknown model {args.model!r} for suite {args.suite!r}; "
             f"choose from: {', '.join(sorted(spec.models))}"
         )
+    if args.stage != "train" and int(os.environ.get("WORLD_SIZE", 1)) > 1:
+        p.error(f"--stage {args.stage} runs in one process; only the train stage runs "
+                "across ranks")
     os.makedirs(os.path.join(args.workdir, "logs"), exist_ok=True)
     return {"datagen": stage_datagen, "train": stage_train, "eval": stage_eval,
             "time-error": stage_time_error}[args.stage](spec, args)

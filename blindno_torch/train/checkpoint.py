@@ -8,13 +8,21 @@ the optimizer's ``state_dict()``, the epoch and the best loss. ``params`` are th
 model's named parameters and ``batch_stats`` its named buffers (the BatchNorm running
 statistics). The JAX package's orbax and msgpack files are not read; the committed
 flax checkpoints go through :func:`blindno_torch.convert.from_flax`.
+
+Among several ranks, only rank 0 writes, and every rank waits for it at a barrier: the
+state it is handed is the whole, unsharded one (``blindno_torch.parallel.tp.gather_state``),
+as JAX's ``jax.device_get`` writes it, so a file loads into a single-process model and a
+run resumes at any ``tp``.
 """
 from __future__ import annotations
 
+import functools
 import glob
 import os
 
 import torch
+
+from blindno_torch.parallel.mesh import barrier, is_main_process
 
 RESUME = "resume.pt"
 
@@ -39,6 +47,20 @@ def _detached(tree: dict) -> dict:
     return {k: v.detach() for k, v in tree.items()}
 
 
+def _main_writes(save):
+    """``save`` run by rank 0 alone (or the only process); every rank then waits at a
+    barrier, so no rank reads or replaces a file that is still being written."""
+
+    @functools.wraps(save)
+    def wrapper(*args, **kwargs):
+        path = save(*args, **kwargs) if is_main_process() else None
+        barrier()
+        return path
+
+    return wrapper
+
+
+@_main_writes
 def save_best(ckpt_dir: str, params: dict, batch_stats: dict, epoch: int, test_loss: float):
     """Save best params/batch_stats to ``{dir}/best_{loss:.6f}_e{epoch}``.
 
@@ -104,6 +126,7 @@ def load_best_as_warm_restart(ckpt_dir: str, params_target: dict, batch_stats_ta
             "epoch": int(raw["epoch"]), "test_loss": float(raw["test_loss"])}
 
 
+@_main_writes
 def save_resume(ckpt_dir: str, params: dict, batch_stats: dict, opt_state: dict, epoch: int,
                 best_loss: float):
     """Full resume state (params, batch statistics, ``optimizer.state_dict()``, epoch,

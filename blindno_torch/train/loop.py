@@ -10,6 +10,15 @@ read back before its end: the epoch's order and its group elements are drawn at 
 start from a CPU generator, the set subsamples from a generator on the device, and
 the step losses are stacked and read once. Each step's body is
 :func:`blindno_torch.train.step.train_step`.
+
+Run as several ranks (torchrun's ``WORLD_SIZE`` > 1, or in a process group already up),
+the loop trains data- and tensor-parallel as JAX's does on a ``(data, model)`` mesh
+(``blindno/train/loop.py:275-295``): the model is sharded and wrapped by
+:func:`blindno_torch.parallel.distribute`, every rank draws the same batches, group
+elements and set subsamples from the same seed and takes its rows of each batch, the
+step losses and eval sums are reduced over ``data``, and rank 0's findings (the losses,
+the stop file) decide for every rank. Checkpoints hold the whole, unsharded state, and
+only rank 0 writes them and the log.
 """
 from __future__ import annotations
 
@@ -20,10 +29,15 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from blindno_torch import default_device
 from blindno_torch.data.datasets import SetToFieldData, eval_batches, train_test_split
 from blindno_torch.eval.metrics import relative_l2_per_field
+from blindno_torch.parallel import distribute, undistribute
+from blindno_torch.parallel.mesh import (data_model_mesh, data_parallel_size, init_distributed,
+                                         is_distributed, world_size)
+from blindno_torch.parallel.tp import gather_state
 from blindno_torch.train import checkpoint
 from blindno_torch.train.step import check_compute_dtype, make_optimizer, train_step
 from blindno_torch.utils.logging import MetricsLogger, trace
@@ -32,9 +46,10 @@ from blindno_torch.utils.logging import MetricsLogger, trace
 @dataclass
 class TrainConfig:
     """The JAX package's fields and defaults (``blindno/train/loop.py:38-139``, where
-    each field's note is). The port refuses ``epoch_scan=True`` (a JAX-only fusion),
-    ``tp > 1`` (multi-GPU, ``ROADMAP.md`` A.10) and any mixed precision other than
-    ``compute_dtype="bfloat16"`` with ``amp_policy="encoder_bn32"``."""
+    each field's note is). The port refuses ``epoch_scan=True`` (a JAX-only fusion) and
+    any mixed precision other than ``compute_dtype="bfloat16"`` with
+    ``amp_policy="encoder_bn32"``; ``tp`` must divide the ranks, and the rest of them
+    (the ``data`` axis) the batch."""
 
     epochs: int = 400
     batch_size: int = 32
@@ -143,9 +158,6 @@ def _check_config(cfg: TrainConfig):
     if cfg.epoch_scan:
         raise ValueError("epoch_scan=True is a JAX-only fusion (one lax.scan per epoch); "
                          "the port runs the per-step loop")
-    if cfg.tp > 1:
-        raise ValueError(f"tp={cfg.tp}: tensor-parallel training is not ported yet "
-                         "(ROADMAP.md A.10)")
     if cfg.compute_dtype is not None and (cfg.compute_dtype, cfg.amp_policy) != (
             "bfloat16", "encoder_bn32"):
         raise ValueError(f"compute_dtype={cfg.compute_dtype!r} with amp_policy="
@@ -162,9 +174,42 @@ def _split_to_device(arr, idx, dtype, device):
     return out
 
 
-def _state(model):
-    """(params, batch_stats) of ``model``: its named parameters and named buffers."""
-    return (dict(model.named_parameters()), dict(model.named_buffers()))
+def _state(model, gathered=False):
+    """(params, batch_stats) of ``model``: its named parameters and named buffers; with
+    ``gathered``, as one process holds them (a collective over the ``model`` axis)."""
+    if not gathered:
+        return (dict(model.named_parameters()), dict(model.named_buffers()))
+    return _split(model, gather_state(model))
+
+
+def _split(model, state: dict):
+    """A state dict of ``model`` as (params, batch_stats)."""
+    names = dict(model.named_parameters())
+    return ({k: state[k] for k in names}, {k: v for k, v in state.items() if k not in names})
+
+
+def _check_world(cfg: TrainConfig) -> int:
+    """The ``data`` axis' size; raises ``ValueError`` unless ``tp`` divides the ranks and
+    the data axis divides the batch. Idle ranks would hang the group, so the port
+    refuses where JAX would leave the extra devices out of its mesh."""
+    world = world_size()
+    if cfg.tp < 1 or world % cfg.tp:
+        raise ValueError(f"tp={cfg.tp}: {world} rank(s) not divisible by tp (the model axis)")
+    n_data = world // cfg.tp
+    if cfg.batch_size % n_data:
+        fit = data_parallel_size(n_data, cfg.batch_size)
+        raise ValueError(f"batch_size={cfg.batch_size} not divisible by the data axis "
+                         f"({n_data} = {world} ranks / tp={cfg.tp}); run {fit * cfg.tp} "
+                         f"ranks (data axis {fit})")
+    return n_data
+
+
+def _from_rank0(values, device) -> np.ndarray:
+    """``values`` as rank 0 holds them, on every rank: what rank 0 found decides for all
+    (a rank that decided alone would leave the others waiting in a collective)."""
+    t = torch.tensor(values, dtype=torch.float64, device=device)
+    dist.broadcast(t, 0)
+    return t.cpu().numpy()
 
 
 def _copy(tree: dict) -> dict:
@@ -210,6 +255,8 @@ def train_model(model, data: SetToFieldData, grid, cfg: TrainConfig, *,
     """
     _check_config(cfg)
     check_compute_dtype(model, cfg.compute_dtype)
+    n_data = _check_world(cfg)
+    distributed = is_distributed()
     aug_fns = make_augment(cfg.augment)
     if cfg.augment == "flip1d":
         if data.inputs.ndim != 3:
@@ -221,7 +268,7 @@ def train_model(model, data: SetToFieldData, grid, cfg: TrainConfig, *,
         raise ValueError(
             f"augment={cfg.augment!r} needs square (B, L, H, W) inputs, "
             f"got {data.inputs.shape}")
-    dev = default_device(device)
+    dev = init_distributed(device=device) if distributed else default_device(device)
     model.to(dev)
     n = data.inputs.shape[0]
     train_idx, test_idx = train_test_split(n, cfg.train_frac, cfg.split_seed)
@@ -273,6 +320,14 @@ def train_model(model, data: SetToFieldData, grid, cfg: TrainConfig, *,
                       f"epoch {best['epoch']} (best {best_loss:.6f}; Adam moments "
                       f"reset, lr schedule advanced to step {done_steps})")
 
+    net, rows = model, slice(None)
+    if distributed:
+        mesh = data_model_mesh(cfg.tp, dev.type)
+        net, data_group = distribute(model, mesh, opt), mesh.get_group("data")
+        share = cfg.batch_size // n_data
+        rows = slice(mesh.get_local_rank("data") * share, (mesh.get_local_rank("data") + 1) * share)
+
+    # every rank draws from the same seed: the same batches, elements and subsamples
     seed = _segment_seed(cfg.seed, start_epoch)
     gen = torch.Generator(device=dev).manual_seed(seed)
     if draws is None:
@@ -289,26 +344,41 @@ def train_model(model, data: SetToFieldData, grid, cfg: TrainConfig, *,
                 errs = relative_l2_per_field(out, y_test.index_select(0, idx),
                                              cfg.reference_denominator)
                 sums = sums + (errs * mask[:, None]).sum(0)
-            sums = sums.cpu().numpy()
+            if distributed:
+                dist.all_reduce(sums, group=data_group)
+                sums = _from_rank0(sums.tolist(), dev)
+            else:
+                sums = sums.cpu().numpy()
         model.train()
         return sums
 
+    def resume_state():
+        """(params, batch_stats, optimizer state) as one process holds them."""
+        if not distributed:
+            return (*_state(model), opt.state_dict())
+        full, opt_state = gather_state(model, opt)
+        return (*_split(model, full), opt_state)
+
+    def stop_requested():
+        found = os.path.exists(cfg.stop_file)
+        return bool(_from_rank0([float(found)], dev)[0]) if distributed else found
+
     logger = MetricsLogger(cfg.log_path)
-    best_params, best_stats = map(_copy, _state(model))
+    best_params, best_stats = map(_copy, _state(model, distributed))
     history = []
     n_test = test_idx.shape[0]
-    test_batches = [(torch.as_tensor(i, device=dev), torch.as_tensor(m, device=dev))
+    test_batches = [(torch.as_tensor(i[rows], device=dev), torch.as_tensor(m[rows], device=dev))
                     for i, m in eval_batches(n_test, cfg.batch_size)]
 
     best_epoch = start_epoch - 1
     finished = True  # any break below (divergence/preemption) flips it
     global_step = (start_epoch - 1) * steps_per_epoch
-    model.train()
+    net.train()
     for epoch in range(start_epoch, cfg.epochs + 1):
         # one steady-state epoch (after the first two) traced, SURVEY 5.1 hook
         with trace(cfg.profile_dir if epoch == start_epoch + 2 else None):
             batch_idx, elements, subsamples = draws(epoch, steps_per_epoch)
-            batch_idx = torch.as_tensor(batch_idx, dtype=torch.long).to(dev)
+            batch_idx = torch.as_tensor(batch_idx, dtype=torch.long)[:, rows].to(dev)
             t0 = time.perf_counter()
             losses = []
             for i in range(steps_per_epoch):
@@ -319,11 +389,15 @@ def train_model(model, data: SetToFieldData, grid, cfg: TrainConfig, *,
                 for group in opt.param_groups:
                     group["lr"] = schedule(global_step)
                 losses.append(train_step(
-                    model, opt, xb, yb, grid, compute_dtype=cfg.compute_dtype,
+                    net, opt, xb, yb, grid, compute_dtype=cfg.compute_dtype,
                     generator=None if subsamples else gen,
                     subsample=subsamples[i] if subsamples else None))
                 global_step += 1
-            train_loss = float(torch.stack(losses).mean())
+            train_loss = torch.stack(losses).mean()
+            if distributed:
+                dist.all_reduce(train_loss, group=data_group)
+                train_loss = _from_rank0([train_loss.item() / n_data], dev)[0]
+            train_loss = float(train_loss)
             dt = time.perf_counter() - t0
 
             if not np.isfinite(train_loss):
@@ -355,28 +429,28 @@ def train_model(model, data: SetToFieldData, grid, cfg: TrainConfig, *,
                 if test_loss < best_loss:
                     best_loss = test_loss
                     best_epoch = epoch
-                    best_params, best_stats = map(_copy, _state(model))
+                    best_params, best_stats = map(_copy, _state(model, distributed))
                     if cfg.ckpt_dir:
                         checkpoint.save_best(cfg.ckpt_dir, best_params, best_stats, epoch,
                                              best_loss)
                 if cfg.ckpt_dir:
-                    checkpoint.save_resume(cfg.ckpt_dir, *_state(model), opt.state_dict(),
-                                           epoch, best_loss)
+                    checkpoint.save_resume(cfg.ckpt_dir, *resume_state(), epoch, best_loss)
                 if (cfg.early_stop_patience is not None
                         and epoch - best_epoch >= cfg.early_stop_patience):
                     logger.log({"event": "early_stop", "epoch": epoch,
                                 "best_epoch": best_epoch, "best_loss": best_loss})
                     break
 
-            if cfg.stop_file and os.path.exists(cfg.stop_file):
+            if cfg.stop_file and stop_requested():
                 if cfg.ckpt_dir:
-                    checkpoint.save_resume(cfg.ckpt_dir, *_state(model), opt.state_dict(),
-                                           epoch, best_loss)
+                    checkpoint.save_resume(cfg.ckpt_dir, *resume_state(), epoch, best_loss)
                 logger.log({"event": "preempted", "epoch": epoch})
                 finished = False
                 break
 
     logger.close()
+    if distributed:
+        undistribute(net)
     model.eval()
     params, stats = map(_copy, _state(model))
     return TrainResult(params, stats, best_params, best_stats, best_loss, history,

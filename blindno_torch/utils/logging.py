@@ -1,7 +1,8 @@
 """Structured metrics logging and profiling hooks (counterpart of
 ``blindno/utils/logging.py``).
 
-Metrics go to a JSONL file and are echoed to stderr; :func:`trace` wraps
+Metrics go to a JSONL file and are echoed to stderr, by rank 0 alone among several
+ranks; :func:`trace` wraps
 ``torch.profiler`` and writes one Chrome trace (host and, on a card, device activity)
 into the directory it is given.
 """
@@ -15,9 +16,13 @@ import time
 
 import torch
 
+from blindno_torch.parallel.mesh import is_main_process
+
 
 class MetricsLogger:
     def __init__(self, path: str | None = None, echo: bool = True):
+        if not is_main_process():
+            path, echo = None, False
         self.path = path
         self.echo = echo
         if path:

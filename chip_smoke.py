@@ -9,7 +9,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``. It
 3. holds each kernel against its plain PyTorch version at the serving paths' shapes
    (in 1-D the gpe1d heads' among them, and the 1-D training shapes at batch 32), a
    ragged one and, in 2-D, the ncfpe2d heads' and the NIOFNO2D inner branch's shapes on
-   the fpe2d and the ncfpe2d grid,
+   the fpe2d and the ncfpe2d grid and the heads' layer as tensor parallelism slices it
+   (``TP_SLICE``: Cout 6 of 12),
    and times kernel, plain version and a ``torch.fft`` restatement on
    the device (each replayed from a CUDA graph, so host launch costs drop out; the
    kernel's replayed output is held against the plain version too), the wrapper's host
@@ -77,14 +78,21 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``. It
    the fpe1d NIO for an epoch and a resumed one, the gpe1d UNet for an epoch, each then
    the eval stage; launches exact, no host synchronization in a step, predictions with
    and without the flip average against the CPU;
-13. serves and trains the Transolver NIOs (phase ``trans``): the fpe2d suite's
+13. trains NIOFP2D data- and tensor-parallel (phase ``parallel``): phase 8's step in
+   ranks spawned on the card (``blindno_torch.parallel``), one rank over NCCL through
+   the DDP path bit for bit against the single-process step, two ranks over gloo (DP 2)
+   and four over gloo (a 2 x 2 mesh, tp=2: each rank's ``fno2d_layer`` launches 6 a
+   step at the sliced shape, Cout 6 of 12) within phase 8's tolerances, and two ranks
+   over NCCL on two cards where the host has them; each case's steps per second and
+   wall time; the sliced layer is timed in phase 3;
+14. serves and trains the Transolver NIOs (phase ``trans``): the fpe2d suite's
    ``NIOTrans2D`` and ``NIOTransAttn2D`` (Transolver weights drawn at random) through
    ``predict_fields`` on 8 sets of 100 snapshots of 61x61, batch 4, against the CPU,
    timed and split on the device between the Transolver, the attention, the fusion and
    the heads, with peak memory; one float32 step of each on ``bench.py``'s batch against
    the CPU's step, 6 ``fno2d_layer`` launches a forward or step counted exactly, and
    twenty timed steps whose loss must fall;
-14. generates every FPE and GPE suite's archives through the CLI (phase ``datagen``) at
+15. generates every FPE and GPE suite's archives through the CLI (phase ``datagen``) at
    each suite's full grid and time axis and a few sets (64 fpe1d, 256 gpe1d, 8 fpe2d, 2
    ncfpe2d), with TF32 on for matrix products, timed per set: the parameters equal to a
    CPU run's bit for bit, the trajectories within 1e-3 of the CPU's on the first set (of
@@ -92,7 +100,7 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``. It
    time-error stage through the CLI on an fpe1d NIO and a gpe1d FNO-branch NIO trained
    for one epoch on those archives, and on one fpe2d sample of an untrained
    ``NIOTrans2D``, each against the CPU's errors;
-15. prints one JSON line per phase, the nvidia-smi line, the kernels line, and last
+16. prints one JSON line per phase, the nvidia-smi line, the kernels line, and last
    ``{"ok": true, "device": {...}}``.
 
 Every path runs with all four kernels' launch counts set to 0 just before it and read
@@ -100,9 +108,10 @@ just after. Any failed check raises, and the script exits non-zero without the l
 line. TF32 is off for matmul and cuDNN throughout, so every comparison is in full
 float32, except around the datagen stage, where the solver must turn it off itself.
 
-The CPU references of phases 13 and 14 run in CPU_WORKERS worker processes, started
+The CPU references of phases 14 and 15 run in CPU_WORKERS worker processes, started
 before the build on the cores it leaves idle and stopped (SIGSTOP) from the build's end
-until after phase 12: phases 3 to 12 run with no other process of this script running.
+until after phase 13: phases 3 to 13 run with no other process of this script running
+but phase 13's ranks.
 """
 from __future__ import annotations
 
@@ -143,6 +152,10 @@ NCFPE2D_HEADS = (4, 12, 100, 100, 32, 32)
 NIOFNO2D_INNER = (400, 4, 76, 76, 12, 12)
 # the same inner FNO2d on the ncfpe2d suite's 80x80 grid, padded to 100x100
 NCFPE2D_INNER = (400, 4, 100, 100, 12, 12)
+# (B, C, H, W, m1, m2, Cout): the heads' layer sliced for tensor parallelism, as phase
+# parallel's 2 x 2 mesh runs it: 2 of bench.py's 4 sets a data rank, 6 of 12 output
+# channels a model rank
+TP_SLICE = (2, 12, 76, 76, 32, 32, 6)
 # 1-D (B, C, N, modes, dc_half): the fpe1d heads' layers at batch 16, the FNO-branch
 # model's inner FNO1d over 16 x 100 snapshots, the gpe1d NIO heads (width 20, 40 modes,
 # 128 points padded to 160; blindno/suites/registry.py:139-141), and a ragged shape
@@ -309,31 +322,34 @@ def fft_flops(n, real):
 
 def layer_bound(shape, epilogue):
     """Least time for one layer call, 1-D shape (B, C, N, modes) or 2-D shape
-    (B, C, H, W, m1, m2): the larger of its bytes (inputs read once, output written
-    once) over the memory rate and the least operations that compute it over the f32
-    peak. The least operations do the truncated transforms as FFTs: the kernels' dense
-    DFT products (``mflop_dense_dft``, reported beside) are their own algorithm, not
-    what the function needs."""
+    (B, C, H, W, m1, m2[, Cout]): the larger of its bytes (inputs read once, output
+    written once) over the memory rate and the least operations that compute it over the
+    f32 peak. The least operations do the truncated transforms as FFTs: the kernels'
+    dense DFT products (``mflop_dense_dft``, reported beside) are their own algorithm,
+    not what the function needs. The forward transforms run over the C input channels,
+    the inverse ones over the Cout output channels."""
     if len(shape) == 4:
         b, c, n, m = shape
+        o = c
         dense = b * c * n * m * 4 + b * c * c * m * 8 + b * c * m * n * 4
         least = 2 * b * c * fft_flops(n, True) + b * c * c * m * 8
         floats = 2 * b * c * n + 2 * c * c * m
         points = b * c * n
     else:
-        b, c, h, w, m1, m2 = shape
+        b, c, h, w, m1, m2 = shape[:6]
+        o = shape[6] if len(shape) > 6 else c
         k = 2 * m1
-        dense = (b * c * h * m2 * w * 4 + b * c * k * m2 * h * 8 + b * c * c * k * m2 * 8
-                 + b * c * h * m2 * k * 8 + b * c * h * w * m2 * 4)
-        least = (2 * b * c * h * fft_flops(w, True) + 2 * b * c * m2 * fft_flops(h, False)
-                 + b * c * c * k * m2 * 8)
-        floats = 2 * b * c * h * w + 2 * c * c * k * m2
-        points = b * c * h * w
+        dense = (b * c * h * m2 * w * 4 + b * c * k * m2 * h * 8 + b * c * o * k * m2 * 8
+                 + b * o * h * m2 * k * 8 + b * o * h * w * m2 * 4)
+        least = (b * (c + o) * h * fft_flops(w, True) + b * (c + o) * m2 * fft_flops(h, False)
+                 + b * c * o * k * m2 * 8)
+        floats = b * (c + o) * h * w + 2 * c * o * k * m2
+        points = b * o * h * w
     if epilogue:
         pointwise = points * (2 * c + 1)
         dense += pointwise
         least += pointwise
-        floats += c * c + c
+        floats += c * o + o
     t_ops, t_bytes = least / PEAK_F32_FLOP_S, 4 * floats / PEAK_BYTES_S
     return dict(bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
@@ -370,8 +386,9 @@ def layer_inputs(shape, device):
     if len(shape) == 5:
         b, c, n, m, dc_half = shape
         return t(b, c, n), t(c, c, m), t(c, c, m), t(c, c), t(c), dc_half
-    b, c, h, w, m1, m2 = shape
-    return t(b, c, h, w), t(c, c, 2 * m1, m2), t(c, c, 2 * m1, m2), t(c, c), t(c)
+    b, c, h, w, m1, m2 = shape[:6]
+    o = shape[6] if len(shape) > 6 else c  # Cout
+    return t(b, c, h, w), t(c, o, 2 * m1, m2), t(c, o, 2 * m1, m2), t(c, o), t(o)
 
 
 def check_and_time(cases, variants, library, tol, stats):
@@ -450,7 +467,8 @@ def phase_kernels():
     with torch.inference_mode():
         check_and_time([(MAIN_SHAPE, True, True), (RAGGED_SHAPE, False, False),
                         (NCFPE2D_HEADS, True, False), (NIOFNO2D_INNER, True, False),
-                        (NCFPE2D_INNER, True, False), (FIT_SHAPE, True, False)],
+                        (NCFPE2D_INNER, True, False), (FIT_SHAPE, True, False),
+                        (TP_SLICE, True, False)],
                        variants_2d, library, KERNEL_TOL, stats)
         check_and_time([(HEADS_1D, True, True), (RAGGED_1D, False, False)],
                        [layer_1d(True), layer_1d(False), spectral_1d], library,
@@ -2063,6 +2081,132 @@ def phase_fit1d(smi_line):
     return launches
 
 
+# phase parallel: (case, ranks, tp, backend); NCCL takes one rank per card, so the
+# cases of several ranks on one card run over gloo, their compute on the card
+PARALLEL_CASES = [("a_nccl_1rank", 1, 1, "nccl"), ("b_gloo_dp2", 2, 1, "gloo"),
+                  ("c_gloo_dp2_tp2", 4, 2, "gloo")]
+PARALLEL_TWO_CARDS = ("d_nccl_dp2_two_cards", 2, 1, "nccl")
+PARALLEL_STEPS = 5  # timed steps a case, after the checked one and a warm-up
+PARALLEL_RANKS = 4
+
+
+def phase_parallel(smi_line, ranks):
+    """The train stage's data- and tensor-parallel path (``blindno_torch.parallel``):
+    one f32 ``train_step`` of NIOFP2D at the ``bench.py`` config (phase ``train``'s
+    weights, batch and injected draw) in ranks spawned on the card
+    (``RankPool``), against the single-process step on the card: (a) one rank over NCCL
+    through the DDP path, bit for bit; (b) two ranks over gloo, DP 2, and (c) four ranks
+    over gloo on a 2 x 2 mesh with tp=2, within :func:`train_tol` on the loss, the
+    gradients, the updated parameters (gathered) and the running statistics, each rank's
+    ``fno2d_layer`` launches counted (in (c) 6 a step at ``TP_SLICE``); (d) two ranks
+    over NCCL on two cards where there are two. Each case's steps/s and wall time.
+    ``ranks`` is the ``RankPool`` of PARALLEL_RANKS workers that main() started before
+    the build. Returns the launches of every rank's checked step."""
+    from blindno_torch.models.nio2d import NIOFP2D
+    from blindno_torch.parallel.dryrun import train_step_ranks
+    from blindno_torch.tools import bench_train
+
+    b, l = bench_train.BATCH["b"], bench_train.BATCH["l"]
+    rng = np.random.default_rng(5)  # phase train's draw
+    draw = (rng.integers(0, l, l), (np.arange(l) < rng.integers(50, l)).astype(np.float32))
+    cpu_model = bench_train.fresh_model("cpu")
+    state = {k: v.numpy() for k, v in cpu_model.state_dict().items()}
+    x, y, grid = (t.numpy() for t in bench_train.bench_batch("cpu"))
+    factory = (NIOFP2D, dict(**bench_train.CONFIG, device="cpu"))
+    with deterministic_convolutions():
+        single = [one_step(copy.deepcopy(cpu_model).to("cuda"),
+                           *(torch.from_numpy(a).to("cuda") for a in (x, y, grid)), draw)
+                  for _ in range(2)]
+    if not same_step(*single):
+        raise RuntimeError("parallel: the single-process step on the card is not "
+                           "reproducible, so case (a) cannot be held to it bit for bit")
+    cases = PARALLEL_CASES + ([PARALLEL_TWO_CARDS] if torch.cuda.device_count() >= 2 else [])
+    results, launches, tp_launches = {}, 0, 0
+    for name, world, tp, backend in cases:
+        t0 = time.perf_counter()
+        out = ranks.run(train_step_ranks, world, factory, state, x, y, grid, draw, tp,
+                        "cuda", 2, PARALLEL_STEPS, tp > 1, device="cuda", backend=backend,
+                        timeout=300)
+        wall = time.perf_counter() - t0
+        for rank, r in enumerate(out):
+            card = (r["loss"], r["grads"], {k: v for k, v in r["state"].items()
+                                            if not k.endswith("num_batches_tracked")})
+            errs = train_errors(card, single[0])  # raises beyond train_tol
+            if name.startswith("a_") and not same_step(card, single[0]):
+                raise RuntimeError(f"parallel {name}: one rank through DDP differs from "
+                                   f"the single-process step (worst {max(errs.values())})")
+            expect_launches(f"parallel {name} rank {rank}", r["launches"], fno2d_layer=6)
+            if tp > 1 and r["shapes"] != [(TP_SLICE[:4], TP_SLICE[6])] * 6:
+                raise RuntimeError(f"parallel {name} rank {rank}: fno2d_layer launched at "
+                                   f"{r['shapes']}, want 6 at {TP_SLICE}")
+            launches += r["launches"]["fno2d_layer"]
+            tp_launches += r["launches"]["fno2d_layer"] if tp > 1 else 0
+        results[name] = dict(
+            ranks=world, tp=tp, backend=backend, mesh=[world // tp, tp], wall_s=wall,
+            steps_per_sec=[r["steps_per_sec"] for r in out],
+            loss=out[0]["loss"], worst_rel_l2=max(errs.items(), key=lambda kv: kv[1]),
+            launches_fno2d_layer=[r["launches"]["fno2d_layer"] for r in out],
+            rank0_seconds=out[0]["seconds"])
+    if len(cases) == len(PARALLEL_CASES):
+        print(f"parallel: case (d) did not run: it needs two CUDA devices, and "
+              f"torch.cuda.device_count() is {torch.cuda.device_count()}", flush=True)
+    emit("parallel", model="NIOFP2D", config=bench_train.CONFIG, batch=bench_train.BATCH,
+         loss_single=single[0][0], cases=results,
+         bit_for_bit="a_nccl_1rank", tp_slice=TP_SLICE, tp_slice_launches=tp_launches,
+         timed_steps=PARALLEL_STEPS,
+         tol=f"relative L2: {TRAIN_TOL}, encoder gradients and parameters {ENCODER_TOL}",
+         nvidia_smi=smi_line)
+    return launches
+
+
+@contextlib.contextmanager
+def deterministic_convolutions():
+    """cuDNN's deterministic convolution algorithms for the block: its default backward
+    algorithms may sum in another order from one run to the next."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def rank_setup():
+    """Phase parallel's ranks compute as the script does: TF32 off (torch's default
+    leaves it on for cuDNN), and deterministic cuDNN convolutions as the single-process
+    step they are held to. Each worker then pays its first-use costs here, while the
+    kernels build: its CUDA context, cuDNN and cuBLAS, Adam, the port's modules, and a
+    first gloo and NCCL collective (each in a group of its own, torn down). Left to the
+    phase, they took 9-10 s of each case's setup. At the lowest priority, so that the
+    build's nvcc processes come first; nothing else runs beside the phase."""
+    import torch.distributed as dist
+
+    os.nice(19)
+
+    from blindno_torch.parallel import dryrun  # noqa: F401  (the ranks' functions)
+    from blindno_torch.train.step import make_optimizer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    conv = torch.nn.Conv2d(1, 2, 3).to("cuda")
+    (conv(torch.ones(1, 1, 4, 4, device="cuda")) @ torch.ones(2, 2, device="cuda")).sum().backward()
+    make_optimizer(conv).step()
+    for backend in ("gloo", "nccl"):
+        with tempfile.TemporaryDirectory() as d:
+            dist.init_process_group(backend, init_method=f"file://{d}/store", rank=0,
+                                    world_size=1)
+            dist.broadcast(torch.ones(1, device="cuda"), 0)
+            dist.destroy_process_group()
+    torch.cuda.synchronize()
+
+
+def same_step(a, b):
+    """Whether two :func:`one_step` results are equal bit for bit."""
+    return a[0] == b[0] and all(
+        x.keys() == y.keys() and all(torch.equal(x[k], y[k]) for k in x)
+        for x, y in zip(a[1:], b[1:]))
+
+
 CPU_WORKERS = 2
 
 
@@ -2294,8 +2438,8 @@ def phase_datagen(smi_line, pool, refs):
     return launches
 
 
-def earlier_phases(timed, smi_line):
-    """Phases ``kernels`` to ``fit1d``, each timed by ``timed``: their launches of each
+def earlier_phases(timed, smi_line, ranks):
+    """Phases ``kernels`` to ``parallel``, each timed by ``timed``: their launches of each
     kernel, and under ``"stats"`` phase ``kernels``' figures."""
     stats = timed("kernels", phase_kernels)
     launches = {**timed("serve", phase_serve), **timed("serve1d", phase_serve1d)}
@@ -2309,6 +2453,7 @@ def earlier_phases(timed, smi_line):
     launches["fno2d_layer"] += timed("fit", phase_fit, smi_line)
     launches["fno1d_layer"] += timed("train1d", phase_train1d, smi_line)
     launches["fno1d_layer"] += timed("fit1d", phase_fit1d, smi_line)
+    launches["fno2d_layer"] += timed("parallel", phase_parallel, smi_line, ranks)
     return {**launches, "stats": stats}
 
 
@@ -2338,9 +2483,13 @@ def main():
 
     # the CPU references of the last two phases (a Transolver step takes 12-19 s on the
     # card host's CPU) start here, on the cores the build leaves idle, and are stopped
-    # from the build's end until after phase fit1d: the phases before trans run with no
-    # other process of this script running
-    with cpu_pool() as (pool, workers):
+    # from the build's end until after phase parallel: the phases before trans run with
+    # no other process of this script running but phase parallel's ranks
+    from blindno_torch.parallel.mesh import RankPool
+
+    # phase parallel's ranks start here too: they import torch and make their CUDA
+    # contexts while the kernels build, then wait idle for that phase
+    with cpu_pool() as (pool, workers), RankPool(PARALLEL_RANKS, rank_setup) as ranks:
         refs = submit_cpu_references(pool)
         cached = _build.build_dir().joinpath("libblindno_torch_kernels.so").exists()
         t0 = time.perf_counter()
@@ -2351,7 +2500,7 @@ def main():
              cpu_references_beside=True,
              ptxas=[ln.strip() for ln in log if "registers" in ln or "spill" in ln])
         with stopped(workers):
-            launches = earlier_phases(timed, smi_line)
+            launches = earlier_phases(timed, smi_line, ranks)
         stats = launches.pop("stats")
         launches["fno2d_layer"] += timed("trans", phase_trans, smi_line, refs)
         for kernel, count in timed("datagen", phase_datagen, smi_line, pool, refs).items():

@@ -14,14 +14,17 @@ from blindno_torch.ops.spectral_cuda import (FNO1dLinear, fno1d_layer_cuda, fno2
 
 pytestmark = pytest.mark.cuda
 
-# (B, C, H, W, m1, m2): the main serving shape, a ragged one, the ncfpe2d heads (an
-# 80x80 grid padded by a quarter), the NIOFNO2D inner branch over 4 x 100 snapshots, one
-# smaller than every tile of the kernel, one whose +-H matrix must take the x plane's
-# place in shared memory and whose 2*m1 mode rows outnumber the first stage's warps, and
-# the fpe2d suite's training batch of 16
+# (B, C, H, W, m1, m2[, Cout], Cout = C unless given): the main serving shape, a ragged
+# one, the ncfpe2d heads (an 80x80 grid padded by a quarter), the NIOFNO2D inner branch
+# over 4 x 100 snapshots, one smaller than every tile of the kernel, one whose +-H matrix
+# must take the x plane's place in shared memory and whose 2*m1 mode rows outnumber the
+# first stage's warps, the fpe2d suite's training batch of 16, and two column-parallel
+# (tensor-parallel) slices with half and a third of the output channels: the heads' at
+# tp=2 and a batch of 4, and the inner branch's at tp=2
 SHAPES = [(4, 12, 76, 76, 32, 32), (3, 5, 40, 36, 7, 9), (4, 12, 100, 100, 32, 32),
           (400, 4, 76, 76, 12, 12), (1, 1, 9, 11, 2, 3), (1, 2, 130, 132, 65, 20),
-          (16, 12, 76, 76, 32, 32)]
+          (16, 12, 76, 76, 32, 32), (4, 12, 76, 76, 32, 32, 6), (2, 4, 76, 76, 12, 12, 2)]
+TP_SHAPES = [s for s in SHAPES if len(s) > 6]
 # 1-D (B, C, N, modes, dc_half[, Cout], Cout = C unless given): the fpe1d heads, the
 # FNO-branch model's inner FNO1d, the GPE width, a ragged shape without the DC halving,
 # the gpe1d heads, an even N that keeps its Nyquist mode, one batch row with more output
@@ -47,10 +50,11 @@ def cuda_device():
 
 
 def _inputs(shape, device):
-    b, c, h, w, m1, m2 = shape
+    b, c, h, w, m1, m2 = shape[:6]
+    cout = shape[6] if len(shape) > 6 else c
     rng = np.random.default_rng(0)
     t = lambda *s: torch.tensor(rng.standard_normal(s).astype(np.float32), device=device)
-    return t(b, c, h, w), t(c, c, 2 * m1, m2), t(c, c, 2 * m1, m2), t(c, c), t(c)
+    return t(b, c, h, w), t(c, cout, 2 * m1, m2), t(c, cout, 2 * m1, m2), t(c, cout), t(cout)
 
 
 @pytest.mark.parametrize("apply_act", [True, False])
@@ -339,18 +343,21 @@ def test_2d_layer_trains_with_weights_written_just_before_each_call(cuda_device)
         assert rel(a, p) <= 3e-4 and rel(g_, p) <= 3e-4, (rel(a, p), rel(g_, p))
 
 
-def test_2d_layer_backward_on_the_card_matches_its_cpu_run(cuda_device):
+@pytest.mark.parametrize("shape", [SHAPES[0], *TP_SHAPES])
+def test_2d_layer_backward_on_the_card_matches_its_cpu_run(cuda_device, shape):
     """The differentiable layer's ``dx, dwr, dwi, dpk, dpb`` on the card (the kernel
     forward, the transpose chain in cuBLAS backward) against the same call on the CPU,
-    at the main shape, gelu outside and not, at the gradient tolerance of
-    tests/test_fno_layer_fused.py:64. Weights scaled by 0.1 as that test draws them, and
-    the loss ``sum(out * g)`` with g standard normal, so that each gradient is O(1)."""
-    b, c, h, w, m1, m2 = SHAPES[0]
+    at the main shape and the column-parallel slices (Cout < Cin), gelu outside and not,
+    at the gradient tolerance of tests/test_fno_layer_fused.py:64. Weights scaled by 0.1
+    as that test draws them, and the loss ``sum(out * g)`` with g standard normal, so
+    that each gradient is O(1)."""
+    b, c, h, w, m1, m2 = shape[:6]
+    cout = shape[6] if len(shape) > 6 else c
     rng = np.random.default_rng(6)
     r = lambda *s, scale=1.0: (scale * rng.standard_normal(s)).astype(np.float32)
-    args = (r(b, c, h, w), r(c, c, 2 * m1, m2, scale=0.1), r(c, c, 2 * m1, m2, scale=0.1),
-            r(c, c, scale=c ** -0.5), r(c))
-    g = r(b, c, h, w)
+    args = (r(b, c, h, w), r(c, cout, 2 * m1, m2, scale=0.1),
+            r(c, cout, 2 * m1, m2, scale=0.1), r(c, cout, scale=c ** -0.5), r(cout))
+    g = r(b, cout, h, w)
     for apply_act in (True, False):
         def grads(device):
             ts = [torch.tensor(a, device=device, requires_grad=True) for a in args]
