@@ -130,6 +130,15 @@ def train_test_split(n: int, train_frac: float = 0.8, seed: int = 0):
     return perm[:n_train], perm[n_train:]
 
 
+def epoch_batch_indices(generator: torch.Generator, n: int, batch_size: int) -> torch.Tensor:
+    """An epoch's shuffled batches, (n // batch_size, batch_size) indices into n samples:
+    a permutation of range(n) drawn from ``generator`` (on its device), its tail past the
+    last full batch dropped, as the JAX package's ``epoch_batch_indices`` shapes it."""
+    perm = torch.randperm(n, generator=generator, device=generator.device)
+    n_batches = n // batch_size
+    return perm[: n_batches * batch_size].reshape(n_batches, batch_size)
+
+
 def eval_batches(n: int, batch_size: int):
     """Index/mask pairs covering all n samples with a padded final batch."""
     out = []

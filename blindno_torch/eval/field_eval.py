@@ -5,8 +5,8 @@ and writes per-sample metrics and denormalized predictions.
 
 Eval inputs are normalized with the *train-set* statistics, kept in a sidecar npz next
 to the train archive (:func:`cached_train_stats`; the JAX package writes the same
-file). Every suite's targets are handled; the comparison figures
-(``blindno/eval/plots.py``) are not ported yet (``ROADMAP.md`` A.9).
+file). Every suite's targets are handled, and the suite eval draws the first test
+samples' fields against their truth (:func:`_figures`).
 """
 from __future__ import annotations
 
@@ -21,10 +21,6 @@ from blindno_torch import default_device
 from blindno_torch.data.datasets import FieldStats, MaxStats
 from blindno_torch.eval.metrics import relative_l2_per_field
 from blindno_torch.train.checkpoint import load_best
-
-FIGURES_NOT_PORTED = ("not made: the comparison plots (blindno/eval/plots.py) are not "
-                      "ported yet, ROADMAP.md A.9")
-
 
 def _device_of(model, device):
     dev = default_device(device)
@@ -231,8 +227,10 @@ def evaluate_suite_model(spec, model_name: str, workdir: str, batch: int = 16,
                          device=None):
     """Returns a report dict; writes metrics.csv and predictions.npy under
     ``{workdir}/eval/{suite}_{model}/``. The model runs on ``device`` (CUDA unless the
-    caller passes another). With ``make_figures`` the report's ``figures`` entry says
-    that the figures are not made yet."""
+    caller passes another). With ``make_figures`` it also draws the first three test
+    samples (``pred_sample_{i}.png``) and the report's ``figures`` entry lists their
+    paths, or says in words that matplotlib cannot be imported; any other plotting error
+    propagates."""
     dev = default_device(device)
     train_ds = cached_train_stats(spec, workdir)
     test = _load_npz(os.path.join(workdir, "data", spec.test_file))
@@ -256,9 +254,9 @@ def evaluate_suite_model(spec, model_name: str, workdir: str, batch: int = 16,
         for i, row in enumerate(errs):
             w.writerow([i] + [f"{v:.6f}" for v in row] + [f"{row.sum():.6f}"])
 
+    preds_phys = denormalize_predictions(spec, train_ds, preds_norm)
     if save_predictions:
-        np.save(os.path.join(out_dir, "predictions.npy"),
-                denormalize_predictions(spec, train_ds, preds_norm))
+        np.save(os.path.join(out_dir, "predictions.npy"), preds_phys)
 
     report = {
         "suite": spec.name,
@@ -278,5 +276,50 @@ def evaluate_suite_model(spec, model_name: str, workdir: str, batch: int = 16,
         report["mean_rel_l2_per_field_tta"] = errs_tta.mean(axis=0).tolist()
         report["mean_rel_l2_sum_tta"] = float(errs_tta.sum(axis=1).mean())
     if make_figures:
-        report["figures"] = FIGURES_NOT_PORTED
+        report["figures"] = _figures(out_dir, preds_phys, test)
     return report
+
+
+def _figures(out_dir, preds_phys, test, n_plots: int = 3):
+    """Truth against prediction for the first ``n_plots`` samples, one PNG each
+    (``blindno/eval/field_eval.py:285-318``): line plots of every field in 1-D (the truth
+    of field 0, the potential or V, beside it), ``imshow`` pairs of the two fields in
+    2-D. Returns the paths written, or a sentence saying why there are none when
+    matplotlib cannot be imported."""
+    try:
+        import matplotlib
+    except ImportError as e:
+        return f"not made: matplotlib cannot be imported ({e})"
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    paths = []
+    for i in range(min(n_plots, preds_phys.shape[0])):
+        n_f = preds_phys.shape[-1]
+        if preds_phys.ndim == 3:  # 1-D suites
+            fig, axes = plt.subplots(1, n_f, figsize=(5 * n_f, 4))
+            axes = np.atleast_1d(axes)
+            truth0 = test["potential"][i] if "potential" in test else test["V"][i]
+            axes[0].plot(truth0, label="true")
+            axes[0].plot(preds_phys[i, :, 0], "--", label="pred")
+            axes[0].set_title("field 0")
+            axes[0].legend()
+            for f in range(1, n_f):
+                axes[f].plot(preds_phys[i, :, f], "--", label="pred")
+                axes[f].set_title(f"field {f}")
+        else:  # 2-D suites
+            fig, axes = plt.subplots(2, n_f, figsize=(5 * n_f, 8))
+            if "potential" in test:
+                truths = [test["potential"][i], test["drag"][i]]
+            else:
+                truths = [test["F"][i, 0], test["F"][i, 1]]
+            for f in range(n_f):
+                axes[0, f].imshow(truths[f], origin="lower")
+                axes[0, f].set_title(f"true field {f}")
+                axes[1, f].imshow(preds_phys[i, ..., f], origin="lower")
+                axes[1, f].set_title(f"pred field {f}")
+        fig.tight_layout()
+        paths.append(os.path.join(out_dir, f"pred_sample_{i}.png"))
+        fig.savefig(paths[-1], dpi=100)
+        plt.close(fig)
+    return paths

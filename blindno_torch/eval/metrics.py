@@ -18,3 +18,8 @@ def relative_l2_per_field(pred, target, reference_denominator: bool = True):
     else:
         den = torch.linalg.vector_norm(dt, dim=1)
     return num / den.clamp_min(1e-12)
+
+
+def mse(pred, target):
+    """The mean squared error over every element, a 0-d tensor."""
+    return torch.mean((pred - target) ** 2)

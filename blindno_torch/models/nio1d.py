@@ -1,6 +1,7 @@
 """The 1-D NIO models (counterpart of ``blindno/models/nio1d.py``).
 
-Input x (B, L, N) and grid (N, 1); output (B, N, sum(head_dims)). Weights are drawn
+Input x (B, L, N) and grid (N, 1); output (B, N, sum(head_dims)); :class:`NIOFPOde`
+takes (B, L, n_obs) observations instead, with the same grid and output. Weights are drawn
 from ``generator`` on the CPU and the model moves to ``device`` (CUDA unless the caller
 passes another); it is built in eval mode.
 
@@ -15,7 +16,7 @@ import torch
 from torch import nn
 
 from blindno_torch import default_device
-from blindno_torch.nn.cnn import ENC_FPE80, Encoder1D
+from blindno_torch.nn.cnn import ENC_FPE80, Encoder1D, EncoderODE
 from blindno_torch.nn.deeponet import FFN, DeepOnetNoBias
 from blindno_torch.nn.fno import FNO1d
 from blindno_torch.nn.setops import MeanFieldFusion, train_subsample
@@ -51,6 +52,34 @@ class NIOFP1D(nn.Module):
         fields = self.deeponet(x, grid)                      # (B, L, N)
         feats = self.fusion(grid.expand(x.shape[0], *grid.shape), fields, mask)
         return torch.cat([head(feats) for head in self.heads], dim=-1)
+
+
+class NIOFPOde(nn.Module):
+    """The ODE-observation NIO (``blindno/models/nio1d.py:61-87``): an EncoderODE branch
+    over ``n_obs`` observations per snapshot (B, L, n_obs) and an FFN trunk over the grid
+    (N, 1), the mean-field fusion, and one FNO1d head; output (B, N, output_dim). No suite
+    trains it (``blindno_torch.suites.registry.VESTIGIAL_MODELS``)."""
+
+    def __init__(self, input_dimensions_trunk: int = 1, n_hidden_layers: int = 3,
+                 neurons: int = 100, n_basis: int = 25, fno_layers: int = 3, width: int = 30,
+                 modes: int = 15, output_dim: int = 1, l_min: int = 50, n_obs: int = 11,
+                 generator: torch.Generator | None = None, device=None):
+        super().__init__()
+        g = torch.Generator().manual_seed(0) if generator is None else generator
+        self.l_min = l_min
+        branch = EncoderODE(n_basis, n_obs, generator=g)
+        trunk = FFN(input_dimensions_trunk, n_basis, n_hidden_layers, neurons, generator=g)
+        self.deeponet = DeepOnetNoBias(branch, trunk)
+        self.fusion = MeanFieldFusion(width, grid_channels=1, generator=g)
+        self.heads = _heads(modes, width, fno_layers, (output_dim,), g)
+        self.eval()
+        self.to(default_device(device))
+
+    def forward(self, x, grid, *, generator: torch.Generator | None = None, subsample=None):
+        x, mask = train_subsample(self, x, generator, subsample)
+        fields = self.deeponet(x, grid)                      # (B, L, N)
+        feats = self.fusion(grid.expand(x.shape[0], *grid.shape), fields, mask)
+        return self.heads[0](feats)
 
 
 class NIOFNO1D(nn.Module):

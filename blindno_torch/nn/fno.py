@@ -1,4 +1,4 @@
-"""The 1-D and 2-D Fourier Neural Operators (counterpart of ``blindno/nn/fno.py``).
+"""The 1-D, 2-D and 3-D Fourier Neural Operators (counterpart of ``blindno/nn/fno.py``).
 
 lift -> n x (spectral conv + 1x1 conv, gelu between layers) -> project, with 1/4 domain
 padding. Each layer runs through the CUDA kernel ``fno1d_layer_cuda`` or
@@ -12,6 +12,10 @@ after it; under ``no_grad`` or ``inference_mode`` the kernel applies gelu itself
 :func:`blindno_torch.parallel.tp.shard_fno_layers` has cut every layer to this rank's
 out-channel slice: each layer then runs its kernel on the slice, ``(Cin, Cout/tp)``, and
 the slices are gathered (:func:`~blindno_torch.parallel.tp.column_parallel`).
+
+:class:`FNO3d` has no layer kernel: the JAX package computes its layers with the einsum
+chain outside any Pallas kernel (``blindno/nn/fno.py:84``), and the port with
+:func:`~blindno_torch.ops.spectral.spectral_conv3d`, on every device.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from torch import nn
 
 from blindno_torch.nn.torch_layers import gelu, linear
 from blindno_torch.parallel.tp import column_parallel
+from blindno_torch.ops.spectral import spectral_conv3d
 from blindno_torch.ops.spectral_cuda import (fno1d_layer_cuda, fno2d_layer_cuda,
                                              spectral_conv1d_cuda, spectral_conv2d_cuda)
 from blindno_torch.utils import torch_init as tinit
@@ -60,15 +65,37 @@ class SpectralConv2d(nn.Module):
         return spectral_conv2d_cuda(x, self.weights_re, self.weights_im)
 
 
+class SpectralConv3d(nn.Module):
+    """3-D Fourier layer with four +/- corner blocks; weights (Cin, Cout, 2*m1, 2*m2, m3)
+    as real and imaginary planes, initialised ``U[0, 1) / (Cin * Cout)``."""
+
+    def __init__(self, in_channels: int, out_channels: int, modes1: int, modes2: int,
+                 modes3: int, generator: torch.Generator):
+        super().__init__()
+        shape = (in_channels, out_channels, 2 * modes1, 2 * modes2, modes3)
+        scale = 1.0 / (in_channels * out_channels)
+        self.weights_re = nn.Parameter(tinit.spectral_uniform_(torch.empty(shape), scale, generator))
+        self.weights_im = nn.Parameter(tinit.spectral_uniform_(torch.empty(shape), scale, generator))
+
+    def forward(self, x):
+        return spectral_conv3d(x, self.weights_re, self.weights_im)
+
+
 class PointwiseConv(nn.Module):
     """The parameters of a layer's 1x1 convolution: ``weight`` (Cout, Cin) and ``bias``,
-    torch Conv init. The layer kernels apply them inside the layer."""
+    torch Conv init. The layer kernels apply them inside the layer; :class:`FNO3d` calls
+    the module."""
 
     def __init__(self, in_channels: int, out_channels: int, generator: torch.Generator):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels))
         self.bias = nn.Parameter(torch.empty(out_channels))
         tinit.torch_default_(self, in_channels, generator)
+
+    def forward(self, x):
+        """The 1x1 convolution on channel-first x (B, Cin, *spatial)."""
+        y = torch.einsum("bc...,oc->bo...", x, self.weight)
+        return y + self.bias.reshape((1, -1) + (1,) * (x.dim() - 2))
 
 
 class FNO1d(nn.Module):
@@ -142,4 +169,33 @@ class FNO2d(nn.Module):
             x = fno2d_layer_cuda(x, sc.weights_re, sc.weights_im, pc.weight.t(), pc.bias,
                                  apply_act=k != last)
         x = x[..., :h, :w].permute(0, 2, 3, 1)
+        return self.fc2(gelu(self.fc1(x)))
+
+
+class FNO3d(nn.Module):
+    """(B, D1, D2, D3, input_dim) -> (B, D1, D2, D3, output_dim): exactly 4 layers, the
+    grid padded by ``padding`` points at the far end of each axis, no gelu after the last
+    layer, and a projection through 128 features (``blindno/nn/fno.py:184-211``)."""
+
+    def __init__(self, modes: int, width: int, input_dim: int, output_dim: int,
+                 padding: int = 2, generator: torch.Generator | None = None):
+        super().__init__()
+        g = torch.Generator().manual_seed(0) if generator is None else generator
+        self.padding = padding
+        self.fc0 = linear(input_dim, width, g)
+        self.spectral = nn.ModuleList(
+            SpectralConv3d(width, width, modes, modes, modes, g) for _ in range(4))
+        self.pointwise = nn.ModuleList(PointwiseConv(width, width, g) for _ in range(4))
+        self.fc1 = linear(width, 128, g)
+        self.fc2 = linear(128, output_dim, g)
+
+    def forward(self, x):
+        d1, d2, d3 = x.shape[1:4]
+        p = self.padding
+        x = F.pad(self.fc0(x).permute(0, 4, 1, 2, 3), (0, p, 0, p, 0, p))
+        for k, (sc, pc) in enumerate(zip(self.spectral, self.pointwise)):
+            x = sc(x) + pc(x)
+            if k != 3:
+                x = gelu(x)
+        x = x[..., :d1, :d2, :d3].permute(0, 2, 3, 4, 1)
         return self.fc2(gelu(self.fc1(x)))

@@ -3,7 +3,7 @@
 
 Builders draw their initial weights from an explicit generator; ``skip_init`` keeps
 the module constructors from touching the global RNG. :class:`BatchNorm1d` and
-:class:`BatchNorm2d` are the counterparts of ``TorchBatchNorm``: torch's eps 1e-5 and
+:class:`BatchNorm2d` and :class:`BatchNorm3d` are the counterparts of ``TorchBatchNorm``: torch's eps 1e-5 and
 momentum 0.1, which are the JAX package's (flax's momentum 0.9 is the same running
 average), with flax's running-variance update in train mode. :class:`ConvTranspose` is
 ``TorchConvTranspose``'s counterpart, :func:`max_pool` ``max_pool``'s, and
@@ -123,6 +123,11 @@ class BatchNorm2d(_FlaxRunningVar, nn.BatchNorm2d):
     :class:`_FlaxRunningVar`); the state-dict keys are torch's."""
 
 
+class BatchNorm3d(_FlaxRunningVar, nn.BatchNorm3d):
+    """``nn.BatchNorm3d`` with flax's train-mode running variance (see
+    :class:`_FlaxRunningVar`); the state-dict keys are torch's."""
+
+
 class LayerNorm(nn.LayerNorm):
     """nn.LayerNorm over the last axis, exact where it normalizes a single element, as
     flax's two-pass LayerNorm is there: x - mean(x) is 0, the output is the bias, and
@@ -179,6 +184,16 @@ def conv2d(in_channels: int, out_channels: int, kernel_size, stride, padding,
     return tinit.torch_default_(m, in_channels // groups * kh * kw, generator)
 
 
+def conv3d(in_channels: int, out_channels: int, kernel_size, stride, padding,
+           generator, groups: int = 1) -> nn.Conv3d:
+    """nn.Conv3d (symmetric integer padding) with torch's default init; fan_in is
+    ``kd * kh * kw * in_channels / groups``."""
+    m = skip_init(nn.Conv3d, in_channels, out_channels, kernel_size, stride=stride,
+                  padding=padding, groups=groups)
+    kd, kh, kw = m.kernel_size
+    return tinit.torch_default_(m, in_channels // groups * kd * kh * kw, generator)
+
+
 def max_pool(x, window: int):
     """torch MaxPoolNd(window): stride = window, floor mode. Channel-first, 1-D or 2-D."""
     return (F.max_pool1d if x.dim() == 3 else F.max_pool2d)(x, window)
@@ -186,7 +201,7 @@ def max_pool(x, window: int):
 
 class ConvTranspose(nn.Module):
     """The JAX package's ``TorchConvTranspose`` (``blindno/nn/torch_layers.py:50-85``) in
-    1-D or 2-D, channel-first: a VALID transposed convolution with its bias, output
+    1-D, 2-D or 3-D, channel-first: a VALID transposed convolution with its bias, output
     ``(in - 1) * stride + kernel``, then ``output_padding`` rows (and columns) of zeros
     at the end. torch's own ``output_padding`` would fill them with the bias instead, so
     the convolution runs without it and :func:`F.pad` adds the zeros.
@@ -208,7 +223,7 @@ class ConvTranspose(nn.Module):
         tinit.torch_conv_transpose_(self, generator)
 
     def forward(self, x):
-        fn = F.conv_transpose1d if len(self.kernel_size) == 1 else F.conv_transpose2d
+        fn = (F.conv_transpose1d, F.conv_transpose2d, F.conv_transpose3d)[len(self.kernel_size) - 1]
         y = fn(x, self.weight, self.bias, self.stride)
         if not any(self.output_padding):
             return y

@@ -4,13 +4,19 @@
 - :func:`spectral_conv1d` and :func:`spectral_conv2d` are the plain PyTorch versions of
   the CUDA kernels ``spectral_conv1d_cuda`` and ``spectral_conv2d_cuda``
   (:mod:`blindno_torch.ops.spectral_cuda`).
-- :func:`spectral_conv1d_fft` and :func:`spectral_conv2d_fft` restate the same operators
-  with ``torch.fft``; tests and ``chip_smoke.py`` use them as references and
-  yardsticks, the port's path never does.
+- :func:`spectral_conv3d` is ``FNO3d``'s spectral convolution. The JAX package computes
+  it outside any Pallas kernel (``blindno/nn/fno.py:84`` calls the einsum chain), and so
+  does the port, on every device.
+- :func:`spectral_conv1d_fft`, :func:`spectral_conv2d_fft` and
+  :func:`spectral_conv3d_fft` restate the same operators with ``torch.fft``; tests and
+  ``chip_smoke.py`` use them as references and yardsticks, the port's path never does.
 
-Weights are real and imaginary planes ``wr, wi``: (Cin, Cout, modes) in 1-D, and
+Weights are real and imaginary planes ``wr, wi``: (Cin, Cout, modes) in 1-D,
 (Cin, Cout, 2*m1, m2) in 2-D with the +/- row blocks stacked along axis 2 (rows [0, m1)
-then [H-m1, H)).
+then [H-m1, H)), and (Cin, Cout, 2*m1, 2*m2, m3) in 3-D, the four +/- corner blocks
+stacked as [[w1, w3], [w2, w4]] over the halves of axes 2 and 3. The products run at
+full float32 where TF32 is off, torch's default for matmul (JAX computes them at
+``Precision.HIGHEST``).
 """
 from __future__ import annotations
 
@@ -91,3 +97,45 @@ def spectral_conv2d_fft(x, wr, wi):
     full[:, :, :m1, :m2] = mix(xf[:, :, :m1, :m2], wc[:, :, :m1])
     full[:, :, h - m1:, :m2] = mix(xf[:, :, h - m1:, :m2], wc[:, :, m1:])
     return torch.fft.irfft2(full, s=(h, w_len))
+
+
+def spectral_conv3d(x, wr, wi):
+    """x: (B, Cin, D1, D2, D3) real; wr/wi: (Cin, Cout, 2*m1, 2*m2, m3). Returns
+    (B, Cout, D1, D2, D3): the truncated rDFT along D3, the +/- DFTs along D2 and D1, the
+    per-mode channel mix, and the inverse chain."""
+    d1, d2, d3 = x.shape[-3:]
+    m1, m2, m3 = wr.shape[2] // 2, wr.shape[3] // 2, wr.shape[4]
+    fzre, fzim = rdft_forward(d3, m3, x.dtype, x.device)
+    fyre, fyim = dft_forward_pm(d2, m2, x.dtype, x.device)
+    fxre, fxim = dft_forward_pm(d1, m1, x.dtype, x.device)
+    gxre, gxim = dft_inverse_pm(d1, m1, x.dtype, x.device)
+    gyre, gyim = dft_inverse_pm(d2, m2, x.dtype, x.device)
+    gzre, gzim = rdft_inverse(d3, m3, x.dtype, x.device)
+    ein = torch.einsum
+
+    def cmul(s, ar, ai, br, bi):
+        """(ar + i ai) x (br + i bi) contracted by the einsum ``s``."""
+        return ein(s, ar, br) - ein(s, ai, bi), ein(s, ar, bi) + ein(s, ai, br)
+
+    zr, zi = ein("bcxyz,zm->bcxym", x, fzre), ein("bcxyz,zm->bcxym", x, fzim)
+    yr, yi = cmul("bcxym,yk->bcxkm", zr, zi, fyre, fyim)
+    xr, xi = cmul("bcxkm,xj->bcjkm", yr, yi, fxre, fxim)
+    outr, outi = cmul("bijkm,iojkm->bojkm", xr, xi, wr, wi)
+    ar, ai = cmul("bojkm,jx->boxkm", outr, outi, gxre, gxim)
+    br, bi = cmul("boxkm,ky->boxym", ar, ai, gyre, gyim)
+    return ein("boxym,mz->boxyz", br, gzre) + ein("boxym,mz->boxyz", bi, gzim)
+
+
+def spectral_conv3d_fft(x, wr, wi):
+    """``torch.fft`` restatement of :func:`spectral_conv3d`: rfftn over the three spatial
+    axes, the four +/- corner blocks mixed, irfftn."""
+    b, _, d1, d2, d3 = x.shape
+    m1, m2, m3 = wr.shape[2] // 2, wr.shape[3] // 2, wr.shape[4]
+    wc = torch.complex(wr, wi)
+    xf = torch.fft.rfftn(x, dim=(-3, -2, -1))
+    full = torch.zeros(b, wr.shape[1], d1, d2, d3 // 2 + 1, dtype=xf.dtype, device=x.device)
+    mix = lambda a, ww: torch.einsum("bijkm,iojkm->bojkm", a, ww)
+    for rows, wrows in ((slice(0, m1), slice(0, m1)), (slice(d1 - m1, d1), slice(m1, 2 * m1))):
+        for cols, wcols in ((slice(0, m2), slice(0, m2)), (slice(d2 - m2, d2), slice(m2, 2 * m2))):
+            full[:, :, rows, cols, :m3] = mix(xf[:, :, rows, cols, :m3], wc[:, :, wrows, wcols])
+    return torch.fft.irfftn(full, s=(d1, d2, d3), dim=(-3, -2, -1))

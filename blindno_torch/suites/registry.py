@@ -17,7 +17,7 @@ import numpy as np
 from blindno_torch.data import generate as G
 from blindno_torch.data.datasets import load_fpe1d, load_fpe2d, load_gpe1d, load_ncfpe2d
 from blindno_torch.models.blindno_unet import PermInvUNetAttn
-from blindno_torch.models.nio1d import NIOFNO1D, NIOFP1D
+from blindno_torch.models.nio1d import NIOFNO1D, NIOFP1D, NIOFPOde
 from blindno_torch.models.nio2d import (NIOAttn2D, NIOFNO2D, NIOFNOAttn2D, NIOFP2D,
                                         NIOTrans2D, NIOTransAttn2D)
 from blindno_torch.nn.cnn import ENC_FPE80, ENC_GPE128
@@ -59,6 +59,13 @@ class SuiteSpec:
 
 
 SUITES: dict[str, SuiteSpec] = {}
+
+# Models the reference defines but no script trains (``blindno/suites/registry.py:62-69``):
+# no suite's archive has their ODE-observation input (B, L, 11), so no SuiteSpec and no
+# CLI choice names them. Factories take ``generator`` and ``device`` as a suite's do.
+VESTIGIAL_MODELS: dict[str, Callable] = {
+    "nio_ode": lambda **kw: NIOFPOde(**kw),
+}
 
 
 def _register(spec: SuiteSpec):

@@ -39,16 +39,18 @@ from blindno_torch.parallel.mesh import (data_model_mesh, data_parallel_size, in
                                          is_distributed, world_size)
 from blindno_torch.parallel.tp import gather_state
 from blindno_torch.train import checkpoint
-from blindno_torch.train.step import check_compute_dtype, make_optimizer, train_step
+from blindno_torch.train.step import (AMP_POLICIES, COMPUTE_DTYPES, check_compute_dtype,
+                                      make_optimizer, train_step)
 from blindno_torch.utils.logging import MetricsLogger, trace
 
 
 @dataclass
 class TrainConfig:
     """The JAX package's fields and defaults (``blindno/train/loop.py:38-139``, where
-    each field's note is). The port refuses ``epoch_scan=True`` (a JAX-only fusion) and
-    any mixed precision other than ``compute_dtype="bfloat16"`` with
-    ``amp_policy="encoder_bn32"``; ``tp`` must divide the ranks, and the rest of them
+    each field's note is). The port refuses ``epoch_scan=True`` (a JAX-only fusion), a
+    ``compute_dtype`` other than None or ``"bfloat16"``, and an ``amp_policy`` that JAX
+    does not know (:data:`~blindno_torch.train.step.AMP_POLICIES`); ``tp`` must divide
+    the ranks, and the rest of them
     (the ``data`` axis) the batch."""
 
     epochs: int = 400
@@ -158,11 +160,11 @@ def _check_config(cfg: TrainConfig):
     if cfg.epoch_scan:
         raise ValueError("epoch_scan=True is a JAX-only fusion (one lax.scan per epoch); "
                          "the port runs the per-step loop")
-    if cfg.compute_dtype is not None and (cfg.compute_dtype, cfg.amp_policy) != (
-            "bfloat16", "encoder_bn32"):
+    if cfg.compute_dtype is not None and (cfg.compute_dtype not in COMPUTE_DTYPES
+                                          or cfg.amp_policy not in AMP_POLICIES):
         raise ValueError(f"compute_dtype={cfg.compute_dtype!r} with amp_policy="
-                         f"{cfg.amp_policy!r} is not ported: the one mixed-precision mode "
-                         "is compute_dtype='bfloat16' with amp_policy='encoder_bn32'")
+                         f"{cfg.amp_policy!r} is not ported: the mixed-precision modes are "
+                         f"compute_dtype='bfloat16' with an amp_policy of {AMP_POLICIES}")
 
 
 def _split_to_device(arr, idx, dtype, device):
@@ -254,7 +256,7 @@ def train_model(model, data: SetToFieldData, grid, cfg: TrainConfig, *,
     subsample ``(indices, mask)`` (or ``None``, for the model to draw).
     """
     _check_config(cfg)
-    check_compute_dtype(model, cfg.compute_dtype)
+    check_compute_dtype(model, cfg.compute_dtype, cfg.amp_policy)
     n_data = _check_world(cfg)
     distributed = is_distributed()
     aug_fns = make_augment(cfg.augment)
@@ -390,6 +392,7 @@ def train_model(model, data: SetToFieldData, grid, cfg: TrainConfig, *,
                     group["lr"] = schedule(global_step)
                 losses.append(train_step(
                     net, opt, xb, yb, grid, compute_dtype=cfg.compute_dtype,
+                    amp_policy=cfg.amp_policy,
                     generator=None if subsamples else gen,
                     subsample=subsamples[i] if subsamples else None))
                 global_step += 1

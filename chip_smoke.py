@@ -7,7 +7,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``. It
 2. builds the FNO-layer kernels from ``blindno_torch/csrc`` with nvcc (one process per
    source, all at once; timed);
 3. holds each kernel against its plain PyTorch version at the serving paths' shapes
-   (in 1-D the gpe1d heads' among them, and the 1-D training shapes at batch 32), a
+   (in 1-D the gpe1d heads' and the ODE-observation NIO's head's among them, and the
+   1-D training shapes at batch 32), a
    ragged one and, in 2-D, the ncfpe2d heads' and the NIOFNO2D inner branch's shapes on
    the fpe2d and the ncfpe2d grid and the heads' layer as tensor parallelism slices it
    (``TP_SLICE``: Cout 6 of 12),
@@ -36,7 +37,15 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``. It
    the fpe2d suite's ``NIOFNO2D``, ``NIOAttn2D`` and ``NIOFNOAttn2D`` on 8 sets of 100
    snapshots of 61x61 and the ncfpe2d suite's ``NIOFNO2D`` on 4 sets of 80x80, each
    forward split on the device between the per-snapshot fields, the attention, the
-   fusion and the heads;
+   fusion and the heads; then (phase ``serve3d``) the 3-D NIO ``NIOFP3D`` at its defaults
+   on 4 sets of 100 snapshots of a 40^3 grid, batch 2 (no kernel of the port on its path:
+   FNO3d's spectral convolution is the einsum chain, as in JAX), against the CPU on the
+   first set cut to 8 snapshots, its forwards per second, peak memory and forward split
+   on the device between the encoder, the trunk, the fusion and the FNO3d head, and
+   three float32 training steps with finite losses; and the ODE-observation NIO
+   ``NIOFPOde`` at its defaults on 16 sets of 100 x 11 observations with a grid of 100
+   points, its FNO1d head's ``fno1d_layer`` launched exactly 3 times a forward, every
+   call at (16, 30, 125) with 15 modes, against the CPU;
 8. trains the fpe2d NIO at the ``bench.py`` config (4 sets of 100 snapshots of 61x61):
    one float32 step on the card against the same step on the CPU plain path (same
    seeded weights, batch and injected set subsample), its launches counted; a bfloat16
@@ -164,6 +173,9 @@ HEADS_1D = (16, 30, 100, 15, True)
 BRANCH_1D = (1600, 4, 100, 12, True)
 GPE_HEADS_1D = (16, 20, 160, 40, True)
 RAGGED_1D = (3, 5, 37, 7, False)
+# the ODE-observation NIO's head (NIOFPOde: width 30, 15 modes, a grid of 100 points
+# padded by a quarter to 125, an odd N) at the serving batch of 16
+ODE_HEADS_1D = (16, 30, 125, 15, True)
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): f32 outside the tensor cores, HBM3
 PEAK_F32_FLOP_S = 67e12
 PEAK_BYTES_S = 3.35e12
@@ -185,6 +197,14 @@ MODEL_UNET_GPE = dict(input_size=(128,), depth=4, width=20, fno_modes=40, head_d
 MODEL_UNET_NC = dict(input_size=(80, 80), depth=5, width=12, fno_modes=32, head_dims=(1, 1),
                      subsample=True, block="plain")
 SERVE_UNET_NC = dict(m=4, l=100, n=80, batch=4, timed_rounds=5)
+# phase serve3d: NIOFP3D at its defaults (blindno/models/nio3d.py:29-36: width 12, 8
+# modes, 25 basis functions, 100 neurons) on 4 sets of 100 snapshots of 40^3, the grid
+# Encoder3D's schedule collapses to one point, at batch 2; the CPU reference on the
+# first set cut to 8 snapshots; three float32 training steps on one batch. Then NIOFPOde
+# at its defaults (blindno/models/nio1d.py:61-87) on 16 sets of 100 x 11 observations
+# with a grid of 100 points, batch 16: 3 fno1d_layer launches a forward at ODE_HEADS_1D
+SERVE_3D = dict(m=4, l=100, n=40, batch=2, timed_rounds=3, cpu_snapshots=8, train_steps=3)
+SERVE_ODE = dict(m=16, l=100, n_obs=11, n=100, batch=16, timed_rounds=5)
 # phase fit: the fpe2d suite's config (blindno/suites/registry.py:186-220) on a synthetic
 # archive; 160 sets split 128/32, 8 steps of 16 an epoch; a test archive of 16 sets
 FIT = dict(m=160, m_test=16, l=100, n=61, epochs=2, cpu_sets=4, bare_steps=10, unet_epochs=1)
@@ -478,6 +498,8 @@ def phase_kernels():
         check_and_time([(GPE_HEADS_1D, True, False)],
                        [layer_1d(True), layer_1d(False), spectral_1d], library, KERNEL_TOL_1D,
                        stats)
+        check_and_time([(ODE_HEADS_1D, True, False)], [layer_1d(True), layer_1d(False)],
+                       library, KERNEL_TOL_1D, stats)
         check_and_time([(TRAIN_HEADS_1D, True, False), (TRAIN_BRANCH_1D, True, False),
                         (TRAIN_GPE_HEADS_1D, True, False)], [layer_1d(True), layer_1d(False)],
                        library, KERNEL_TOL_1D, stats)
@@ -689,6 +711,166 @@ def phase_serve1d():
                                       - split["heads_graph_ms"])
         emit("serve1d", model=label, config=config, **fields, device_split=split)
     return launches
+
+
+def grid_3d(n):
+    """The n^3 grid on [0, 1]^3, (n, n, n, 3)."""
+    axis = np.linspace(0.0, 1.0, n, dtype=np.float32)
+    return np.stack(np.meshgrid(axis, axis, axis, indexing="ij"), -1)
+
+
+def sets_3d(rng, k, l, n):
+    """k sets of l volumes of n^3, each set's volumes sharing that set's profile (as
+    :func:`sets_1d`)."""
+    base = rng.standard_normal((k, 1, n, n, n), dtype=np.float32)
+    return base + np.float32(0.5) * rng.standard_normal((k, l, n, n, n), dtype=np.float32)
+
+
+def conv_flop(blocks, size):
+    """The operations (2 per multiply-add) of one snapshot of spatial ``size`` through
+    ``blocks``, each with its convolution as ``.conv``."""
+    from blindno_torch.nn.cnn import schedule_output_size
+
+    macs = 0
+    for block in blocks:
+        c = block.conv
+        size = schedule_output_size(size, [(c.in_channels, c.out_channels, c.kernel_size,
+                                            c.stride, c.padding)])
+        macs += math.prod(size) * c.out_channels * c.in_channels * math.prod(c.kernel_size)
+    return 2 * macs
+
+
+def serve_nio3d(smi_line):
+    """``NIOFP3D`` at its defaults (SERVE_3D): seeded weights, BatchNorm calibrated on the
+    card; served through ``predict_fields`` (no kernel of the port on this path: FNO3d's
+    spectral convolution is the einsum chain, as in JAX), against the CPU on the first
+    set cut to ``cpu_snapshots``; forwards per second, peak memory, and the forward split
+    on the device (each part replayed from a CUDA graph) between the encoder, the trunk,
+    the fusion and the FNO3d head; then ``train_steps`` float32 training steps on one
+    batch, each loss finite. Returns the phase line's fields."""
+    from blindno_torch.eval.field_eval import predict_fields
+    from blindno_torch.models.nio3d import NIOFP3D
+    from blindno_torch.train.step import make_optimizer, train_step
+
+    m, l, n, batch = SERVE_3D["m"], SERVE_3D["l"], SERVE_3D["n"], SERVE_3D["batch"]
+    inputs, grid = sets_3d(np.random.default_rng(2), m, l, n), grid_3d(n)
+    model = NIOFP3D(generator=torch.Generator().manual_seed(0), device="cuda")
+    g = torch.tensor(grid, device="cuda")
+    calibrate_bn(model, torch.tensor(sets_3d(np.random.default_rng(3), 1, l, n), device="cuda"),
+                 g, np.random.default_rng(7))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    counts, out = counted(lambda: predict_fields(model, inputs, grid, batch=batch))
+    first_s = time.perf_counter() - t0
+    expect_launches("serving NIOFP3D", counts)
+    serve_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    spread = np.abs(out[0] - out[1]).max()
+    if out.shape != (m, n, n, n, 1) or not np.isfinite(out).all() or spread < 1e-5:
+        raise RuntimeError(f"serving NIOFP3D: shape {out.shape}, finite {np.isfinite(out).all()}, "
+                           f"difference between two sets {spread:.3g}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SERVE_3D["timed_rounds"]):
+        predict_fields(model, inputs, grid, batch=batch)
+    wall = time.perf_counter() - t0
+    forwards = SERVE_3D["timed_rounds"] * -(-m // batch)
+
+    # the card against the CPU plain path, on the first set cut to a few snapshots
+    cut = inputs[:1, :SERVE_3D["cpu_snapshots"]]
+    cpu_model = NIOFP3D(generator=torch.Generator().manual_seed(0), device="cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    got = predict_fields(model, cut, grid, batch=1)
+    t0 = time.perf_counter()
+    want = torch.tensor(predict_fields(cpu_model, cut, grid, batch=1, device="cpu"))
+    cpu_s = time.perf_counter() - t0
+    del cpu_model
+    scale = want.abs().max().item()
+    err = check_close("serving NIOFP3D vs the CPU plain path", torch.tensor(got), want,
+                      SERVE_TOL, scale)
+
+    xb = torch.tensor(inputs[:batch], device="cuda")
+    with torch.inference_mode():
+        gb = g.expand(batch, *g.shape)
+        dn = model.deeponet
+        fields = model.fields(xb, g)
+        feats = model.fusion(gb, fields)
+        parts = {"encoder": lambda: dn.branch(xb), "trunk": lambda: dn.trunk(g.reshape(-1, 3)),
+                 "fusion": lambda: model.fusion(gb, fields), "fno3d": lambda: model.head(feats),
+                 "forward": lambda: model(xb, g)}
+        split = {f"{k}_graph_ms": graph_ms(fn, 2, 3) for k, fn in parts.items()}
+        split["rest_graph_ms"] = split["forward_graph_ms"] - sum(
+            split[f"{k}_graph_ms"] for k in ("encoder", "trunk", "fusion", "fno3d"))
+        split["h2d_ms"] = time_ms(lambda: torch.as_tensor(inputs[:batch]).to("cuda"), 3)
+        del fields, feats
+    # the encoder's convolutions a forward, and the rate its graph time gives them
+    encoder_tflop = conv_flop(model.deeponet.branch.blocks, (n, n, n)) * batch * l / 1e12
+    encoder_tflop_s = encoder_tflop / (split["encoder_graph_ms"] / 1e3)
+
+    # float32 training steps on one batch, the set subsample drawn on the card
+    y = torch.tensor(np.random.default_rng(4).standard_normal((batch, n, n, n, 1),
+                                                              dtype=np.float32), device="cuda")
+    model.train()
+    opt = make_optimizer(model)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    counts_train, losses = counted(lambda: [float(train_step(model, opt, xb, y, g, generator=gen))
+                                            for _ in range(SERVE_3D["train_steps"])])
+    step_s = (time.perf_counter() - t0) / SERVE_3D["train_steps"]
+    expect_launches("training NIOFP3D", counts_train)
+    if not np.isfinite(losses).all():
+        raise RuntimeError(f"training NIOFP3D: losses {losses}")
+    train_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del model, opt, xb, y
+    torch.cuda.empty_cache()
+    return dict(model="NIOFP3D", config="defaults", sets=m, snapshots=l, grid=[n, n, n],
+                batch=batch, launches=counts, first_call_s=first_s, timed_forwards=forwards,
+                forwards_per_s=forwards / wall, ms_per_forward=1e3 * wall / forwards,
+                output_abs_max=scale, output_set_spread=float(spread), max_abs_err_vs_cpu=err,
+                cpu_sets_snapshots=list(cut.shape[:2]), cpu_reference_s=cpu_s,
+                tol=f"rtol {SERVE_TOL}, atol {SERVE_TOL} x output_abs_max",
+                serve_peak_memory_gb=serve_peak_gb, device_split=split,
+                encoder_conv_tflop=encoder_tflop, encoder_tflop_s=encoder_tflop_s,
+                encoder_share_of_f32_peak=encoder_tflop_s * 1e12 / PEAK_F32_FLOP_S,
+                train_losses=losses,
+                train_launches=counts_train, train_step_s=step_s,
+                train_peak_memory_gb=train_peak_gb, nvidia_smi=smi_line)
+
+
+def phase_serve3d(smi_line):
+    """The 3-D NIO's path (:func:`serve_nio3d`), then the ODE-observation NIO's:
+    ``NIOFPOde`` at its defaults (SERVE_ODE; seeded weights, calibrated BatchNorm) through
+    ``predict_fields``, its FNO1d head's ``fno1d_layer`` launched exactly 3 times a
+    forward, every call at ODE_HEADS_1D, against the CPU plain path."""
+    from blindno_torch.models.nio1d import NIOFPOde
+    from blindno_torch.nn import fno
+
+    emit("serve3d", **serve_nio3d(smi_line))
+    m, l, k, n = SERVE_ODE["m"], SERVE_ODE["l"], SERVE_ODE["n_obs"], SERVE_ODE["n"]
+    inputs = sets_1d(np.random.default_rng(2), m, l, k)
+    grid = np.linspace(0.0, 1.0, n, dtype=np.float32).reshape(n, 1)
+    cpu_model = NIOFPOde(generator=torch.Generator().manual_seed(0), device="cpu")
+    calibrate_bn(cpu_model, sets_1d(np.random.default_rng(3), 1, l, k), grid,
+                 np.random.default_rng(7))
+    shapes = set()
+
+    def recorded(x, wr, *args, **kwargs):
+        shapes.add((*x.shape, wr.shape[-1]))
+        return layer(x, wr, *args, **kwargs)
+
+    layer = fno.fno1d_layer_cuda
+    with patched(fno, "fno1d_layer_cuda", recorded):
+        _, counts, fields = serve("NIOFPOde", cpu_model, inputs, grid, SERVE_ODE["batch"],
+                                  SERVE_ODE["timed_rounds"], "fno1d_layer", 3, out_dim=1)
+    want = (SERVE_ODE["batch"], *ODE_HEADS_1D[1:4])  # ODE_HEADS_1D at the phase's batch
+    if shapes != {want}:
+        raise RuntimeError(f"serving NIOFPOde: fno1d_layer called at {sorted(shapes)}, "
+                           f"want {want} (B, C, N, modes) only")
+    emit("serve3d", model="NIOFPOde", config="defaults", observations=k, layer_shape=ODE_HEADS_1D,
+         **fields, nvidia_smi=smi_line)
+    return counts["fno1d_layer"]
 
 
 def randomize_layernorms(model, rng):
@@ -1826,6 +2008,7 @@ def fit_cli(w, spec, model, m, m_test, epochs, per_forward, smi_line, layer="fno
         raise RuntimeError(f"{label}: the training steps synchronized the host {len(syncs)} "
                            f"times: {sorted(set(syncs))[:3]}")
     counts2, report, wall2, _ = cli_stage(w, spec.name, model, "--stage", "eval")
+    emit("fit_figures", suite=spec.name, model=model, figures=report["figures"])
     group = len(loop.make_augment(cfg.augment))
     expect_launches(f"{label} eval", counts2,
                     **{layer: per_forward * test_forwards * (1 + group)})
@@ -1947,6 +2130,7 @@ def phase_fit(smi_line):
 
         # 3. the eval stage, with the symmetry average
         counts3, report, wall3, _ = run("--stage", "eval")
+        emit("fit_figures", suite="fpe2d", model="nio", figures=report["figures"])
         expect_launches("fit: eval", counts3, fno2d_layer=6 * test_forwards * (1 + group))
         numbers = [report["mean_rel_l2_sum"], report["mean_rel_l2_sum_tta"]]
         if report["n_test"] != FIT["m_test"] or not np.isfinite(numbers).all():
@@ -2446,6 +2630,7 @@ def earlier_phases(timed, smi_line, ranks):
     for kernel, count in timed("serve_unet", phase_serve_unet).items():
         launches[kernel] += count
     launches["fno2d_layer"] += timed("serve_nio2d", phase_serve_nio2d)
+    launches["fno1d_layer"] += timed("serve3d", phase_serve3d, smi_line)
     launches["fno2d_layer"] += timed("train", phase_train,
                                      stats["fno2d_layer"]["kernel_ms"], smi_line)
     launches["fno2d_layer"] += timed("train_unet", phase_train_unet, smi_line)

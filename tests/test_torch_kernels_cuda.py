@@ -28,11 +28,13 @@ TP_SHAPES = [s for s in SHAPES if len(s) > 6]
 # 1-D (B, C, N, modes, dc_half[, Cout], Cout = C unless given): the fpe1d heads, the
 # FNO-branch model's inner FNO1d, the GPE width, a ragged shape without the DC halving,
 # the gpe1d heads, an even N that keeps its Nyquist mode, one batch row with more output
-# than input channels, a long row that the kernel takes in tiles along N, and modes so
-# many that it reads its twiddles from the table alone
+# than input channels, a long row that the kernel takes in tiles along N, modes so
+# many that it reads its twiddles from the table alone, and the ODE-observation NIO's
+# head (an odd N, without the vectorized loads, at a width of 30)
 SHAPES_1D = [(16, 30, 100, 15, True), (1600, 4, 100, 12, True), (8, 25, 160, 32, True),
              (3, 5, 37, 7, False), (16, 20, 160, 40, True), (4, 6, 64, 33, True),
-             (1, 6, 50, 9, True, 11), (2, 8, 4096, 64, False), (2, 1, 2000, 1001, False)]
+             (1, 6, 50, 9, True, 11), (2, 8, 4096, 64, False), (2, 1, 2000, 1001, False),
+             (16, 30, 125, 15, True)]
 TOL_1D = 2e-4  # the 1-D Pallas kernels' tolerance, tests/test_spectral_pallas.py
 # 1-D training shapes at the suites' batch of 32: the fpe1d heads, the FNO-branch model's
 # inner FNO1d over 32 x 100 snapshots, and the gpe1d heads

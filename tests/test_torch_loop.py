@@ -411,14 +411,16 @@ def test_train_loop_seeded_draws_are_reproducible():
 
 
 @pytest.mark.parametrize("fields", [dict(epoch_scan=True), dict(tp=2),
-                                    dict(compute_dtype="bfloat16"),
-                                    dict(compute_dtype="bfloat16", amp_policy="encoder"),
+                                    dict(compute_dtype="bfloat16", amp_policy="bn32"),
+                                    dict(compute_dtype="float16", amp_policy="all"),
                                     dict(compute_dtype="float16", amp_policy="encoder_bn32"),
                                     dict(augment="d8")])
 def test_train_loop_refuses_what_is_not_ported(fields):
-    """What the port does not implement, and ``tp=2`` in one process: tensor parallelism
-    is ported (``tests/test_torch_parallel.py``), but one rank is not divisible by a
-    model axis of 2, as JAX's ``data_model_mesh`` asserts on one device."""
+    """What the port does not implement, what JAX refuses too (an unknown amp policy or
+    augment kind), and ``tp=2`` in one process: tensor parallelism is ported
+    (``tests/test_torch_parallel.py``), but one rank is not divisible by a model axis of
+    2, as JAX's ``data_model_mesh`` asserts on one device. The three amp policies with
+    bfloat16 are ported (``tests/test_torch_eval_extras.py``)."""
     data, grid = tiny_data()
     with pytest.raises(ValueError, match="not divisible by tp" if "tp" in fields else None):
         train_model(small_model(), data, grid, _cfg(**fields), device="cpu")

@@ -39,7 +39,7 @@ from blindno.models.nio2d import NIOFNO2D as JNIOFNO2D
 from blindno.models.nio2d import NIOFP2D as JNIOFP2D
 from blindno.train.checkpoint import load_best as jax_load_best
 from blindno_torch.convert import from_flax
-from blindno_torch.eval.field_eval import FIGURES_NOT_PORTED, evaluate_suite_model
+from blindno_torch.eval.field_eval import evaluate_suite_model
 from blindno_torch.data.datasets import NCFPE2D_SCALES
 from blindno_torch.models.nio2d import NIOFNO2D, NIOFP2D
 from blindno_torch.suites.run import main
@@ -62,7 +62,7 @@ def _write_archives(workdir):
 
 def _layout(workdir):
     """Relative paths of the workdir's artifacts, a checkpoint's internals (an orbax
-    directory in JAX, one file in the port) and the figures left out."""
+    directory in JAX, one file in the port), the figures left out."""
     out = set()
     for root, dirs, files in os.walk(workdir):
         rel = os.path.relpath(root, workdir)
@@ -78,6 +78,15 @@ def _layout(workdir):
             if not name.endswith(".png"):
                 out.add(path)
     return out
+
+
+def _assert_figures(report, w, suite, model, n_test):
+    """The report's ``figures`` entry: the PNG of each of the first three test samples,
+    each drawn (more than 1000 bytes, as ``tests/test_plots.py`` holds the JAX figures)."""
+    out = os.path.join(w, "eval", f"{suite}_{model}")
+    want = [os.path.join(out, f"pred_sample_{i}.png") for i in range(min(3, n_test))]
+    assert report["figures"] == want
+    assert all(os.path.getsize(p) > 1000 for p in want)
 
 
 def _small_jax_spec():
@@ -121,7 +130,7 @@ def test_cli_writes_the_jax_layout(jax_workdir, tmp_path, capsys):
     assert _layout(w) == _layout(jw)
     assert os.path.exists(os.path.join(w, "ckpt", "fpe2d_nio", RESUME))
     assert set(report) == REPORT_KEYS | {"figures"} and set(jreport) == REPORT_KEYS
-    assert report["figures"] == FIGURES_NOT_PORTED
+    _assert_figures(report, w, "fpe2d", "nio", M_TEST)
     assert report["n_test"] == M_TEST and report["ckpt_epoch"] == 2
     assert np.isfinite(report["mean_rel_l2_sum"]) and np.isfinite(report["mean_rel_l2_sum_tta"])
     assert capsys.readouterr().out.rstrip().endswith(json.dumps(report, indent=1))
@@ -168,6 +177,7 @@ def _assert_eval_matches_jax(report, jreport, w, jw, suite, model, n_test):
     and the two sidecars of train statistics equal."""
     out, jout = (os.path.join(d, "eval", f"{suite}_{model}") for d in (w, jw))
     assert set(report) == set(jreport) | {"figures"}
+    _assert_figures(report, w, suite, model, n_test)
     for k in ("suite", "model", "n_test", "ckpt_epoch", "ckpt_test_loss"):
         assert report[k] == jreport[k], k
     for k in ("mean_rel_l2_per_field", "mean_rel_l2_per_field_tta", "mean_rel_l2_sum",
@@ -218,6 +228,7 @@ def test_cli_trains_and_evaluates_the_unet(jax_workdir, tmp_path):
                    "--device", "cpu"])
     assert _layout(w) == {p.replace("fpe2d_nio", "fpe2d_unet") for p in _layout(jw)}
     assert set(report) == REPORT_KEYS | {"figures"} and report["model"] == "unet"
+    _assert_figures(report, w, "fpe2d", "unet", M_TEST)
     assert report["n_test"] == M_TEST and report["ckpt_epoch"] == 1
     assert np.isfinite(report["mean_rel_l2_sum"]) and np.isfinite(report["mean_rel_l2_sum_tta"])
     preds = np.load(os.path.join(w, "eval", "fpe2d_unet", "predictions.npy"))
@@ -307,6 +318,7 @@ def test_ncfpe2d_cli_trains_and_evaluates_the_fno_model(jax_nc_workdir, tmp_path
                    "--device", "cpu"])
     assert _layout(w) == _layout(jw)
     assert set(report) == REPORT_KEYS | {"figures"} and set(jreport) == REPORT_KEYS
+    _assert_figures(report, w, "ncfpe2d", "fno", NC_TEST)
     assert (report["suite"], report["model"], report["n_test"], report["ckpt_epoch"]) == (
         "ncfpe2d", "fno", NC_TEST, 2)
     assert np.isfinite(report["mean_rel_l2_sum"]) and np.isfinite(report["mean_rel_l2_sum_tta"])

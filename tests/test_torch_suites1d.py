@@ -28,7 +28,8 @@ import blindno_torch.suites.registry as registry
 from blindno.data import generate as G
 from blindno_torch.convert import from_flax
 from blindno_torch.suites.run import main
-from test_torch_suites import REPORT_KEYS, _assert_eval_matches_jax, _port_best_from_jax
+from test_torch_suites import (REPORT_KEYS, _assert_eval_matches_jax, _assert_figures,
+                               _port_best_from_jax)
 
 CKPT = os.path.join(os.path.dirname(__file__), "..", "runs", "ckpt")
 SUITES_1D = ("fpe1d", "schrodinger1d", "gpe1d", "gpe1d_vgk")
@@ -284,6 +285,7 @@ def test_cli_trains_resumes_and_evaluates(cli_workdir, suite, model):
     ckpt = os.listdir(os.path.join(w, "ckpt", f"{suite}_{model}"))
     assert "resume.pt" in ckpt and sum(f.startswith("best_") for f in ckpt) == 1
     assert set(report) == REPORT_KEYS | {"figures"} and report["n_test"] == M_TEST
+    _assert_figures(report, w, suite, model, M_TEST)
     assert np.isfinite([report["mean_rel_l2_sum"], report["mean_rel_l2_sum_tta"]]).all()
     preds = np.load(os.path.join(w, "eval", f"{suite}_{model}", "predictions.npy"))
     n, fields = (80, 2) if suite == "fpe1d" else (128, 3 if suite == "gpe1d_vgk" else 1)
