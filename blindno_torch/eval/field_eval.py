@@ -108,7 +108,9 @@ def cached_train_stats(spec, workdir: str) -> TrainStats:
     """Train-set normalization stats from a sidecar npz next to the train archive,
     keyed on the archive's (mtime, size), so regenerating a dataset invalidates it. The
     sidecar is named after the suite, not the archive: gpe1d and gpe1d_vgk share one
-    archive and normalize it differently."""
+    archive and normalize it differently. It is written to a file of this process's own
+    and renamed into place, so that another process reading it (an eval beside a
+    time-error stage) finds it whole or not at all."""
     src = os.path.join(workdir, "data", spec.train_file)
     sidecar = os.path.join(workdir, "data", f"{spec.name}.stats.npz")
     mtime, size = os.path.getmtime(src), os.path.getsize(src)
@@ -118,7 +120,14 @@ def cached_train_stats(spec, workdir: str) -> TrainStats:
                 return _stats_from_arrays({k: z[k] for k in z.files})
     train_ds = spec.loader(_load_npz(src))
     ts = TrainStats(train_ds.stats, int(train_ds.targets.shape[-1]))
-    np.savez(sidecar, **_stats_to_arrays(ts, mtime, size))
+    part = f"{sidecar}.{os.getpid()}.part"
+    try:
+        with open(part, "wb") as fh:
+            np.savez(fh, **_stats_to_arrays(ts, mtime, size))
+        os.replace(part, sidecar)
+    finally:
+        if os.path.exists(part):  # a write that failed
+            os.remove(part)
     return ts
 
 

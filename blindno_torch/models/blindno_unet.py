@@ -41,7 +41,8 @@ def _unet_shapes(input_size, depth):
 class PermInvUNetAttn(nn.Module):
     """The JAX class's options: ``input_size`` (N,) or (H, W), ``depth``, ``base_ch``,
     ``width``, ``fno_modes``, ``fno_layers``, ``head_dims``, ``block`` ("convnext" or
-    "plain"), ``use_attention``, ``subsample`` with ``l_min``. Weights are drawn from
+    "plain"), ``use_attention``, ``subsample`` with ``l_min``, and ``padding_frac``, the
+    FNO heads' domain padding (JAX's ``FNO1d``/``FNO2d`` field). Weights are drawn from
     ``generator`` on the CPU and the model moves to ``device`` (CUDA unless the caller
     passes another); it is built in eval mode.
 
@@ -59,7 +60,8 @@ class PermInvUNetAttn(nn.Module):
     def __init__(self, input_size, depth: int = 4, base_ch: int = 1, width: int = 30,
                  fno_modes: int = 15, fno_layers: int = 3, head_dims=(1, 1),
                  block: str = "convnext", use_attention: bool = True, subsample: bool = False,
-                 l_min: int = 50, generator: torch.Generator | None = None, device=None):
+                 l_min: int = 50, padding_frac: float = 0.25,
+                 generator: torch.Generator | None = None, device=None):
         super().__init__()
         if block not in BLOCKS:
             raise ValueError(f"unknown block {block!r} (want one of {sorted(BLOCKS)})")
@@ -84,8 +86,8 @@ class PermInvUNetAttn(nn.Module):
             ConvTranspose(chs[lv + 1], chs[lv], (2,) * ndim, (2,) * ndim, pads[i], g)
             for i, lv in enumerate(up))
         self.skip_norms = nn.ModuleList(bn(chs[lv]) for lv in up)
-        self.heads = nn.ModuleList(fno(fno_modes, width, fno_layers, width, d, generator=g)
-                                   for d in head_dims)
+        self.heads = nn.ModuleList(fno(fno_modes, width, fno_layers, width, d, generator=g,
+                                       padding_frac=padding_frac) for d in head_dims)
         self.eval()
         self.to(default_device(device))
 

@@ -1,6 +1,7 @@
 """The 1-D NIO models (counterpart of ``blindno/models/nio1d.py``).
 
-Input x (B, L, N) and grid (N, 1); output (B, N, sum(head_dims)); :class:`NIOFPOde`
+Input x (B, L, N) and grid (N, 1); output (B, N, sum(head_dims)); ``padding_frac`` is the
+FNO1d stacks' domain padding (JAX's ``FNO1d`` field, 1/4 by default); :class:`NIOFPOde`
 takes (B, L, n_obs) observations instead, with the same grid and output. Weights are drawn
 from ``generator`` on the CPU and the model moves to ``device`` (CUDA unless the caller
 passes another); it is built in eval mode.
@@ -22,9 +23,10 @@ from blindno_torch.nn.fno import FNO1d
 from blindno_torch.nn.setops import MeanFieldFusion, train_subsample
 
 
-def _heads(modes, width, layers, head_dims, g):
+def _heads(modes, width, layers, head_dims, padding_frac, g):
     """One FNO1d head per entry of ``head_dims`` (its output channels)."""
-    return nn.ModuleList(FNO1d(modes, width, layers, width, d, generator=g) for d in head_dims)
+    return nn.ModuleList(FNO1d(modes, width, layers, width, d, generator=g,
+                               padding_frac=padding_frac) for d in head_dims)
 
 
 class NIOFP1D(nn.Module):
@@ -35,7 +37,8 @@ class NIOFP1D(nn.Module):
     def __init__(self, input_dimensions_trunk: int = 1, n_hidden_layers: int = 3,
                  neurons: int = 100, n_basis: int = 25, fno_layers: int = 3, width: int = 30,
                  modes: int = 15, head_dims=(1, 1), encoder_final_convs=ENC_FPE80,
-                 l_min: int = 50, generator: torch.Generator | None = None, device=None):
+                 l_min: int = 50, padding_frac: float = 0.25,
+                 generator: torch.Generator | None = None, device=None):
         super().__init__()
         g = torch.Generator().manual_seed(0) if generator is None else generator
         self.l_min = l_min
@@ -43,7 +46,7 @@ class NIOFP1D(nn.Module):
         trunk = FFN(input_dimensions_trunk, n_basis, n_hidden_layers, neurons, generator=g)
         self.deeponet = DeepOnetNoBias(branch, trunk)
         self.fusion = MeanFieldFusion(width, grid_channels=1, generator=g)
-        self.heads = _heads(modes, width, fno_layers, head_dims, g)
+        self.heads = _heads(modes, width, fno_layers, head_dims, padding_frac, g)
         self.eval()
         self.to(default_device(device))
 
@@ -63,7 +66,8 @@ class NIOFPOde(nn.Module):
     def __init__(self, input_dimensions_trunk: int = 1, n_hidden_layers: int = 3,
                  neurons: int = 100, n_basis: int = 25, fno_layers: int = 3, width: int = 30,
                  modes: int = 15, output_dim: int = 1, l_min: int = 50, n_obs: int = 11,
-                 generator: torch.Generator | None = None, device=None):
+                 padding_frac: float = 0.25, generator: torch.Generator | None = None,
+                 device=None):
         super().__init__()
         g = torch.Generator().manual_seed(0) if generator is None else generator
         self.l_min = l_min
@@ -71,7 +75,7 @@ class NIOFPOde(nn.Module):
         trunk = FFN(input_dimensions_trunk, n_basis, n_hidden_layers, neurons, generator=g)
         self.deeponet = DeepOnetNoBias(branch, trunk)
         self.fusion = MeanFieldFusion(width, grid_channels=1, generator=g)
-        self.heads = _heads(modes, width, fno_layers, (output_dim,), g)
+        self.heads = _heads(modes, width, fno_layers, (output_dim,), padding_frac, g)
         self.eval()
         self.to(default_device(device))
 
@@ -88,14 +92,15 @@ class NIOFNO1D(nn.Module):
 
     def __init__(self, fno_layers: int = 3, width: int = 30, modes: int = 15,
                  head_dims=(1, 1), inner_modes: int = 12, inner_width: int = 4,
-                 inner_layers: int = 2, l_min: int = 50,
+                 inner_layers: int = 2, l_min: int = 50, padding_frac: float = 0.25,
                  generator: torch.Generator | None = None, device=None):
         super().__init__()
         g = torch.Generator().manual_seed(0) if generator is None else generator
         self.l_min = l_min
-        self.branch = FNO1d(inner_modes, inner_width, inner_layers, 2, 1, generator=g)
+        self.branch = FNO1d(inner_modes, inner_width, inner_layers, 2, 1, generator=g,
+                            padding_frac=padding_frac)
         self.fusion = MeanFieldFusion(width, grid_channels=1, generator=g)
-        self.heads = _heads(modes, width, fno_layers, head_dims, g)
+        self.heads = _heads(modes, width, fno_layers, head_dims, padding_frac, g)
         self.eval()
         self.to(default_device(device))
 

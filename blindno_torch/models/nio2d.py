@@ -2,7 +2,11 @@
 ``NIOFP2D``, the FNO-branch ``NIOFNO2D``, the Transolver NIO ``NIOTrans2D``, and their
 token-attention variants ``NIOAttn2D``, ``NIOFNOAttn2D`` and ``NIOTransAttn2D``.
 
-Input x (B, L, Nx, Ny) and grid (Nx, Ny, 2); output (B, Nx, Ny, 2). Every model draws
+Input x (B, L, Nx, Ny) and grid (Nx, Ny, 2); output (B, Nx, Ny, sum(head_dims)): one
+FNO2d head per entry of ``head_dims`` (its output channels, concatenated on the last
+axis as JAX's ``_heads`` does; (1, 1), drift and diffusion or Fx and Fy, by default).
+``padding_frac`` is the FNO2d stacks' domain padding (JAX's ``FNO2d`` field, 1/4 by
+default; the FNO-branch models' inner FNO2d takes it too). Every model draws
 its weights from ``generator`` on the CPU, moves to ``device`` (CUDA unless the caller
 passes another) and is built in eval mode.
 
@@ -25,9 +29,10 @@ from blindno_torch.nn.setops import (MeanFieldFusion, TokenMeanFusion, set_self_
 from blindno_torch.nn.transolver import Transolver
 
 
-def _fno_heads(modes, width, layers, g):
-    """The two single-channel FNO2d heads (drift and diffusion, or Fx and Fy)."""
-    return nn.ModuleList(FNO2d(modes, width, layers, width, 1, generator=g) for _ in range(2))
+def _fno_heads(modes, width, layers, head_dims, padding_frac, g):
+    """One FNO2d head per entry of ``head_dims``, its output channels."""
+    return nn.ModuleList(FNO2d(modes, width, layers, width, d, generator=g,
+                               padding_frac=padding_frac) for d in head_dims)
 
 
 def _heads(heads, feats):
@@ -53,20 +58,26 @@ def _token_attention_tokens(fields, grid, mask):
 
 
 class NIOFP2D(nn.Module):
-    """Encoder2D branch + FFN trunk (3 hidden layers) DeepONet + mean-field fusion +
-    two single-channel FNO2d heads (drift, diffusion); the "NIO" baseline."""
+    """Encoder2D branch + FFN trunk DeepONet (``n_hidden_layers`` hidden layers of
+    ``neurons``) + mean-field fusion + the FNO2d heads; the "NIO" baseline. The trunk
+    takes the grid's two coordinates whatever ``input_dimensions_trunk`` says: JAX's
+    ``FFN`` is given the field and does not use it; its ``Dense`` layers take their in-features
+    from the flattened grid (``blindno/models/nio2d.py:57-59``), and the port builds the
+    trunk that flax builds, so that such a tree carries over."""
 
-    def __init__(self, neurons: int = 100, n_basis: int = 25, fno_layers: int = 3,
-                 width: int = 12, modes: int = 32, encoder_final_kernel=(2, 1),
-                 l_min: int = 50, generator: torch.Generator | None = None, device=None):
+    def __init__(self, input_dimensions_trunk: int = 2, n_hidden_layers: int = 3,
+                 neurons: int = 100, n_basis: int = 25, fno_layers: int = 3, width: int = 12,
+                 modes: int = 32, head_dims=(1, 1), encoder_final_kernel=(2, 1),
+                 l_min: int = 50, padding_frac: float = 0.25,
+                 generator: torch.Generator | None = None, device=None):
         super().__init__()
         g = torch.Generator().manual_seed(0) if generator is None else generator
         self.l_min = l_min
         branch = Encoder2D(n_basis, encoder_final_kernel, generator=g)
-        trunk = FFN(2, n_basis, 3, neurons, generator=g)
+        trunk = FFN(2, n_basis, n_hidden_layers, neurons, generator=g)
         self.deeponet = DeepOnetNoBias(branch, trunk)
         self.fusion = MeanFieldFusion(width, grid_channels=2, generator=g)
-        self.heads = _fno_heads(modes, width, fno_layers, g)
+        self.heads = _fno_heads(modes, width, fno_layers, head_dims, padding_frac, g)
         self.eval()
         self.to(default_device(device))
 
@@ -96,18 +107,20 @@ class NIOAttn2D(NIOFP2D):
 class NIOFNO2D(nn.Module):
     """FNO-branch NIO, the "NIO-FNO" baseline (``blindno/models/nio2d.py:66-90``): a small
     FNO2d (``branch``: 12 modes, width 4, 2 layers) shared by all snapshots lifts each
-    (value, grid x, grid y) point to a field, then the mean-field fusion and the two FNO2d
+    (value, grid x, grid y) point to a field, then the mean-field fusion and the FNO2d
     heads as in :class:`NIOFP2D`."""
 
     def __init__(self, fno_layers: int = 3, width: int = 12, modes: int = 32,
-                 inner_modes: int = 12, inner_width: int = 4, inner_layers: int = 2,
-                 l_min: int = 50, generator: torch.Generator | None = None, device=None):
+                 head_dims=(1, 1), inner_modes: int = 12, inner_width: int = 4,
+                 inner_layers: int = 2, l_min: int = 50, padding_frac: float = 0.25,
+                 generator: torch.Generator | None = None, device=None):
         super().__init__()
         g = torch.Generator().manual_seed(0) if generator is None else generator
         self.l_min = l_min
-        self.branch = FNO2d(inner_modes, inner_width, inner_layers, 3, 1, generator=g)
+        self.branch = FNO2d(inner_modes, inner_width, inner_layers, 3, 1, generator=g,
+                            padding_frac=padding_frac)
         self.fusion = self._fusion(width, g)
-        self.heads = _fno_heads(modes, width, fno_layers, g)
+        self.heads = _fno_heads(modes, width, fno_layers, head_dims, padding_frac, g)
         self.eval()
         self.to(default_device(device))
 
@@ -147,11 +160,12 @@ class NIOTrans2D(nn.Module):
     """Transolver NIO (``blindno/models/nio2d.py:93-115``): a structured-mesh
     :class:`~blindno_torch.nn.transolver.Transolver` (``trans``) shared by all snapshots
     turns each snapshot's (value, grid x, grid y) tokens into a field, then the
-    mean-field fusion and the two FNO2d heads as in :class:`NIOFP2D`."""
+    mean-field fusion and the FNO2d heads as in :class:`NIOFP2D`."""
 
     def __init__(self, fno_layers: int = 3, width: int = 12, modes: int = 32,
-                 trans_layers: int = 3, trans_hidden: int = 32, trans_heads: int = 4,
-                 slice_num: int = 16, l_min: int = 50, generator: torch.Generator | None = None,
+                 head_dims=(1, 1), trans_layers: int = 3, trans_hidden: int = 32,
+                 trans_heads: int = 4, slice_num: int = 16, l_min: int = 50,
+                 padding_frac: float = 0.25, generator: torch.Generator | None = None,
                  device=None):
         super().__init__()
         g = torch.Generator().manual_seed(0) if generator is None else generator
@@ -160,7 +174,7 @@ class NIOTrans2D(nn.Module):
                                 n_head=trans_heads, fun_dim=1, out_dim=1, slice_num=slice_num,
                                 mesh_ndim=2, generator=g)
         self.fusion = MeanFieldFusion(width, grid_channels=2, generator=g)
-        self.heads = _fno_heads(modes, width, fno_layers, g)
+        self.heads = _fno_heads(modes, width, fno_layers, head_dims, padding_frac, g)
         self.eval()
         self.to(default_device(device))
 

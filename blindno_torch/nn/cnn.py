@@ -9,10 +9,9 @@ as it stands where the map does not collapse to one point (``Encoder3DDown``,
 ``EncoderHelm2``); its in-features come from the ``input_size`` the encoder is built for,
 worked out from the conv schedule, where flax infers them at its first call.
 
-Every encoder computes in the snapshots' dtype. bfloat16 snapshots (the training step's
-mixed-precision modes) run the convs and ``fc`` in bfloat16 under ``torch.autocast``
-scoped to the encoder, with the weights kept in float32; BatchNorm computes in float32
-and hands bfloat16 on. The output is then bfloat16.
+Every encoder computes in the dtype its snapshots and weights share: the training step's
+low-precision modes cast both (:mod:`blindno_torch.train.step`), BatchNorm computes in
+float32 and hands that dtype on, and the output has it.
 """
 from __future__ import annotations
 
@@ -23,7 +22,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from blindno_torch.nn.torch_layers import (BatchNorm1d, BatchNorm2d, BatchNorm3d, ConvTranspose,
-                                           conv1d, conv2d, conv3d, leaky_relu, linear)
+                                           conv1d, conv2d, conv3d, leaky_relu, linear,
+                                           promoted)
 
 ENC_FPE80 = ((5, 1), (5, 0), (4, 0))           # 1-D FPE, N=80
 ENC_GPE128 = ((5, 1), (5, 0), (7, 0), (4, 0))  # 1-D GPE, N=128
@@ -43,7 +43,8 @@ class ChannelLayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x):
-        y = F.layer_norm(x.movedim(1, -1), (x.shape[1],), self.weight, self.bias, self.eps)
+        x, weight, bias = promoted(x, self.weight, self.bias)
+        y = F.layer_norm(x.movedim(1, -1), (x.shape[1],), weight, bias, self.eps)
         return y.movedim(-1, 1)
 
 
@@ -161,27 +162,27 @@ class SnapshotEncoder(nn.Module):
 
     def forward(self, x):
         b, l = x.shape[:2]
-        with torch.autocast(x.device.type, torch.bfloat16, enabled=x.dtype == torch.bfloat16):
-            h = self.blocks(x.reshape(b * l, 1, *x.shape[2:]))
-            features = h.shape[1] * math.prod(h.shape[2:])
-            if features != self.out_features:
-                raise ValueError(
-                    f"{self.name} did not collapse the grid: got {features} features"
-                    if self.input_size is None else
-                    f"{self.name} built for {self.input_size} leaves {self.out_features} "
-                    f"features; input {tuple(x.shape[2:])} leaves {tuple(h.shape[1:])}")
-            return self.fc(h.movedim(1, -1).reshape(b, l, -1))
+        h = self.blocks(x.reshape(b * l, 1, *x.shape[2:]))
+        features = h.shape[1] * math.prod(h.shape[2:])
+        if features != self.out_features:
+            raise ValueError(
+                f"{self.name} did not collapse the grid: got {features} features"
+                if self.input_size is None else
+                f"{self.name} built for {self.input_size} leaves {self.out_features} "
+                f"features; input {tuple(x.shape[2:])} leaves {tuple(h.shape[1:])}")
+        return self.fc(h.movedim(1, -1).reshape(b, l, -1))
 
 
 class Encoder1D(SnapshotEncoder):
-    """(B, L, N) -> (B, L, output_dim). Three stride-2 blocks (64, 128, 256 channels),
-    then ``final_convs`` = ((kernel, padding), ...) at 256 channels, chosen so the grid
-    collapses to one point: :data:`ENC_FPE80` for N=80, :data:`ENC_GPE128` for N=128."""
+    """(B, L, N) -> (B, L, output_dim). Three stride-2 blocks of ``dims`` channels
+    (JAX's ``dim1``-``dim3``: 64, 128, 256), then ``final_convs`` = ((kernel, padding),
+    ...) at ``dims[2]`` channels, chosen so the grid collapses to one point:
+    :data:`ENC_FPE80` for N=80, :data:`ENC_GPE128` for N=128."""
 
-    def __init__(self, output_dim: int, final_convs=ENC_FPE80,
+    def __init__(self, output_dim: int, final_convs=ENC_FPE80, dims=(64, 128, 256),
                  generator: torch.Generator | None = None):
         g = torch.Generator().manual_seed(0) if generator is None else generator
-        d1, d2, d3 = 64, 128, 256
+        d1, d2, d3 = dims
         # (in, out, kernel, stride, padding) of the blocks
         schedule = [(1, d1, 3, 2, 1), (d1, d2, 3, 2, 1), (d2, d3, 3, 2, 1)]
         schedule += [(d3, d3, k, 1, p) for k, p in final_convs]
@@ -190,11 +191,13 @@ class Encoder1D(SnapshotEncoder):
 
 class Encoder2D(SnapshotEncoder):
     """(B, L, H, W) -> (B, L, n_out). ``final_kernel`` collapses the last map to 1x1:
-    (2, 1) for 61x61 grids, (3, 2) for 80x80."""
+    (2, 1) for 61x61 grids, (3, 2) for 80x80. ``dims`` are the blocks' five channel
+    widths (JAX's ``dim1``-``dim5``)."""
 
-    def __init__(self, n_out: int, final_kernel=(2, 1), generator: torch.Generator | None = None):
+    def __init__(self, n_out: int, final_kernel=(2, 1), dims=(64, 128, 256, 512, 512),
+                 generator: torch.Generator | None = None):
         g = torch.Generator().manual_seed(0) if generator is None else generator
-        d1, d2, d3, d4, d5 = 64, 128, 256, 512, 512
+        d1, d2, d3, d4, d5 = dims
         # (in, out, kernel, stride, padding) of the ten blocks
         schedule = [
             (1, d1, (1, 7), (1, 2), (0, 3)),

@@ -10,7 +10,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.nn.utils import skip_init
 
-from blindno_torch.nn.torch_layers import BatchNorm1d, leaky_relu
+from blindno_torch.nn.torch_layers import BatchNorm1d, Linear, leaky_relu, promoted
 from blindno_torch.utils import torch_init as tinit
 
 
@@ -48,7 +48,8 @@ class FourierFeatures(nn.Module):
         self.B = nn.Parameter(scale * torch.randn(mapping_size, 2, generator=g))
 
     def forward(self, x):
-        proj = (2.0 * math.pi * x) @ self.B.T
+        x, b = promoted(x, self.B)
+        proj = (2.0 * math.pi * x) @ b.T
         return torch.cat([torch.sin(proj), torch.cos(proj)], dim=-1)
 
 
@@ -66,7 +67,7 @@ class FFN(nn.Module):
         g = torch.Generator().manual_seed(0) if generator is None else generator
         self.act, self.dropout_rate = activation(act_string), dropout_rate
         dims = [input_dimension] + [neurons] * n_hidden_layers + [output_dimension]
-        self.layers = nn.ModuleList(skip_init(nn.Linear, i, o) for i, o in zip(dims, dims[1:]))
+        self.layers = nn.ModuleList(skip_init(Linear, i, o) for i, o in zip(dims, dims[1:]))
         for layer in self.layers:
             tinit.kaiming_uniform_leaky_(layer.weight, 0.01, g)
             nn.init.zeros_(layer.bias)
@@ -95,9 +96,9 @@ class FeedForwardNN(FFN):
 
 class DeepOnetNoBias(nn.Module):
     """``(branch(u) . trunk(x)^T + b0) / sqrt(p)``: branch (B, L, p), trunk (N, p),
-    result (B, L, N) in the trunk's dtype. A bfloat16 branch output goes to the trunk's
-    float32 before the contraction, where JAX promotes it
-    (``blindno/nn/deeponet.py:111-116``)."""
+    result (B, L, N) in the dtype the two promote to, as in JAX
+    (``blindno/nn/deeponet.py:111-116``): a bfloat16 branch output meets a float32 trunk in
+    float32."""
 
     def __init__(self, branch: nn.Module, trunk: nn.Module):
         super().__init__()
@@ -108,5 +109,5 @@ class DeepOnetNoBias(nn.Module):
     def forward(self, u, x):
         weights = self.branch(u)
         basis = self.trunk(x)
-        return ((torch.einsum("blp,np->bln", weights.to(basis.dtype), basis) + self.b0)
+        return ((torch.einsum("blp,np->bln", *promoted(weights, basis)) + self.b0)
                 / math.sqrt(basis.shape[-1]))

@@ -1,7 +1,7 @@
 """The 1-D, 2-D and 3-D Fourier Neural Operators (counterpart of ``blindno/nn/fno.py``).
 
-lift -> n x (spectral conv + 1x1 conv, gelu between layers) -> project, with 1/4 domain
-padding. Each layer runs through the CUDA kernel ``fno1d_layer_cuda`` or
+lift -> n x (spectral conv + 1x1 conv, gelu between layers) -> project, with the domain
+padded by ``padding_frac`` (1/4, JAX's default) at the far end of each axis. Each layer runs through the CUDA kernel ``fno1d_layer_cuda`` or
 ``fno2d_layer_cuda``; ``SpectralConv1d`` and ``SpectralConv2d`` called on their own run
 ``spectral_conv1d_cuda`` and ``spectral_conv2d_cuda``. On a CPU tensor all take the
 kernels' plain versions. Both train: where autograd needs a gradient, each layer runs
@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from blindno_torch.nn.torch_layers import gelu, linear
+from blindno_torch.nn.torch_layers import gelu, linear, promoted
 from blindno_torch.parallel.tp import column_parallel
 from blindno_torch.ops.spectral import spectral_conv3d
 from blindno_torch.ops.spectral_cuda import (fno1d_layer_cuda, fno2d_layer_cuda,
@@ -78,7 +78,7 @@ class SpectralConv3d(nn.Module):
         self.weights_im = nn.Parameter(tinit.spectral_uniform_(torch.empty(shape), scale, generator))
 
     def forward(self, x):
-        return spectral_conv3d(x, self.weights_re, self.weights_im)
+        return spectral_conv3d(*promoted(x, self.weights_re, self.weights_im))
 
 
 class PointwiseConv(nn.Module):
@@ -94,7 +94,8 @@ class PointwiseConv(nn.Module):
 
     def forward(self, x):
         """The 1x1 convolution on channel-first x (B, Cin, *spatial)."""
-        y = torch.einsum("bc...,oc->bo...", x, self.weight)
+        x, weight = promoted(x, self.weight)
+        y = torch.einsum("bc...,oc->bo...", x, weight)
         return y + self.bias.reshape((1, -1) + (1,) * (x.dim() - 2))
 
 
@@ -104,9 +105,11 @@ class FNO1d(nn.Module):
     tp_group = None  # the ``model`` process group once its layers are sharded
 
     def __init__(self, modes: int, width: int, n_layers: int, input_dim: int,
-                 output_dim: int = 1, generator: torch.Generator | None = None):
+                 output_dim: int = 1, generator: torch.Generator | None = None,
+                 padding_frac: float = 0.25):
         super().__init__()
         g = torch.Generator().manual_seed(0) if generator is None else generator
+        self.padding_frac = padding_frac
         self.fc0 = linear(input_dim, width, g)
         self.spectral = nn.ModuleList(
             SpectralConv1d(width, width, modes, g) for _ in range(n_layers))
@@ -115,9 +118,10 @@ class FNO1d(nn.Module):
         self.fc2 = linear(128, output_dim, g)
 
     def lift(self, x):
-        """(B, N, input_dim) -> the first layer's input (B, width, N + N/4)."""
+        """(B, N, input_dim) -> the first layer's input (B, width, N + pad), pad =
+        round(N · padding_frac)."""
         x = self.fc0(x).permute(0, 2, 1)
-        return F.pad(x, (0, int(round(x.shape[-1] * 0.25)))).contiguous()
+        return F.pad(x, (0, int(round(x.shape[-1] * self.padding_frac)))).contiguous()
 
     def forward(self, x):
         n = x.shape[1]
@@ -141,9 +145,11 @@ class FNO2d(nn.Module):
     tp_group = None  # the ``model`` process group once its layers are sharded
 
     def __init__(self, modes: int, width: int, n_layers: int, input_dim: int,
-                 output_dim: int = 1, generator: torch.Generator | None = None):
+                 output_dim: int = 1, generator: torch.Generator | None = None,
+                 padding_frac: float = 0.25):
         super().__init__()
         g = torch.Generator().manual_seed(0) if generator is None else generator
+        self.padding_frac = padding_frac
         self.fc0 = linear(input_dim, width, g)
         self.spectral = nn.ModuleList(
             SpectralConv2d(width, width, modes, modes, g) for _ in range(n_layers))
@@ -152,10 +158,12 @@ class FNO2d(nn.Module):
         self.fc2 = linear(128, output_dim, g)
 
     def lift(self, x):
-        """(B, H, W, input_dim) -> the first layer's input (B, width, H + H/4, W + W/4)."""
+        """(B, H, W, input_dim) -> the first layer's input (B, width, H + pad_h, W +
+        pad_w), each pad round(size · padding_frac)."""
         x = self.fc0(x).permute(0, 3, 1, 2)
         h, w = x.shape[-2:]
-        return F.pad(x, (0, int(round(w * 0.25)), 0, int(round(h * 0.25)))).contiguous()
+        f = self.padding_frac
+        return F.pad(x, (0, int(round(w * f)), 0, int(round(h * f)))).contiguous()
 
     def forward(self, x):
         h, w = x.shape[1:3]

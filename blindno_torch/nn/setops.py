@@ -1,6 +1,6 @@
 """Set operations of the NIO family (counterpart of ``blindno/nn/setops.py``): train-time
-set subsampling, masked means, set self-attention and the two frozen fusions, over the
-mean field and over all tokens."""
+set subsampling, masked means, set self-attention and the two fusions, over the mean
+field and over all tokens (frozen unless ``trainable``, as in JAX)."""
 from __future__ import annotations
 
 import math
@@ -8,6 +8,7 @@ import math
 import torch
 from torch import nn
 
+from blindno_torch.nn.torch_layers import LayerNorm, promoted
 from blindno_torch.utils import torch_init as tinit
 
 NEG_INF = -1e9  # the key mask's additive term, JAX's (not -inf)
@@ -21,8 +22,8 @@ def subsample_set(x, l_min: int = 50, generator: torch.Generator | None = None,
     the mask ``arange(L_max) < L``. All L_max gathered snapshots go on to the encoder, so
     BatchNorm's batch statistics cover all of them; only the means are masked.
 
-    x: (B, L_max, ...). Returns the gathered x and the (L_max,) float32 mask, both on x's
-    device. The draw is taken from ``generator`` on its own device. A caller that must
+    x: (B, L_max, ...). Returns the gathered x and the (L_max,) mask in x's dtype (as
+    JAX casts it), both on x's device. The draw is taken from ``generator`` on its own device. A caller that must
     reproduce another framework's draw passes ``indices`` (L_max,) and ``mask`` (L_max,)
     instead.
     """
@@ -33,11 +34,11 @@ def subsample_set(x, l_min: int = 50, generator: torch.Generator | None = None,
         dev = generator.device
         l_eff = torch.randint(l_min, max(l_max, l_min + 1), (), generator=generator, device=dev)
         indices = torch.randint(0, l_max, (l_max,), generator=generator, device=dev)
-        mask = (torch.arange(l_max, device=dev) < l_eff).float()
+        mask = torch.arange(l_max, device=dev) < l_eff
     elif mask is None:
         raise ValueError("subsample_set: injected indices need their mask")
     indices = torch.as_tensor(indices, device=x.device)
-    mask = torch.as_tensor(mask, dtype=torch.float32, device=x.device)
+    mask = torch.as_tensor(mask, device=x.device).to(x.dtype)
     if indices.shape != (l_max,) or mask.shape != (l_max,):
         raise ValueError(f"subsample_set: want indices and mask of shape ({l_max},), got "
                          f"{tuple(indices.shape)} and {tuple(mask.shape)}")
@@ -73,7 +74,7 @@ def set_self_attention(x_flat, mask=None):
     if mask is not None:
         key_mask = mask.reshape(1, 1, -1) if mask.dim() == 1 else mask[:, None, :]
         scores = scores + (1.0 - key_mask) * NEG_INF
-    return torch.softmax(scores, dim=-1) @ x_flat
+    return torch.matmul(*promoted(torch.softmax(scores, dim=-1), x_flat))
 
 
 class TemporalSelfAttention(nn.Module):
@@ -88,7 +89,7 @@ class TemporalSelfAttention(nn.Module):
 
     def __init__(self, channels: int, spatial):
         super().__init__()
-        self.norm = nn.LayerNorm(channels * math.prod(spatial), eps=1e-5)
+        self.norm = LayerNorm(channels * math.prod(spatial), eps=1e-5)
 
     def forward(self, x, mask=None):
         b, t, c = x.shape[:3]
@@ -102,37 +103,42 @@ class MeanFieldFusion(nn.Module):
     ``grid_feats @ W[:, :gc]^T + mean_L(snap_feats)[..., None] * W[:, gc] + b``.
 
     The reference only ever touches these weights through ``.data``, so they stay at
-    their random init: here they are parameters with ``requires_grad=False``.
+    their random init: by default (``trainable=False``, JAX's ``stop_gradient``) they are
+    parameters with ``requires_grad=False``; ``trainable=True``, JAX's improvement flag,
+    lets them train.
     grid_feats: (B, *spatial, gc); snap_feats: (B, L, *spatial) -> (B, *spatial, width).
     """
 
-    def __init__(self, width: int, grid_channels: int, generator: torch.Generator):
+    def __init__(self, width: int, grid_channels: int, generator: torch.Generator,
+                 trainable: bool = False):
         super().__init__()
         cin = grid_channels + 1
         self.grid_channels = grid_channels
-        self.weight = nn.Parameter(torch.empty(width, cin), requires_grad=False)
-        self.bias = nn.Parameter(torch.empty(width), requires_grad=False)
+        self.weight = nn.Parameter(torch.empty(width, cin), requires_grad=trainable)
+        self.bias = nn.Parameter(torch.empty(width), requires_grad=trainable)
         tinit.torch_default_(self, cin, generator)
 
     def forward(self, grid_feats, snap_feats, mask=None):
         mean = snap_feats.mean(1) if mask is None else masked_mean(snap_feats, mask, 1)
         gc = self.grid_channels
-        out = grid_feats @ self.weight[:, :gc].T + mean[..., None] * self.weight[:, gc]
+        grid_feats, weight = promoted(grid_feats, self.weight)
+        out = grid_feats @ weight[:, :gc].T + mean[..., None] * weight[:, gc]
         return out + self.bias
 
 
 class TokenMeanFusion(nn.Module):
     """The fusion of the FNO-branch attention NIO (``blindno/nn/setops.py:142-167``): a
-    frozen Linear(1 -> width) applied to the mean over ALL T tokens,
-    ``mean_T(tokens)[..., None] * W[:, 0] + b``. The first ``n_always`` tokens (the grid
-    tokens) always count; ``mask`` (L,) covers the T - n_always tokens after them.
-    tokens: (B, T, *spatial) -> (B, *spatial, width)."""
+    Linear(1 -> width), frozen unless ``trainable``, applied to the mean over ALL T
+    tokens, ``mean_T(tokens)[..., None] * W[:, 0] + b``. The first ``n_always`` tokens
+    (the grid tokens) always count; ``mask`` (L,) covers the T - n_always tokens after
+    them. tokens: (B, T, *spatial) -> (B, *spatial, width)."""
 
-    def __init__(self, width: int, n_always: int, generator: torch.Generator):
+    def __init__(self, width: int, n_always: int, generator: torch.Generator,
+                 trainable: bool = False):
         super().__init__()
         self.n_always = n_always
-        self.weight = nn.Parameter(torch.empty(width, 1), requires_grad=False)
-        self.bias = nn.Parameter(torch.empty(width), requires_grad=False)
+        self.weight = nn.Parameter(torch.empty(width, 1), requires_grad=trainable)
+        self.bias = nn.Parameter(torch.empty(width), requires_grad=trainable)
         tinit.torch_default_(self, 1, generator)
 
     def forward(self, tokens, mask=None):

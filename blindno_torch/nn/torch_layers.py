@@ -7,7 +7,9 @@ the module constructors from touching the global RNG. :class:`BatchNorm1d` and
 momentum 0.1, which are the JAX package's (flax's momentum 0.9 is the same running
 average), with flax's running-variance update in train mode. :class:`ConvTranspose` is
 ``TorchConvTranspose``'s counterpart, :func:`max_pool` ``max_pool``'s, and
-:class:`LayerNorm` flax's two-pass LayerNorm where it differs from torch's.
+:class:`LayerNorm` flax's two-pass LayerNorm where it differs from torch's. The modules
+that :func:`linear` and the convolution functions return, :class:`ConvTranspose` and
+:class:`LayerNorm` promote their operands as jnp does (:func:`promoted`).
 """
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ from torch.nn.utils import skip_init
 
 from blindno_torch.utils import torch_init as tinit
 
+_LOW = (torch.bfloat16, torch.float16)
+
 
 class _FlaxRunningVar:
     """Train-mode BatchNorm as flax computes it (``blindno/nn/torch_layers.py:88-107``).
@@ -29,9 +33,11 @@ class _FlaxRunningVar:
     backward keeps them, so they must not change after it) and then takes the factor out
     of the update: torch added ``m * n/(n-1) * var`` to ``(1-m) * running_var``, and that
     term is scaled by (n-1)/n. This costs a few operations on C-sized vectors and no pass
-    over the input. The normalization runs in float32 whatever the input's dtype (torch's
-    batch norm takes a bfloat16 input with float32 parameters and statistics), and the
-    result has the input's dtype, as flax's ``dtype=float32`` plus the cast back gives.
+    over the input. The normalization runs in float32 whatever the input's and the
+    parameters' dtypes (torch's batch norm takes a bfloat16 or float16 input with float32
+    parameters and statistics; parameters cast to a low precision are raised to float32),
+    and the result has the input's dtype, as flax's ``dtype=float32`` plus the cast back
+    gives.
     Eval mode is torch's, unchanged.
 
     In data-parallel training ``sync_group`` is the ``data`` process group, when it has
@@ -57,7 +63,10 @@ class _FlaxRunningVar:
                 self.running_var.lerp_(var, m)
             return y
         mean, var = self.running_mean.clone(), self.running_var.clone()
-        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, m, self.eps)
+        # parameters cast to a low precision are raised to float32, as flax computes
+        w, b = (t.float() if t is not None and t.dtype in _LOW else t
+                for t in (self.weight, self.bias))
+        y = F.batch_norm(x, mean, var, w, b, True, m, self.eps)
         n = x.numel() // x.shape[1]
         with torch.no_grad():
             kept = self.running_var * (1.0 - m)
@@ -128,20 +137,61 @@ class BatchNorm3d(_FlaxRunningVar, nn.BatchNorm3d):
     :class:`_FlaxRunningVar`); the state-dict keys are torch's."""
 
 
-class LayerNorm(nn.LayerNorm):
-    """nn.LayerNorm over the last axis, exact where it normalizes a single element, as
-    flax's two-pass LayerNorm is there: x - mean(x) is 0, the output is the bias, and
-    the gradients of the input and the scale are exactly 0. torch's fused kernel gives
-    the bias too, but its backward leaves rounding in those gradients (up to 7e-5 at a
-    one-channel ConvNeXt block on the CPU), so over one element this computes flax's
-    formula, mean((x - mean)^2) for the variance, in plain operations."""
+def promoted(*tensors):
+    """The tensors in the dtype that jnp's promotion gives them together (None entries
+    pass as they are). torch's products (``linear``, the convolutions, ``matmul``,
+    ``einsum``, ``layer_norm``) refuse operands of two float dtypes where jnp's promote
+    them; the modules whose operands may differ, as a low-precision training step's do
+    (:mod:`blindno_torch.train.step`), promote them with this first."""
+    dtype = None
+    for t in tensors:
+        if t is not None and t.dtype != dtype:
+            dtype = t.dtype if dtype is None else torch.promote_types(dtype, t.dtype)
+    return tuple(t if t is None or t.dtype == dtype else t.to(dtype) for t in tensors)
+
+
+class Linear(nn.Linear):
+    """nn.Linear whose input and parameters are :func:`promoted` first."""
 
     def forward(self, x):
+        return F.linear(*promoted(x, self.weight, self.bias))
+
+
+class _PromotedConv:
+    """A convolution whose input and parameters are :func:`promoted` first."""
+
+    def _conv_forward(self, x, weight, bias):
+        return super()._conv_forward(*promoted(x, weight, bias))
+
+
+class Conv1d(_PromotedConv, nn.Conv1d):
+    pass
+
+
+class Conv2d(_PromotedConv, nn.Conv2d):
+    pass
+
+
+class Conv3d(_PromotedConv, nn.Conv3d):
+    pass
+
+
+class LayerNorm(nn.LayerNorm):
+    """nn.LayerNorm over the last axis, its input and parameters :func:`promoted` first,
+    exact where it normalizes a single element, as flax's two-pass LayerNorm is there:
+    x - mean(x) is 0, the output is the bias, and the gradients of the input and the
+    scale are exactly 0. torch's fused kernel gives the bias too, but its backward leaves
+    rounding in those gradients (up to 7e-5 at a one-channel ConvNeXt block on the CPU),
+    so over one element this computes flax's formula, mean((x - mean)^2) for the
+    variance, in plain operations."""
+
+    def forward(self, x):
+        x, weight, bias = promoted(x, self.weight, self.bias)
         if self.normalized_shape != (1,):
-            return super().forward(x)
+            return F.layer_norm(x, self.normalized_shape, weight, bias, self.eps)
         xc = x - x.mean(-1, keepdim=True)
         var = (xc * xc).mean(-1, keepdim=True)
-        return xc * torch.rsqrt(var + self.eps) * self.weight + self.bias
+        return xc * torch.rsqrt(var + self.eps) * weight + bias
 
 
 def gelu(x):
@@ -159,36 +209,36 @@ def leaky_relu(x, slope: float = 0.01):
     return F.leaky_relu(x, slope)
 
 
-def linear(in_features: int, out_features: int, generator, bias: bool = True) -> nn.Linear:
-    """nn.Linear with torch's default init drawn from ``generator``."""
-    m = skip_init(nn.Linear, in_features, out_features, bias=bias)
+def linear(in_features: int, out_features: int, generator, bias: bool = True) -> Linear:
+    """:class:`Linear` with torch's default init drawn from ``generator``."""
+    m = skip_init(Linear, in_features, out_features, bias=bias)
     return tinit.torch_default_(m, in_features, generator)
 
 
 def conv1d(in_channels: int, out_channels: int, kernel_size: int, stride: int, padding: int,
-           generator, groups: int = 1) -> nn.Conv1d:
-    """nn.Conv1d (symmetric integer padding) with torch's default init; fan_in is
+           generator, groups: int = 1) -> Conv1d:
+    """:class:`Conv1d` (symmetric integer padding) with torch's default init; fan_in is
     ``kernel * in_channels / groups``."""
-    m = skip_init(nn.Conv1d, in_channels, out_channels, kernel_size, stride=stride,
+    m = skip_init(Conv1d, in_channels, out_channels, kernel_size, stride=stride,
                   padding=padding, groups=groups)
     return tinit.torch_default_(m, in_channels // groups * m.kernel_size[0], generator)
 
 
 def conv2d(in_channels: int, out_channels: int, kernel_size, stride, padding,
-           generator, groups: int = 1) -> nn.Conv2d:
-    """nn.Conv2d (symmetric integer padding) with torch's default init; fan_in is
+           generator, groups: int = 1) -> Conv2d:
+    """:class:`Conv2d` (symmetric integer padding) with torch's default init; fan_in is
     ``kh * kw * in_channels / groups``."""
-    m = skip_init(nn.Conv2d, in_channels, out_channels, kernel_size, stride=stride,
+    m = skip_init(Conv2d, in_channels, out_channels, kernel_size, stride=stride,
                   padding=padding, groups=groups)
     kh, kw = m.kernel_size
     return tinit.torch_default_(m, in_channels // groups * kh * kw, generator)
 
 
 def conv3d(in_channels: int, out_channels: int, kernel_size, stride, padding,
-           generator, groups: int = 1) -> nn.Conv3d:
-    """nn.Conv3d (symmetric integer padding) with torch's default init; fan_in is
+           generator, groups: int = 1) -> Conv3d:
+    """:class:`Conv3d` (symmetric integer padding) with torch's default init; fan_in is
     ``kd * kh * kw * in_channels / groups``."""
-    m = skip_init(nn.Conv3d, in_channels, out_channels, kernel_size, stride=stride,
+    m = skip_init(Conv3d, in_channels, out_channels, kernel_size, stride=stride,
                   padding=padding, groups=groups)
     kd, kh, kw = m.kernel_size
     return tinit.torch_default_(m, in_channels // groups * kd * kh * kw, generator)
@@ -224,7 +274,7 @@ class ConvTranspose(nn.Module):
 
     def forward(self, x):
         fn = (F.conv_transpose1d, F.conv_transpose2d, F.conv_transpose3d)[len(self.kernel_size) - 1]
-        y = fn(x, self.weight, self.bias, self.stride)
+        y = fn(*promoted(x, self.weight, self.bias), self.stride)
         if not any(self.output_padding):
             return y
         pads = [p for op in reversed(self.output_padding) for p in (0, op)]

@@ -22,7 +22,7 @@ from torch import nn
 from torch.nn.utils import skip_init
 
 from blindno_torch.nn.embedding import timestep_embedding
-from blindno_torch.nn.torch_layers import LayerNorm, gelu
+from blindno_torch.nn.torch_layers import Conv2d, Conv3d, LayerNorm, Linear, gelu, promoted
 from blindno_torch.utils import torch_init as tinit
 
 LN_EPS = 1e-6  # flax's LayerNorm default
@@ -30,7 +30,7 @@ LN_EPS = 1e-6  # flax's LayerNorm default
 
 def _trunc_linear(in_features, out_features, generator, bias=True):
     """The Transolver's Linear: trunc_normal(0.02) weight, zero bias."""
-    m = skip_init(nn.Linear, in_features, out_features, bias=bias)
+    m = skip_init(Linear, in_features, out_features, bias=bias)
     tinit.trunc_normal_(m.weight, 0.02, generator)
     if bias:
         nn.init.zeros_(m.bias)
@@ -39,7 +39,7 @@ def _trunc_linear(in_features, out_features, generator, bias=True):
 
 def _conv(ndim, cin, cout, generator):
     """A 3^ndim convolution with padding 1 and torch's default init (``TorchConv``)."""
-    m = skip_init(getattr(nn, f"Conv{ndim}d"), cin, cout, 3, padding=1)
+    m = skip_init({2: Conv2d, 3: Conv3d}[ndim], cin, cout, 3, padding=1)
     return tinit.torch_default_(m, cin * 3 ** ndim, generator)
 
 
@@ -64,7 +64,7 @@ class PhysicsAttention(nn.Module):
             dense += [_trunc_linear(dim, inner, g), _trunc_linear(dim, inner, g)]
         else:
             self.convs = nn.ModuleList(_conv(mesh_ndim, dim, inner, g) for _ in range(2))
-        to_slice = skip_init(nn.Linear, dim_head, slice_num)
+        to_slice = skip_init(Linear, dim_head, slice_num)
         tinit.orthogonal_(to_slice.weight, g)
         nn.init.zeros_(to_slice.bias)
         dense += [to_slice] + [_trunc_linear(dim_head, dim_head, g, bias=False) for _ in range(3)]
@@ -89,12 +89,12 @@ class PhysicsAttention(nn.Module):
 
         slice_weights = torch.softmax(to_slice(x_mid) / temp, dim=-1)  # (B, H, N, G)
         slice_norm = slice_weights.sum(2)  # (B, H, G)
-        slice_token = torch.einsum("bhnc,bhng->bhgc", fx_mid, slice_weights)
+        slice_token = torch.einsum("bhnc,bhng->bhgc", *promoted(fx_mid, slice_weights))
         slice_token = slice_token / (slice_norm[..., None] + 1e-5)
 
         q, k, v = to_q(slice_token), to_k(slice_token), to_v(slice_token)
         attn = self.dropout(torch.softmax(q @ k.transpose(-1, -2) * self.dim_head ** -0.5, dim=-1))
-        out = torch.einsum("bhgc,bhng->bhnc", attn @ v, slice_weights)
+        out = torch.einsum("bhgc,bhng->bhnc", *promoted(attn @ v, slice_weights))
         return self.dropout(to_out(out.transpose(1, 2).reshape(b, n, -1)))
 
 

@@ -17,6 +17,14 @@ differentiable: where autograd needs a gradient through one, its linear part run
 follows outside, as ``blindno/ops/fno_layer.py:78-83,137-142`` has it. The two spectral
 convolutions are forward only, as in JAX (``blindno/ops/config.py:5``): they raise when
 autograd would need a gradient through them.
+
+The kernels take float32 only, as the TPU kernels do. A wrapper given bfloat16 or
+float16 operands (the training step's low-precision modes) raises them to float32, runs
+the same float32 kernel (or plain version), and returns the output in the dtype that
+jnp's promotion gives the operands, as the JAX package's einsum chain returns it
+(``blindno/ops/spectral.py``); :class:`FNO1dLinear` and :class:`FNO2dLinear` return each
+gradient in its input's dtype. The chain in JAX rounds each stage to the low dtype, the
+kernel keeps float32 inside: that gap lies within the low dtype's rounding.
 """
 from __future__ import annotations
 
@@ -30,9 +38,25 @@ from blindno_torch.ops.spectral import dft_matrices_2d, spectral_conv1d, spectra
 
 _INT_MAX = 2**31 - 1
 _F32 = torch.float32
+_LOW = (torch.bfloat16, torch.float16)
 _CUDA_ERROR_INVALID_VALUE = 1
 _INVALID_2D_HINT = ("; a stage of this shape may need more shared memory than a block has "
                     "(the limits are in the source note of csrc/fno2d_layer.cu)")
+
+
+def _dtype(*tensors):
+    """The dtype jnp's promotion gives the operands (None entries skipped)."""
+    dtype = tensors[0].dtype
+    for t in tensors[1:]:
+        if t is not None and t.dtype is not dtype:
+            dtype = torch.promote_types(dtype, t.dtype)
+    return dtype
+
+
+def _f32(*tensors):
+    """The operands with bfloat16 and float16 raised to float32; any other is passed as
+    it is (a float64 one reaches the plain version, or the kernel's refusal)."""
+    return tuple(t.float() if t is not None and t.dtype in _LOW else t for t in tensors)
 
 
 def _needs_grad(*tensors):
@@ -167,36 +191,42 @@ class FNO1dLinear(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, wr, wi, pk, pb, dc_half):
         ctx.save_for_backward(x, wr, wi, pk)
-        ctx.dc_half = dc_half
-        return _fno1d_layer(x, wr, wi, pk, pb, dc_half, apply_act=False)
+        ctx.dc_half, ctx.dtypes = dc_half, (x.dtype, wr.dtype, wi.dtype, pk.dtype, pb.dtype)
+        u = _fno1d_layer(*_f32(x, wr, wi, pk, pb), dc_half, apply_act=False)
+        return u.to(_dtype(x, wr, wi, pk, pb))
 
     @staticmethod
     def backward(ctx, du):
-        return (*fno1d_layer_backward_plain(*ctx.saved_tensors, du.contiguous(), ctx.dc_half),
-                None)
+        x, wr, wi, pk, du = _f32(*ctx.saved_tensors, du)
+        grads = fno1d_layer_backward_plain(x, wr, wi, pk, du.contiguous(), ctx.dc_half)
+        return (*(g.to(d) for g, d in zip(grads, ctx.dtypes)), None)
 
 
 def fno1d_layer_cuda(x, wr, wi, pk, pb, dc_half: bool = True, apply_act: bool = True):
-    """One FNO1d layer. x: (B, Cin, N) f32; wr/wi: (Cin, Cout, modes); pk: (Cin, Cout)
-    (any strides); pb: (Cout,). ``dc_half`` halves the DC coefficient before the mix.
-    Returns (B, Cout, N).
+    """One FNO1d layer. x: (B, Cin, N); wr/wi: (Cin, Cout, modes); pk: (Cin, Cout)
+    (any strides); pb: (Cout,); float32, or a low precision computed in float32 (see the
+    module note). ``dc_half`` halves the DC coefficient before the mix. Returns
+    (B, Cout, N).
 
     Under no_grad or inference_mode, one call with gelu fused into the kernel's
     epilogue; where autograd needs a gradient, :class:`FNO1dLinear` and gelu after it."""
     if _needs_grad(x, wr, wi, pk, pb):
         u = FNO1dLinear.apply(x, wr, wi, pk, pb, dc_half)
         return F.gelu(u) if apply_act else u
-    return _fno1d_layer(x, wr, wi, pk, pb, dc_half, apply_act)
+    out = _fno1d_layer(*_f32(x, wr, wi, pk, pb), dc_half, apply_act)
+    return out.to(_dtype(x, wr, wi, pk, pb))
 
 
 def spectral_conv1d_cuda(x, wr, wi, dc_half: bool = True):
-    """Spectral convolution alone. x: (B, Cin, N) f32; wr/wi: (Cin, Cout, modes)."""
+    """Spectral convolution alone. x: (B, Cin, N); wr/wi: (Cin, Cout, modes); float32,
+    or a low precision computed in float32."""
     _forward_only("spectral_conv1d_cuda", x, wr, wi)
+    dtype, (x, wr, wi) = _dtype(x, wr, wi), _f32(x, wr, wi)
     if x.device.type == "cpu":
-        return spectral_conv1d(x, wr, wi, dc_half)
+        return spectral_conv1d(x, wr, wi, dc_half).to(dtype)
     out = _launch1d("spectral_conv1d_cuda", x, wr, wi, None, None, dc_half, 0)
     spectral_conv1d_cuda.launches += 1
-    return out
+    return out.to(dtype)
 
 
 def _fno2d_layer(x, wr, wi, pk, pb, apply_act):
@@ -217,33 +247,41 @@ class FNO2dLinear(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, wr, wi, pk, pb):
         ctx.save_for_backward(x, wr, wi, pk)
-        return _fno2d_layer(x, wr, wi, pk, pb, apply_act=False)
+        ctx.dtypes = (x.dtype, wr.dtype, wi.dtype, pk.dtype, pb.dtype)
+        u = _fno2d_layer(*_f32(x, wr, wi, pk, pb), apply_act=False)
+        return u.to(_dtype(x, wr, wi, pk, pb))
 
     @staticmethod
     def backward(ctx, du):
-        return fno2d_layer_backward_plain(*ctx.saved_tensors, du.contiguous())
+        x, wr, wi, pk, du = _f32(*ctx.saved_tensors, du)
+        grads = fno2d_layer_backward_plain(x, wr, wi, pk, du.contiguous())
+        return tuple(g.to(d) for g, d in zip(grads, ctx.dtypes))
 
 
 def fno2d_layer_cuda(x, wr, wi, pk, pb, apply_act: bool = True):
-    """One FNO2d layer. x: (B, Cin, H, W) f32; wr/wi: (Cin, Cout, 2*m1, m2);
-    pk: (Cin, Cout) (any strides); pb: (Cout,). Returns (B, Cout, H, W).
+    """One FNO2d layer. x: (B, Cin, H, W); wr/wi: (Cin, Cout, 2*m1, m2); pk: (Cin, Cout)
+    (any strides); pb: (Cout,); float32, or a low precision computed in float32 (see the
+    module note). Returns (B, Cout, H, W).
 
     Under no_grad or inference_mode, one call with gelu fused into the kernel's
     epilogue; where autograd needs a gradient, :class:`FNO2dLinear` and gelu after it."""
     if _needs_grad(x, wr, wi, pk, pb):
         u = FNO2dLinear.apply(x, wr, wi, pk, pb)
         return F.gelu(u) if apply_act else u
-    return _fno2d_layer(x, wr, wi, pk, pb, apply_act)
+    out = _fno2d_layer(*_f32(x, wr, wi, pk, pb), apply_act)
+    return out.to(_dtype(x, wr, wi, pk, pb))
 
 
 def spectral_conv2d_cuda(x, wr, wi):
-    """Spectral convolution alone. x: (B, Cin, H, W) f32; wr/wi: (Cin, Cout, 2*m1, m2)."""
+    """Spectral convolution alone. x: (B, Cin, H, W); wr/wi: (Cin, Cout, 2*m1, m2);
+    float32, or a low precision computed in float32."""
     _forward_only("spectral_conv2d_cuda", x, wr, wi)
+    dtype, (x, wr, wi) = _dtype(x, wr, wi), _f32(x, wr, wi)
     if x.device.type == "cpu":
-        return spectral_conv2d(x, wr, wi)
+        return spectral_conv2d(x, wr, wi).to(dtype)
     out = _launch2d("spectral_conv2d_cuda", x, wr, wi, None, None, 0)
     spectral_conv2d_cuda.launches += 1
-    return out
+    return out.to(dtype)
 
 
 fno1d_layer_cuda.launches = 0

@@ -12,9 +12,9 @@ and ``--model unet`` the fpe2d suite's BlinDNO UNet (``PermInvUNetAttn``: depth 
 ``blindno/suites/registry.py:196-198``); weights from seed 0. It draws the batch as
 ``bench.py:128-139`` does (B=4 sets of L=100 snapshots of a 61x61 grid, targets and
 inputs standard normal from numpy seed 0, the grid on [-1, 1]^2), and times the
-training step of :mod:`blindno_torch.train.step` in float32 and, for the two models
-with an Encoder2D (``nio``, ``attn``), in bfloat16 ``encoder_bn32`` (the policy casts
-no leaf of the others):
+training step of :mod:`blindno_torch.train.step` in float32, in bfloat16 under JAX's
+default policy ``all`` and, for the two models with an Encoder2D (``nio``, ``attn``),
+in bfloat16 ``encoder_bn32`` (the policy casts only the batch of the others):
 each mode from fresh weights, 3 warm-up steps and then the timed steps with a
 synchronize before each clock read, every step with a fresh set subsample. TF32 stays
 off, as the reference runs its products at float32 HIGHEST. It prints one JSON line.
@@ -42,22 +42,25 @@ UNET_CONFIG = dict(input_size=(61, 61), depth=4, width=12, fno_modes=32, head_di
 # blindno/suites/registry.py:195,199-201: the FNO-branch and Transolver NIOs
 FNO_CONFIG = dict(width=12, modes=32, fno_layers=3)
 BATCH = dict(b=4, l=100, n=61)                                            # bench.py:133-135
-MODES = {"f32": None, "bf16_encoder_bn32": "bfloat16"}
+# compute mode -> (compute_dtype, amp_policy) of train_step
+MODES = {"f32": (None, "encoder_bn32"), "bf16_encoder_bn32": ("bfloat16", "encoder_bn32"),
+         "bf16_all": ("bfloat16", "all")}
+ENCODER_MODES, OTHER_MODES = ("f32", "bf16_encoder_bn32", "bf16_all"), ("f32", "bf16_all")
 # --model -> (class name, config, compute modes)
-MODELS = {"nio": ("NIOFP2D", CONFIG, MODES),
-          "unet": ("PermInvUNetAttn", UNET_CONFIG, {"f32": None}),
-          "fno": ("NIOFNO2D", FNO_CONFIG, {"f32": None}),
-          "attn": ("NIOAttn2D", CONFIG, MODES),
-          "fno_attn": ("NIOFNOAttn2D", FNO_CONFIG, {"f32": None}),
-          "trans": ("NIOTrans2D", FNO_CONFIG, {"f32": None}),
-          "trans_attn": ("NIOTransAttn2D", FNO_CONFIG, {"f32": None})}
+MODELS = {"nio": ("NIOFP2D", CONFIG, ENCODER_MODES),
+          "unet": ("PermInvUNetAttn", UNET_CONFIG, OTHER_MODES),
+          "fno": ("NIOFNO2D", FNO_CONFIG, OTHER_MODES),
+          "attn": ("NIOAttn2D", CONFIG, ENCODER_MODES),
+          "fno_attn": ("NIOFNOAttn2D", FNO_CONFIG, OTHER_MODES),
+          "trans": ("NIOTrans2D", FNO_CONFIG, OTHER_MODES),
+          "trans_attn": ("NIOTransAttn2D", FNO_CONFIG, OTHER_MODES)}
 # the 1-D suites' training batches (blindno/suites/registry.py:77-159: batch 32; fpe1d
 # sets of 100 snapshots of 80 points and two target fields, gpe1d 101 snapshots of 128
 # points and one field) and the models timed on them
 BATCHES_1D = {"fpe1d": dict(b=32, l=100, n=80, fields=2),
               "gpe1d": dict(b=32, l=101, n=128, fields=1)}
 MODELS_1D = ("nio", "fno", "unet")
-WARMUP, STEPS = 3, 20
+WARMUP, STEPS = 3, 10
 
 
 def bench_batch(device, suite="fpe2d"):
@@ -93,7 +96,7 @@ def fresh_model(device, model="nio", suite="fpe2d"):
     return cls(**config, generator=g, device=device).train()
 
 
-def steps_per_sec(compute_dtype=None, model="nio", suite="fpe2d"):
+def steps_per_sec(compute_dtype=None, model="nio", suite="fpe2d", amp_policy="encoder_bn32"):
     """Training steps per second of ``model`` (a key of :data:`MODELS`, or of a 1-D
     suite's models) on the card in one mode, from fresh weights: WARMUP steps, then STEPS
     timed on the host clock between two synchronizes."""
@@ -103,7 +106,8 @@ def steps_per_sec(compute_dtype=None, model="nio", suite="fpe2d"):
     opt = make_optimizer(model)
     x, y, grid = bench_batch("cuda", suite)
     gen = torch.Generator(device="cuda").manual_seed(1)
-    step = lambda: train_step(model, opt, x, y, grid, generator=gen, compute_dtype=compute_dtype)
+    step = lambda: train_step(model, opt, x, y, grid, generator=gen, compute_dtype=compute_dtype,
+                              amp_policy=amp_policy)
     for _ in range(WARMUP):
         step()
     torch.cuda.synchronize()
@@ -141,8 +145,9 @@ def main():
         return
     args.model = args.model or "nio"
     cls_name, config, modes = MODELS[args.model]
-    result = {f"steps_per_sec_{mode}": steps_per_sec(cdtype, args.model)
-              for mode, cdtype in modes.items()}
+    result = {f"steps_per_sec_{mode}": steps_per_sec(MODES[mode][0], args.model,
+                                                     amp_policy=MODES[mode][1])
+              for mode in modes}
     print(json.dumps({**result, "model": args.model, "class": cls_name, "config": config,
                       "batch": BATCH, "timed_steps": STEPS, "device": name,
                       "power_limit": power}), flush=True)

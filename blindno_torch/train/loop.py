@@ -47,11 +47,13 @@ from blindno_torch.utils.logging import MetricsLogger, trace
 @dataclass
 class TrainConfig:
     """The JAX package's fields and defaults (``blindno/train/loop.py:38-139``, where
-    each field's note is). The port refuses ``epoch_scan=True`` (a JAX-only fusion), a
-    ``compute_dtype`` other than None or ``"bfloat16"``, and an ``amp_policy`` that JAX
-    does not know (:data:`~blindno_torch.train.step.AMP_POLICIES`); ``tp`` must divide
-    the ranks, and the rest of them
-    (the ``data`` axis) the batch."""
+    each field's note is). ``compute_dtype`` None, ``"float32"``, ``"bfloat16"`` or
+    ``"float16"`` trains every model under any of the three ``amp_policy`` values
+    (:mod:`blindno_torch.train.step`). The port refuses ``epoch_scan=True`` (a JAX-only
+    fusion), what JAX refuses too (another ``compute_dtype`` or ``amp_policy``), and the
+    float16 step of a model whose set attention masks its keys, where JAX's step gives
+    NaN (:func:`~blindno_torch.train.step.float16_refusal`); ``tp`` must divide the ranks,
+    and the rest of them (the ``data`` axis) the batch."""
 
     epochs: int = 400
     batch_size: int = 32
@@ -163,8 +165,8 @@ def _check_config(cfg: TrainConfig):
     if cfg.compute_dtype is not None and (cfg.compute_dtype not in COMPUTE_DTYPES
                                           or cfg.amp_policy not in AMP_POLICIES):
         raise ValueError(f"compute_dtype={cfg.compute_dtype!r} with amp_policy="
-                         f"{cfg.amp_policy!r} is not ported: the mixed-precision modes are "
-                         f"compute_dtype='bfloat16' with an amp_policy of {AMP_POLICIES}")
+                         f"{cfg.amp_policy!r}: JAX refuses it too; the compute dtypes are "
+                         f"{list(COMPUTE_DTYPES)} and the amp policies {AMP_POLICIES}")
 
 
 def _split_to_device(arr, idx, dtype, device):

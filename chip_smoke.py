@@ -12,11 +12,14 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``. It
    ragged one and, in 2-D, the ncfpe2d heads' and the NIOFNO2D inner branch's shapes on
    the fpe2d and the ncfpe2d grid and the heads' layer as tensor parallelism slices it
    (``TP_SLICE``: Cout 6 of 12),
-   and times kernel, plain version and a ``torch.fft`` restatement on
+   and times, at the main shapes and those of this slice's low-precision steps, kernel,
+   plain version and a ``torch.fft`` restatement on
    the device (each replayed from a CUDA graph, so host launch costs drop out; the
    kernel's replayed output is held against the plain version too), the wrapper's host
-   cost per call beside that of one ``torch.add`` on the same input, and the kernels'
-   stages in a ``torch.profiler`` trace;
+   cost per call beside that of one ``torch.add`` on the same input, and the gelu
+   layers' stages at the main shapes in a ``torch.profiler`` trace; then each wrapper on
+   bfloat16 and float16 operands at the training shapes, against its plain version on
+   them raised to float32, its cast-and-launch time beside the float32 call's;
 4. serves the fpe2d NIO model at the width of ``bench.py`` (seeded weights, calibrated
    BatchNorm) through ``predict_fields`` on 8 sets of 100 snapshots of a 61x61 grid,
    counts the kernel launches, checks the result against the CPU plain path, and times
@@ -49,20 +52,27 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``. It
 8. trains the fpe2d NIO at the ``bench.py`` config (4 sets of 100 snapshots of 61x61):
    one float32 step on the card against the same step on the CPU plain path (same
    seeded weights, batch and injected set subsample), its launches counted; a bfloat16
-   ``encoder_bn32`` step from the same weights; twenty float32 steps on one batch with
-   fresh draws, whose loss must fall; steps per second in both modes
-   (``blindno_torch.tools.bench_train``), the step's split, the FNO2d layer's backward
-   per call, the BatchNorm correction's cost and the peak memory;
+   ``encoder_bn32`` step from the same weights; a float16 ``encoder_bn32`` step from
+   them too, its 6 launches counted, its loss and heads' gradients held to the card's
+   float32 step, 10 timed float16 steps whose loss must fall
+   (:func:`low_precision_steps`); ten float32 steps on one batch with fresh draws, whose
+   loss must fall, timed; steps per second in bfloat16 ``encoder_bn32`` from fresh
+   weights (``blindno_torch.tools.bench_train``), the step's split, the FNO2d layer's
+   backward per call, the BatchNorm correction's cost and the peak memory;
 9. trains the fpe2d suite's UNet on the same batch (phase ``train_unet``): one float32
-   step on the card against the CPU, its exact zero gradients exact; twenty steps whose
-   loss must fall; steps per second (``bench_train --model unet``), the step's split on
-   the device and the host, its top kernels and peak memory; then the fpe2d suite's
-   ``NIOFNO2D`` the same way (phase ``train_fno``, 8 launches a step, the frozen fusion
-   unchanged), with the FNO2d layer's torch backward timed at the inner shape;
+   step on the card against the CPU, its exact zero gradients exact; ten timed steps
+   whose loss must fall; a bfloat16 step under JAX's default policy ``all`` from the
+   same weights (the UNet in bfloat16 end to end, its heads' kernels inside the cast), 6
+   launches counted, its loss and heads' gradients held to the card's float32 step, 10
+   timed bfloat16 steps whose loss must fall; the step's split on the device and the
+   host, its top kernels and peak memory; then the fpe2d suite's ``NIOFNO2D`` the same
+   way (phase ``train_fno``, 8 launches a step in float32 and in bfloat16 ``all``, every
+   bfloat16 gradient held, the frozen fusion unchanged), with the FNO2d layer's torch
+   backward timed at the inner shape;
 10. trains and evaluates the fpe2d NIO through the port's suites CLI at the suite's own
-   config (phase ``fit``): a synthetic archive of 160 sets of 100 snapshots of 61x61 in
+   config (phase ``fit``): a synthetic archive of 80 sets of 100 snapshots of 61x61 in
    the JAX datagen's format (numpy seed 0) under a temporary workdir, 2 epochs of
-   ``--stage train`` (128 train sets, 8 steps of batch 16 an epoch, d4 augmentation,
+   ``--stage train`` (64 train sets, 4 steps of batch 16 an epoch, d4 augmentation,
    bfloat16 input storage), a resumed third epoch whose restored state must equal the
    saved one bit for bit, and ``--stage eval`` with its symmetry test-time average; the
    launches counted exactly, every loss finite, a ``best_*`` checkpoint written, 4 test
@@ -72,21 +82,25 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``. It
    then the same for the suite's UNet (``--model unet``): one epoch and the eval stage,
    launches counted exactly, no host synchronization in a step, predictions against the
    CPU; then the ncfpe2d suite at its own config (batch 4, ``c4_vector``) on a
-   synthetic archive of 40 sets of 100 snapshots of 80x80, its ``NIOFNO2D`` and its
+   synthetic archive of 20 sets of 100 snapshots of 80x80, its ``NIOFNO2D`` and its
    plain-block UNet each for one epoch and the eval stage, checked the same way;
 11. trains the fpe1d suite's NIOFP1D, NIOFNO1D and BlinDNO UNet at full width on the
    suite's batch of 32 sets of 100 snapshots of 80 points (phase ``train1d``): for each
    one float32 step on the card against the CPU (the FNO1d layer's kernel forward in
-   ``FNO1dLinear``, its launches counted exactly: 6, 8 and 6), twenty steps whose loss
-   must fall, steps per second (``bench_train --suite fpe1d``), the step's split and the
-   host's enqueue against the device's busy time, peak memory; then an A/B of three
-   layers trained with Adam writing their weights right before each call, kernel against
-   plain version, and the layer's torch backward at the training shapes;
+   ``FNO1dLinear``, its launches counted exactly: 6, 8 and 6), ten timed steps whose
+   loss must fall, the step's split and the host's enqueue against the device's busy
+   time, peak memory; for NIOFNO1D also a bfloat16 ``all`` step from the same weights
+   (8 launches, at (32, 30, 100) and (3200, 4, 100), every gradient held to the card's
+   float32 step), 10 timed whose loss must fall; then an A/B of three layers trained
+   with Adam writing their weights right before each call, kernel against plain version,
+   and the layer's torch backward at the training shapes;
 12. trains and evaluates the 1-D suites through the CLI at their own configs (phase
    ``fit1d``) on synthetic archives in the datagen's format (320 sets and 16 test sets):
    the fpe1d NIO for an epoch and a resumed one, the gpe1d UNet for an epoch, each then
    the eval stage; launches exact, no host synchronization in a step, predictions with
-   and without the flip average against the CPU;
+   and without the flip average against the CPU; then ``train_model`` of the fpe1d
+   UNet for 2 epochs with ``compute_dtype="bfloat16"`` under JAX's default policy
+   ``all``, its launches exact, its losses finite and falling;
 13. trains NIOFP2D data- and tensor-parallel (phase ``parallel``): phase 8's step in
    ranks spawned on the card (``blindno_torch.parallel``), one rank over NCCL through
    the DDP path bit for bit against the single-process step, two ranks over gloo (DP 2)
@@ -98,11 +112,11 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``. It
    ``NIOTrans2D`` and ``NIOTransAttn2D`` (Transolver weights drawn at random) through
    ``predict_fields`` on 8 sets of 100 snapshots of 61x61, batch 4, against the CPU,
    timed and split on the device between the Transolver, the attention, the fusion and
-   the heads, with peak memory; one float32 step of each on ``bench.py``'s batch against
-   the CPU's step, 6 ``fno2d_layer`` launches a forward or step counted exactly, and
-   twenty timed steps whose loss must fall;
+   the heads, with peak memory; one float32 step of each on the first set of
+   ``bench.py``'s batch against the CPU's step, 6 ``fno2d_layer`` launches a forward or
+   step counted exactly, and ten timed steps on the whole batch whose loss must fall;
 15. generates every FPE and GPE suite's archives through the CLI (phase ``datagen``) at
-   each suite's full grid and time axis and a few sets (64 fpe1d, 256 gpe1d, 8 fpe2d, 2
+   each suite's full grid and time axis and a few sets (48 fpe1d, 64 gpe1d, 8 fpe2d, 2
    ncfpe2d), with TF32 on for matrix products, timed per set: the parameters equal to a
    CPU run's bit for bit, the trajectories within 1e-3 of the CPU's on the first set (of
    a float64 run on the card for ncfpe2d, every set), the FPE masses at 1; then the
@@ -151,7 +165,20 @@ SERVE_TOL = 2e-3    # the NIO parity tolerance, tests/test_nio2d_torch_parity.py
 # follows the gradient's where |g| is not far above eps); the bf16 step's loss within
 # 5e-2 of the f32 step's
 TRAIN_TOL, ENCODER_TOL, BF16_LOSS_TOL = 2e-3, 1e-2, 5e-2
-TRAIN_STEPS = 20
+TRAIN_STEPS = 10
+# the low-precision steps against the card's own float32 step from the same state, set
+# from the CPU tests' gaps between JAX's bfloat16 (or float16) and float32 steps at small
+# widths (tests/test_torch_amp.py): outside the conv encoders and the UNet's conv stack,
+# JAX's bf16 step lies at most 4.4e-2 from its f32 one in a gradient (the 1-D UNet's
+# heads under "all"; 1.7-2.5e-2 for the FNO-branch models and the 2-D UNet) and 4.2e-4
+# in the loss; its f16 encoder_bn32 step of NIOFP2D 2.3e-3 in the heads' gradients and
+# 7.3e-6 in the loss. The bounds are about 2-4x those: a gradient is held where its norm
+# is at least 1e-3 of the largest one's (b0's, which cancels, and the conv biases before
+# a BatchNorm are rounding). LOW_STEPS steps from the same state, timed, must bring the
+# loss down
+LOW_LOSS_TOL = {"bfloat16": 2e-3, "float16": 1e-4}
+LOW_GRAD_TOL = {"bfloat16": 1e-1, "float16": 1e-2}
+LOW_STEPS = 10
 MAIN_SHAPE = (4, 12, 76, 76, 32, 32)   # (B, C, H, W, m1, m2) of the serving path's layers
 RAGGED_SHAPE = (3, 5, 40, 36, 7, 9)
 FIT_SHAPE = (16, 12, 76, 76, 32, 32)   # the layers of the fpe2d suite's batch of 16
@@ -179,14 +206,14 @@ ODE_HEADS_1D = (16, 30, 125, 15, True)
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): f32 outside the tensor cores, HBM3
 PEAK_F32_FLOP_S = 67e12
 PEAK_BYTES_S = 3.35e12
-SERVE = dict(m=8, l=100, n=61, batch=4, timed_rounds=10)
+SERVE = dict(m=8, l=100, n=61, batch=4, timed_rounds=5)
 MODEL = dict(width=12, modes=32, n_basis=25, neurons=100, fno_layers=3)
 # fpe1d (blindno/suites/registry.py:88-90): 64 sets in batches of 16, the JAX
 # predict_fields default
-SERVE_1D = dict(m=64, l=100, n=80, batch=16, timed_rounds=5)
+SERVE_1D = dict(m=64, l=100, n=80, batch=16, timed_rounds=3)
 MODEL_1D = dict(width=30, modes=15)
 # gpe1d (blindno/suites/registry.py:132-141): 101 snapshots of 128 points a set
-SERVE_GPE = dict(m=64, l=101, n=128, batch=16, timed_rounds=5)
+SERVE_GPE = dict(m=64, l=101, n=128, batch=16, timed_rounds=3)
 MODEL_GPE = dict(width=20, modes=40, head_dims=(1,))
 # the BlinDNO UNet (PermInvUNetAttn): the fpe2d suite's (blindno/suites/registry.py:196-198,
 # bench_train.UNET_CONFIG) on SERVE's sets; the gpe1d suite's (:148-150) on SERVE_GPE's;
@@ -196,7 +223,7 @@ MODEL_UNET_GPE = dict(input_size=(128,), depth=4, width=20, fno_modes=40, head_d
                       subsample=True)
 MODEL_UNET_NC = dict(input_size=(80, 80), depth=5, width=12, fno_modes=32, head_dims=(1, 1),
                      subsample=True, block="plain")
-SERVE_UNET_NC = dict(m=4, l=100, n=80, batch=4, timed_rounds=5)
+SERVE_UNET_NC = dict(m=4, l=100, n=80, batch=4, timed_rounds=3)
 # phase serve3d: NIOFP3D at its defaults (blindno/models/nio3d.py:29-36: width 12, 8
 # modes, 25 basis functions, 100 neurons) on 4 sets of 100 snapshots of 40^3, the grid
 # Encoder3D's schedule collapses to one point, at batch 2; the CPU reference on the
@@ -204,15 +231,15 @@ SERVE_UNET_NC = dict(m=4, l=100, n=80, batch=4, timed_rounds=5)
 # at its defaults (blindno/models/nio1d.py:61-87) on 16 sets of 100 x 11 observations
 # with a grid of 100 points, batch 16: 3 fno1d_layer launches a forward at ODE_HEADS_1D
 SERVE_3D = dict(m=4, l=100, n=40, batch=2, timed_rounds=3, cpu_snapshots=8, train_steps=3)
-SERVE_ODE = dict(m=16, l=100, n_obs=11, n=100, batch=16, timed_rounds=5)
+SERVE_ODE = dict(m=16, l=100, n_obs=11, n=100, batch=16, timed_rounds=3)
 # phase fit: the fpe2d suite's config (blindno/suites/registry.py:186-220) on a synthetic
-# archive; 160 sets split 128/32, 8 steps of 16 an epoch; a test archive of 16 sets
-FIT = dict(m=160, m_test=16, l=100, n=61, epochs=2, cpu_sets=4, bare_steps=10, unet_epochs=1)
+# archive; 80 sets split 64/16, 4 steps of 16 an epoch; a test archive of 16 sets
+FIT = dict(m=80, m_test=16, l=100, n=61, epochs=2, cpu_sets=4, bare_steps=10, unet_epochs=1)
 # phase fit, ncfpe2d: that suite's config (blindno/suites/registry.py:222-253: batch 4,
-# c4_vector, float32 inputs) on a synthetic archive of 40 sets of 100 snapshots of 80x80,
-# split 32/8 (8 steps an epoch), and 8 test sets; one epoch each of the FNO-branch NIO
+# c4_vector, float32 inputs) on a synthetic archive of 20 sets of 100 snapshots of 80x80,
+# split 16/4 (4 steps an epoch), and 8 test sets; one epoch each of the FNO-branch NIO
 # and the plain-block UNet
-FIT_NC = dict(m=40, m_test=8, l=100, n=80, epochs=1)
+FIT_NC = dict(m=20, m_test=8, l=100, n=80, epochs=1)
 # phase train1d: the fpe1d suite's models (blindno/suites/registry.py:77-107) at full width
 # on its training batch (bench_train.BATCHES_1D: 32 sets of 100 snapshots of 80 points);
 # fno1d_layer launches a step, which the phase also derives from the models' FNO1d
@@ -227,11 +254,13 @@ TRAIN_GPE_HEADS_1D = (32, 20, 160, 40, True)
 # through the CLI on synthetic archives in the datagen's format, 320 sets split 256/64
 # (8 steps of 32 an epoch) and 16 test sets each
 FIT_1D = dict(m=320, m_test=16, epochs=1)
+# and the fpe1d UNet through train_model in bfloat16 "all" for two epochs on such sets
+FIT_1D_BF16 = dict(epochs=2)
 # phase datagen: (train, test) sets per suite, each suite's full grid and time axis
 # (blindno/data/generate.py); the card's archives against the CPU's (or float64) within
 # DATAGEN_TOL relative L2 per set, the FPE masses within DATAGEN_MASS_TOL of 1, the
 # time-error stage's errors within TIME_ERROR_TOL of the CPU's, relative
-DATAGEN = {"fpe1d": (64, 8), "gpe1d": (256, 16), "fpe2d": (8, 2), "ncfpe2d": (2, 1)}
+DATAGEN = {"fpe1d": (48, 8), "gpe1d": (64, 16), "fpe2d": (8, 2), "ncfpe2d": (2, 1)}
 DATAGEN_TOL, DATAGEN_MASS_TOL, TIME_ERROR_TOL = 1e-3, 1e-3, 1e-3
 
 
@@ -439,8 +468,9 @@ def check_and_time(cases, variants, library, tol, stats):
                            library_ms=graph_ms(lambda: lib_fn(*args, act)),
                            eager_kernel_ms=eager_ms, wrapper_host_ms=host_ms,
                            torch_add_host_ms=op_host_ms,
-                           stages_ms=stage_ms(lambda: kernel(*args)),
                            **layer_bound(bound_shape, act is not None))
+                if main and act:  # the stages of the gelu layer at the main shape
+                    row["stages_ms"] = stage_ms(lambda: kernel(*args))
             emit("kernels", **row)
             s = stats.setdefault(name, {"max_abs_err": 0.0})
             s["max_abs_err"] = max(s["max_abs_err"], err, row.get("max_abs_err_graph", 0.0))
@@ -485,25 +515,56 @@ def phase_kernels():
                    lambda x, wr, wi, pk, pb, dc: spectral_conv1d(x, wr, wi, dc))
     stats = {}
     with torch.inference_mode():
+        # every shape checked; timed: the main shapes and the low-precision steps' (the
+        # fpe2d heads and the NIOFNO2D inner branch, the fpe1d heads and the NIOFNO1D
+        # branch at batch 32); the other shapes' times are in PERF.md from earlier runs
         check_and_time([(MAIN_SHAPE, True, True), (RAGGED_SHAPE, False, False),
-                        (NCFPE2D_HEADS, True, False), (NIOFNO2D_INNER, True, False),
-                        (NCFPE2D_INNER, True, False), (FIT_SHAPE, True, False),
-                        (TP_SLICE, True, False)],
+                        (NCFPE2D_HEADS, False, False), (NIOFNO2D_INNER, True, False),
+                        (NCFPE2D_INNER, False, False), (FIT_SHAPE, False, False),
+                        (TP_SLICE, False, False)],
                        variants_2d, library, KERNEL_TOL, stats)
         check_and_time([(HEADS_1D, True, True), (RAGGED_1D, False, False)],
                        [layer_1d(True), layer_1d(False), spectral_1d], library,
                        KERNEL_TOL_1D, stats)
-        check_and_time([(BRANCH_1D, True, False)], [layer_1d(True), layer_1d(False)], library,
+        check_and_time([(BRANCH_1D, False, False)], [layer_1d(True), layer_1d(False)], library,
                        KERNEL_TOL_1D, stats)
-        check_and_time([(GPE_HEADS_1D, True, False)],
+        check_and_time([(GPE_HEADS_1D, False, False)],
                        [layer_1d(True), layer_1d(False), spectral_1d], library, KERNEL_TOL_1D,
                        stats)
-        check_and_time([(ODE_HEADS_1D, True, False)], [layer_1d(True), layer_1d(False)],
+        check_and_time([(ODE_HEADS_1D, False, False)], [layer_1d(True), layer_1d(False)],
                        library, KERNEL_TOL_1D, stats)
         check_and_time([(TRAIN_HEADS_1D, True, False), (TRAIN_BRANCH_1D, True, False),
-                        (TRAIN_GPE_HEADS_1D, True, False)], [layer_1d(True), layer_1d(False)],
+                        (TRAIN_GPE_HEADS_1D, False, False)], [layer_1d(True), layer_1d(False)],
                        library, KERNEL_TOL_1D, stats)
+        for shape, (name, act, kernel, plain), tol in (
+                (MAIN_SHAPE, variants_2d[0], KERNEL_TOL),
+                (MAIN_SHAPE, variants_2d[2], KERNEL_TOL),
+                (TRAIN_HEADS_1D, layer_1d(True), KERNEL_TOL_1D),
+                (TRAIN_HEADS_1D, spectral_1d, KERNEL_TOL_1D)):
+            low_precision_operands(name, act, kernel, plain, shape, tol)
     return stats
+
+
+def low_precision_operands(name, act, kernel, plain, shape, tol):
+    """The wrapper given bfloat16 and float16 operands at ``shape``, as the training
+    step's low-precision modes call it: its result in that dtype, within ``tol`` plus the
+    dtype's unit roundoff (of the output's scale) of the plain version on the operands
+    raised to float32; and the call's time from a CUDA graph (the casts to float32, the
+    float32 kernel, the cast back) beside the float32 call's."""
+    args = layer_inputs(shape, "cuda")
+    f32_ms = graph_ms(lambda: kernel(*args))
+    for dtype, eps in ((torch.bfloat16, 2.0 ** -8), (torch.float16, 2.0 ** -11)):
+        low = [a.to(dtype) if torch.is_tensor(a) else a for a in args]
+        got = kernel(*low)
+        want = plain(*[a.float() if torch.is_tensor(a) else a for a in low])
+        if got.dtype != dtype:
+            raise RuntimeError(f"{name} {shape}: {dtype} operands gave a {got.dtype} result")
+        scale = float(want.abs().max())
+        err = check_close(f"{name} act={act} {shape} {dtype}", got.float(), want, tol + eps,
+                          scale)
+        emit("kernels", kernel=name, gelu=act, shape=shape, operands=str(dtype)[6:],
+             max_abs_err=err, tol=f"rtol {tol + eps:.3g}, atol that x {scale:.3g}",
+             cast_and_kernel_ms=graph_ms(lambda: kernel(*low)), float32_kernel_ms=f32_ms)
 
 
 def calibrate_bn(model, x, grid, rng):
@@ -884,7 +945,7 @@ def randomize_layernorms(model, rng):
                 m.bias.copy_(torch.tensor(rng.normal(0.0, 0.08, m.bias.shape)))
 
 
-def top_kernels(fn, n=6, iters=5):
+def top_kernels(fn, n=6, iters=3):
     """The ``n`` CUDA kernels of ``fn`` with the most device time per call (ms; names cut
     to 80 characters) in a ``torch.profiler`` trace, and the sum over all of its kernels,
     the device's busy time per call, as ``"all"``."""
@@ -1078,17 +1139,91 @@ def train_errors(card, cpu):
     return errs
 
 
-def one_step(model, x, y, grid, draw, compute_dtype=None):
+def one_step(model, x, y, grid, draw, compute_dtype=None, amp_policy="encoder_bn32"):
     """One ``train_step`` from a fresh optimizer; the loss, the gradients and the state
     after it, on the CPU."""
     from blindno_torch.train.step import make_optimizer, train_step
 
     loss = train_step(model, make_optimizer(model), x, y, grid, subsample=draw,
-                      compute_dtype=compute_dtype)
+                      compute_dtype=compute_dtype, amp_policy=amp_policy)
     grads = {k: p.grad.cpu() for k, p in model.named_parameters() if p.grad is not None}
     state = {k: v.cpu() for k, v in model.state_dict().items()
              if not k.endswith("num_batches_tracked")}
     return float(loss), grads, state
+
+
+def timed_steps(step, n=TRAIN_STEPS):
+    """One warm-up ``step()``, then ``n`` more timed on the host clock between two
+    synchronizes (no synchronization between them): their losses and steps per second."""
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [step() for _ in range(n)]
+    torch.cuda.synchronize()
+    return [float(v) for v in losses], n / (time.perf_counter() - t0)
+
+
+def low_precision_steps(label, model, initial, batch, draw, card, per_step, held,
+                        compute_dtype="bfloat16", amp_policy="all", lr=5e-4):
+    """The training step in ``compute_dtype`` under ``amp_policy`` (``train_step``, JAX's
+    casts), from the state ``initial`` that gave the card's float32 step ``card`` (loss,
+    gradients, state) on ``batch`` (x, y, grid) and ``draw``: its launches counted (the
+    FNO kernels inside the cast: ``per_step`` of each kernel a step), every gradient
+    finite, the loss and each gradient that ``held(name)`` names within LOW_LOSS_TOL and
+    LOW_GRAD_TOL of the float32 step's; LOW_STEPS steps from ``initial``, a fresh draw
+    each, whose loss must fall, timed (steps per second, the host's time to enqueue one,
+    the device's busy time in one from a profiler trace, peak memory). Returns the fields
+    to emit and the launches of every counted step."""
+    from blindno_torch.train.step import make_optimizer, train_step
+
+    x, y, grid = batch
+    mode = f"{compute_dtype} {amp_policy}"
+    model.load_state_dict(initial)
+    torch.cuda.reset_peak_memory_stats()
+    counts, (loss, grads, _) = counted(
+        lambda: one_step(model, x, y, grid, draw, compute_dtype, amp_policy))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expect_launches(f"{label} {mode} step", counts, **per_step)
+    if not (math.isfinite(loss) and all(torch.isfinite(g).all() for g in grads.values())):
+        raise RuntimeError(f"{label}: the {mode} step's loss is {loss} or a gradient is not finite")
+    want_loss, want_grads = card[0], card[1]
+    top = max(float(g.norm()) for g in want_grads.values())
+    errs = {"loss": abs(loss - want_loss) / abs(want_loss)}
+    errs.update({k: rel_l2(grads[k], g) for k, g in want_grads.items()
+                 if held(k) and float(g.norm()) >= 1e-3 * top})
+    tol = lambda k: LOW_LOSS_TOL[compute_dtype] if k == "loss" else LOW_GRAD_TOL[compute_dtype]
+    bad = {k: e for k, e in errs.items() if not e <= tol(k)}
+    if bad:
+        raise RuntimeError(f"{label}: the {mode} step lies beyond its bound from the float32 "
+                           f"step: {bad}")
+    model.load_state_dict(initial)
+    opt = make_optimizer(model, lr)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    step = lambda: train_step(model, opt, x, y, grid, generator=gen,
+                              compute_dtype=compute_dtype, amp_policy=amp_policy)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed_counts, losses = counted(lambda: [step() for _ in range(LOW_STEPS)])
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    losses = [float(v) for v in losses]
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"{label}: the {mode} loss did not fall over {LOW_STEPS} steps: "
+                           f"{losses}")
+    expect_launches(f"{label} {mode} steps", timed_counts,
+                    **{k: v * LOW_STEPS for k, v in per_step.items()})
+    busy_ms = top_kernels(step)["all"]
+    total = {k: counts[k] + timed_counts[k] for k in counts}
+    fields = dict(mode=mode, launches_per_step=counts, loss=loss, loss_f32=want_loss,
+                  rel_l2_from_f32=dict(sorted(errs.items(), key=lambda kv: -kv[1])[:3]),
+                  tol=f"loss {LOW_LOSS_TOL[compute_dtype]}, gradients "
+                  f"{LOW_GRAD_TOL[compute_dtype]} (relative L2) from the card's float32 step",
+                  losses_steps=[losses[0], losses[-1]],
+                  steps_per_sec=LOW_STEPS / wall_s,
+                  host_enqueue_ms=1e3 * enqueue_s / LOW_STEPS, device_busy_ms=busy_ms,
+                  peak_memory_gb=peak_gb)
+    return fields, total
 
 
 def phase_train(kernel_ms, smi_line):
@@ -1130,21 +1265,31 @@ def phase_train(kernel_ms, smi_line):
     if not (all(torch.isfinite(g).all() for g in grads16.values()) and bf16_gap <= BF16_LOSS_TOL):
         raise RuntimeError(f"train: bf16 step loss {loss16} against f32 {card[0]} "
                            f"(gap {bf16_gap:.3g}, want <= {BF16_LOSS_TOL}) or a non-finite gradient")
+    # 3b. the float16 encoder_bn32 step from the same weights, the mode bench.py validated
+    # in bfloat16: the Encoder2D computes in float16, the heads in float32 (the grid
+    # promotes), so the heads' gradients are held; the trunk's take a one-signed grid
+    # through BatchNorms that erase units, ill-conditioned in float32 already
+    f16, f16_launches = low_precision_steps(
+        "train NIOFP2D", model, initial, (x, y, grid), draw, card, {"fno2d_layer": 6},
+        lambda k: k.startswith("heads."), "float16", "encoder_bn32")
 
-    # 4. twenty f32 steps on the one batch, a fresh draw each: the loss must fall
+    # 4. ten f32 steps on the one batch, a fresh draw each, timed: the loss must fall
     model.load_state_dict(initial)
     opt = make_optimizer(model)
     gen = torch.Generator(device="cuda").manual_seed(2)
-    losses = [float(train_step(model, opt, x, y, grid, generator=gen)) for _ in range(TRAIN_STEPS)]
+    losses, f32_sps = timed_steps(lambda: train_step(model, opt, x, y, grid, generator=gen))
     if not losses[-1] < losses[0]:
         raise RuntimeError(f"train: loss did not fall over {TRAIN_STEPS} steps: {losses}")
 
-    # 5. throughput, the step's split, the layer's backward, the BatchNorm correction
-    sps = {mode: bench_train.steps_per_sec(cdtype) for mode, cdtype in bench_train.MODES.items()}
+    # 5. throughput (bf16 encoder_bn32 from fresh weights, bench_train), the step's
+    # split, the layer's backward, the BatchNorm correction
+    cdtype, policy = bench_train.MODES["bf16_encoder_bn32"]
+    sps = {"f32": f32_sps,
+           "bf16_encoder_bn32": bench_train.steps_per_sec(cdtype, amp_policy=policy)}
     ev = lambda: torch.cuda.Event(enable_timing=True)
     split = {k: 0.0 for k in ("forward_ms", "backward_ms", "optimizer_ms", "encoder_fwd_bwd_ms",
                              "heads_fwd_bwd_ms")}
-    rounds = 5
+    rounds = 3
     dn, xg = model.deeponet, x[:, torch.as_tensor(draw[0], device="cuda")]
     mask = torch.as_tensor(draw[1], device="cuda")
     for r in range(rounds + 1):
@@ -1189,14 +1334,14 @@ def phase_train(kernel_ms, smi_line):
          worst_rel_l2_rest=max(rest.items(), key=lambda kv: kv[1]),
          tol=f"relative L2: {TRAIN_TOL}, encoder gradients and parameters {ENCODER_TOL}",
          cpu_step_s=cpu_s, loss_bf16=loss16, bf16_loss_gap=bf16_gap,
-         bf16_encoder_grad_rel_l2_from_f32=bf16_grad_gap,
-         losses_20_steps=[losses[0], losses[-1]], steps_per_sec=sps, step_split=split,
+         bf16_encoder_grad_rel_l2_from_f32=bf16_grad_gap, float16_encoder_bn32=f16,
+         losses_f32_steps=[losses[0], losses[-1]], steps_per_sec=sps, step_split=split,
          fno2d_layer_backward_ms=backward_ms, fno2d_layer_backward_eager_ms=backward_eager_ms,
          fno2d_layer_backward_bound=layer_backward_bound(MAIN_SHAPE),
          fno2d_layer_forward_ms=kernel_ms, layer_shape=MAIN_SHAPE,
          batchnorm_forward_ms_400x64x61x31=bn_ms, peak_memory_gb_f32_step=peak_gb,
          nvidia_smi=smi_line)
-    return counts["fno2d_layer"]
+    return counts["fno2d_layer"] + f16_launches["fno2d_layer"]
 
 
 def unet_tol(key):
@@ -1233,8 +1378,9 @@ def phase_train_unet(smi_line):
     """The fpe2d UNet's training step (``train_step`` on ``PermInvUNetAttn`` at the fpe2d
     suite's config, seeded weights, randomized LayerNorms) on ``bench.py``'s batch: one
     float32 step on the card against the same step on the CPU, its launches counted;
-    twenty steps whose loss must fall; steps per second (``bench_train --model unet``);
-    the step's split on the device and the host, and its peak memory. Returns its
+    ten timed steps whose loss must fall; the bfloat16 ``all`` steps
+    (:func:`low_precision_steps`); the step's split on the device and the host, and its
+    peak memory. Returns its
     ``fno2d_layer`` launches."""
     from blindno_torch.tools import bench_train
     from blindno_torch.train.step import make_optimizer, train_step
@@ -1263,23 +1409,28 @@ def phase_train_unet(smi_line):
     conv_stack = {k: e for k, e in errs.items() if unet_tol(k) == ENCODER_TOL}
     rest = {k: e for k, e in errs.items() if k not in conv_stack}
 
-    # 2. twenty f32 steps on the one batch, a fresh draw each: the loss must fall
+    # 2. ten f32 steps on the one batch, a fresh draw each: the loss must fall
     model.load_state_dict(initial)
     opt = make_optimizer(model)
     gen = torch.Generator(device="cuda").manual_seed(2)
     step = lambda: train_step(model, opt, x, y, grid, generator=gen)
-    losses = [float(step()) for _ in range(TRAIN_STEPS)]
+    losses, sps = timed_steps(step)
     if not losses[-1] < losses[0]:
         raise RuntimeError(f"train_unet: loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    # the bfloat16 step under JAX's default policy "all": the UNet ignores its grid, so it
+    # computes in bfloat16 end to end, its FNO heads' kernels inside the cast; the heads'
+    # gradients held (the conv stack's are chaotic in bfloat16, tests/test_torch_amp.py)
+    bf16, bf16_launches = low_precision_steps(
+        "train_unet", model, initial, (x, y, grid), draw, card, {"fno2d_layer": 6},
+        lambda k: k.startswith("heads."))
 
     # 3. throughput, and the step's split: CUDA events around its forward, backward and
     # Adam, and around the set encoder's and the heads' forward and backward alone; the
     # host's time to enqueue a step; the step's kernels by device time in a profiler trace
-    sps = bench_train.steps_per_sec(None, "unet")
     ev = lambda: torch.cuda.Event(enable_timing=True)
     split = {k: 0.0 for k in ("forward_ms", "backward_ms", "optimizer_ms", "host_enqueue_ms",
                              "features_fwd_bwd_ms", "heads_fwd_bwd_ms")}
-    rounds = 5
+    rounds = 3
     xg, mask = x[:, torch.as_tensor(draw[0], device="cuda")], torch.as_tensor(draw[1], device="cuda")
     for r in range(rounds + 1):
         e = [ev() for _ in range(4)]
@@ -1318,17 +1469,17 @@ def phase_train_unet(smi_line):
          worst_rel_l2_rest=max(rest.items(), key=lambda kv: kv[1]),
          zero_gradients=zero, tol=f"relative L2: {TRAIN_TOL}, the conv stack's gradients "
          f"and parameters {ENCODER_TOL}; exact zeros stay exact", cpu_step_s=cpu_s,
-         losses_20_steps=[losses[0], losses[-1]], steps_per_sec_f32=sps, step_split=split,
-         peak_memory_gb_f32_step=peak_gb, nvidia_smi=smi_line)
-    return counts["fno2d_layer"]
+         losses_f32_steps=[losses[0], losses[-1]], steps_per_sec_f32=sps, step_split=split,
+         peak_memory_gb_f32_step=peak_gb, bfloat16_all=bf16, nvidia_smi=smi_line)
+    return counts["fno2d_layer"] + bf16_launches["fno2d_layer"]
 
 
 def phase_train_fno(smi_line):
     """The FNO-branch NIO's training step (``train_step`` on ``NIOFNO2D`` at the fpe2d
     suite's width, seeded weights) on ``bench.py``'s batch: one float32 step on the card
     against the same step on the CPU, its 8 launches counted, the frozen fusion unchanged;
-    twenty steps whose loss must fall; steps per second (``bench_train --model fno``), the
-    step's split on the device and the host, its top kernels and peak memory; and the
+    ten timed steps whose loss must fall; the bfloat16 ``all`` steps; the step's split
+    on the device and the host, its top kernels and peak memory; and the
     FNO2d layer's torch backward per call at the inner shape, from a graph and eagerly,
     beside its bound. Returns its ``fno2d_layer`` launches."""
     from blindno_torch.ops.fno_layer import fno2d_layer_backward_plain
@@ -1356,23 +1507,28 @@ def phase_train_fno(smi_line):
     cpu_s = time.perf_counter() - t0
     errs = train_errors(card, cpu)
 
-    # 2. twenty f32 steps on the one batch, a fresh draw each: the loss must fall
+    # 2. ten f32 steps on the one batch, a fresh draw each: the loss must fall
     model.load_state_dict(initial)
     opt = make_optimizer(model)
     gen = torch.Generator(device="cuda").manual_seed(2)
     step = lambda: train_step(model, opt, x, y, grid, generator=gen)
-    losses = [float(step()) for _ in range(TRAIN_STEPS)]
+    losses, sps = timed_steps(step)
     if not losses[-1] < losses[0]:
         raise RuntimeError(f"train_fno: loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    # the bfloat16 step under "all": the float32 grid promotes the inner FNO2d's input, so
+    # every kernel runs on float32 activations and bfloat16-valued weights; every
+    # gradient held (the frozen fusion has none)
+    bf16, bf16_launches = low_precision_steps(
+        "train_fno", model, initial, (x, y, grid), draw, card, {"fno2d_layer": 8},
+        lambda k: True)
 
     # 3. throughput, and the step's split: CUDA events around its forward, backward and
     # Adam, and around the inner FNO2d's and the heads' forward and backward alone; the
     # host's time to enqueue a step; its kernels by device time in a profiler trace
-    sps = bench_train.steps_per_sec(None, "fno")
     ev = lambda: torch.cuda.Event(enable_timing=True)
     split = {k: 0.0 for k in ("forward_ms", "backward_ms", "optimizer_ms", "host_enqueue_ms",
                              "inner_fno2d_fwd_bwd_ms", "heads_fwd_bwd_ms")}
-    rounds = 5
+    rounds = 3
     xg, mask = x[:, torch.as_tensor(draw[0], device="cuda")], torch.as_tensor(draw[1], device="cuda")
     grid_feats = grid.unsqueeze(0).expand(b, *grid.shape)
     for r in range(rounds + 1):
@@ -1419,13 +1575,14 @@ def phase_train_fno(smi_line):
          launches=counts, loss_card=card[0], loss_cpu=cpu[0],
          worst_rel_l2=sorted(errs.items(), key=lambda kv: -kv[1])[:3],
          tol=f"relative L2: {TRAIN_TOL}", frozen_fusion_unchanged=frozen, cpu_step_s=cpu_s,
-         losses_20_steps=[losses[0], losses[-1]], steps_per_sec_f32=sps, step_split=split,
-         peak_memory_gb_f32_step=peak_gb, fno2d_layer_backward_ms=backward_ms,
+         losses_f32_steps=[losses[0], losses[-1]], steps_per_sec_f32=sps, step_split=split,
+         peak_memory_gb_f32_step=peak_gb, bfloat16_all=bf16,
+         fno2d_layer_backward_ms=backward_ms,
          fno2d_layer_backward_eager_ms=backward_eager_ms,
          fno2d_layer_backward_host_ms=backward_host_ms,
          fno2d_layer_backward_bound=layer_backward_bound(NIOFNO2D_INNER),
          layer_shape=NIOFNO2D_INNER, nvidia_smi=smi_line)
-    return counts["fno2d_layer"]
+    return counts["fno2d_layer"] + bf16_launches["fno2d_layer"]
 
 
 def randomize_transolver(model, sets, grid, rng):
@@ -1448,6 +1605,10 @@ def randomize_transolver(model, sets, grid, rng):
 
 
 TRANS_MODELS = {"trans": "NIOTrans2D", "trans_attn": "NIOTransAttn2D"}
+# the sets of bench.py's batch in phase trans's step checked against the CPU (the first
+# one; a Transolver step on all four took 26.6-26.7 s of the card host's CPU), and the
+# batch of its timed steps, all four
+TRANS_CHECK_SETS = 1
 
 
 def trans_draw(l):
@@ -1483,13 +1644,15 @@ def trans_serve_reference(name):
 
 
 def trans_step_reference(name):
-    """On the CPU: phase ``trans``'s training step (:func:`one_step`) and its seconds."""
+    """On the CPU: phase ``trans``'s checked training step (:func:`one_step` on the first
+    TRANS_CHECK_SETS sets of ``bench.py``'s batch) and its seconds."""
     from blindno_torch.tools import bench_train
 
     model = trans_step_model(name)
     x, y, grid = bench_train.bench_batch("cpu")
+    k = TRANS_CHECK_SETS
     t0 = time.perf_counter()
-    loss, grads, state = one_step(model, x, y, grid, trans_draw(bench_train.BATCH["l"]))
+    loss, grads, state = one_step(model, x[:k], y[:k], grid, trans_draw(bench_train.BATCH["l"]))
     # numpy arrays: torch tensors would cross through shared memory, which may be small
     as_numpy = lambda d: {k: v.numpy() for k, v in d.items()}
     return (loss, as_numpy(grads), as_numpy(state)), time.perf_counter() - t0
@@ -1509,10 +1672,11 @@ def phase_trans(smi_line, refs):
     config: served on SERVE's sets through ``predict_fields`` (Transolver weights drawn
     at random), against the CPU, timed and split on the device between the Transolver,
     the attention, the fusion and the heads, with peak memory; then one float32
-    ``train_step`` on ``bench.py``'s batch against the CPU's step, 6 ``fno2d_layer``
-    launches counted, the frozen fusion unchanged, and twenty steps whose loss must fall,
-    timed. The CPU's outputs and steps are ``refs``' futures (:func:`submit_cpu_references`).
-    Returns their ``fno2d_layer`` launches."""
+    ``train_step`` on the first TRANS_CHECK_SETS sets of ``bench.py``'s batch against the
+    CPU's step, 6 ``fno2d_layer`` launches counted, the frozen fusion unchanged, and ten
+    steps on the whole batch whose loss must fall, timed. The CPU's outputs and steps are
+    ``refs``' futures (:func:`submit_cpu_references`). Returns their ``fno2d_layer``
+    launches."""
     from blindno_torch.models import nio2d
     from blindno_torch.tools import bench_train
     from blindno_torch.train.step import make_optimizer, train_step
@@ -1538,8 +1702,8 @@ def phase_trans(smi_line, refs):
         x, y, grid = bench_train.bench_batch("cuda")
         model = cpu_model.to("cuda")
         torch.cuda.reset_peak_memory_stats()
-        counts, card = counted(lambda: one_step(model, x, y, grid, draw))
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        k = TRANS_CHECK_SETS
+        counts, card = counted(lambda: one_step(model, x[:k], y[:k], grid, draw))
         expect_launches(f"{cls.__name__} training step", counts, fno2d_layer=6)
         launches += counts["fno2d_layer"]
         frozen = [k for k in initial if k.startswith("fusion.")]
@@ -1550,10 +1714,11 @@ def phase_trans(smi_line, refs):
         cpu = (loss_cpu, as_torch(grads_cpu), as_torch(state_cpu))
         errs = train_errors(card, cpu)
 
-        # twenty f32 steps on the one batch, a fresh draw each: the loss must fall
+        # ten f32 steps on the one batch, a fresh draw each: the loss must fall
         model.load_state_dict(initial)
         opt = make_optimizer(model)
         gen = torch.Generator(device="cuda").manual_seed(2)
+        torch.cuda.reset_peak_memory_stats()
         train_step(model, opt, x, y, grid, generator=gen)  # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1561,6 +1726,7 @@ def phase_trans(smi_line, refs):
                                           for _ in range(TRAIN_STEPS)])
         losses = [float(v) for v in losses]
         wall = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
         expect_launches(f"{cls.__name__} training steps", counts, fno2d_layer=6 * TRAIN_STEPS)
         launches += counts["fno2d_layer"]
         if not losses[-1] < losses[0]:
@@ -1571,7 +1737,7 @@ def phase_trans(smi_line, refs):
              loss_card=card[0], loss_cpu=cpu[0],
              worst_rel_l2=sorted(errs.items(), key=lambda kv: -kv[1])[:3],
              tol=f"relative L2: {TRAIN_TOL}", frozen_fusion_unchanged=frozen, cpu_step_s=cpu_s,
-             losses_20_steps=[losses[0], losses[-1]], steps_per_sec_f32=TRAIN_STEPS / wall,
+             losses_f32_steps=[losses[0], losses[-1]], steps_per_sec_f32=TRAIN_STEPS / wall,
              peak_memory_gb_f32_step=peak_gb, nvidia_smi=smi_line)
         del model, opt
     return launches
@@ -1720,8 +1886,9 @@ def phase_train1d(smi_line):
     UNet's LayerNorms randomized) on the suite's batch of 32 sets of 100 snapshots of 80
     points (numpy seed 0): one float32 step on the card against the same step on the
     CPU, its ``fno1d_layer`` launches counted exactly (the layer's forward in
-    ``FNO1dLinear``; its backward is torch); twenty steps whose loss must fall; steps
-    per second (``bench_train --suite fpe1d``), the step's forward, backward and Adam by
+    ``FNO1dLinear``; its backward is torch); ten timed steps whose loss must fall (and
+    for NIOFNO1D the bfloat16 ``all`` steps of :func:`low_precision_steps`); the step's
+    forward, backward and Adam by
     CUDA events, the host's time to enqueue a step against the device's busy time, peak
     memory. Then the A/B of weights written by Adam right before each layer call, and
     the layer's torch backward at the heads' and branch's training shapes, from a graph
@@ -1762,23 +1929,30 @@ def phase_train1d(smi_line):
         loose = {k: e for k, e in errs.items() if tol(k) > TRAIN_TOL}
         rest = {k: e for k, e in errs.items() if k not in loose}
 
-        # 2. twenty f32 steps on the one batch, a fresh draw each: the loss must fall
+        # 2. ten f32 steps on the one batch, a fresh draw each: the loss must fall
         model.load_state_dict(initial)
         opt = make_optimizer(model, 1e-3)
         gen = torch.Generator(device="cuda").manual_seed(2)
         step = lambda: train_step(model, opt, x, y, grid, generator=gen)
-        losses = [float(step()) for _ in range(TRAIN_STEPS)]
+        losses, sps = timed_steps(step)
         if not losses[-1] < losses[0]:
             raise RuntimeError(f"train1d {name}: loss did not fall over {TRAIN_STEPS} steps: "
                                f"{losses}")
+        # NIOFNO1D in bfloat16 under "all": its kernels at (32, 30, 100) and (3200, 4, 100)
+        # inside the cast, every gradient held
+        bf16 = None
+        if name == "fno":
+            bf16, bf16_launches = low_precision_steps(
+                "train1d fno", model, initial, (x, y, grid), draw, card, {"fno1d_layer": calls},
+                lambda k: True, lr=1e-3)
+            launches += bf16_launches["fno1d_layer"]
 
-        # 3. throughput in a fresh model, and the step's split: CUDA events around its
+        # 3. the step's split: CUDA events around its
         # forward, backward and Adam; the host's time to enqueue a step; the device's busy
         # time in a step (the sum of its kernels in a profiler trace)
-        sps = bench_train.steps_per_sec(None, name, suite)
         ev = lambda: torch.cuda.Event(enable_timing=True)
         split = {k: 0.0 for k in ("forward_ms", "backward_ms", "optimizer_ms", "host_enqueue_ms")}
-        rounds = 5
+        rounds = 3
         for r in range(rounds + 1):
             e = [ev() for _ in range(4)]
             torch.cuda.synchronize()
@@ -1809,8 +1983,8 @@ def phase_train1d(smi_line):
              ill_conditioned_card_cpu_card64_cpu64=conditioned,
              tol=f"relative L2: {TRAIN_TOL}, {ENCODER_TOL} for the conv encoders' gradients "
              "and parameters; exact zeros stay exact", cpu_step_s=cpu_s,
-             losses_20_steps=[losses[0], losses[-1]], steps_per_sec_f32=sps, step_split=split,
-             peak_memory_gb_f32_step=peak_gb, nvidia_smi=smi_line)
+             losses_f32_steps=[losses[0], losses[-1]], steps_per_sec_f32=sps, step_split=split,
+             peak_memory_gb_f32_step=peak_gb, bfloat16_all=bf16, nvidia_smi=smi_line)
         del model, opt, cpu_model
 
     # 4. the A/B of weights written right before each layer call, and the layer's torch
@@ -2262,7 +2436,44 @@ def phase_fit1d(smi_line):
             launches += fit_cli(w, spec, model, FIT_1D["m"], FIT_1D["m_test"], FIT_1D["epochs"],
                                 per_forward, smi_line, layer="fno1d_layer", resumed=resumed,
                                 tta=True)
-    return launches
+    return launches + fit1d_bf16(smi_line)
+
+
+def fit1d_bf16(smi_line):
+    """``train_model`` of the fpe1d suite's UNet at the suite's config in bfloat16 under
+    JAX's default policy ``all`` (the CLI, as JAX's, has no compute dtype): FIT_1D_BF16's
+    epochs on a synthetic archive of FIT_1D["m"] sets, an eval after each, its
+    ``fno1d_layer`` launches counted exactly (the steps' inside the cast, the eval's in
+    float32), its history finite and its train loss falling. Returns its launches."""
+    import dataclasses
+
+    from blindno_torch.suites import registry
+    from blindno_torch.train.loop import train_model
+
+    spec, m, epochs = registry.SUITES["fpe1d"], FIT_1D["m"], FIT_1D_BF16["epochs"]
+    data = spec.loader(fpe1d_archive(m, 100, 80, np.random.default_rng(1)))
+    cfg = dataclasses.replace(spec.train_cfg, epochs=epochs, save_interval=1,
+                              compute_dtype="bfloat16", amp_policy="all")
+    model = spec.models["unet"](generator=torch.Generator().manual_seed(0), device="cuda")
+    per_forward = fno1d_layer_calls(model)
+    n_train = int(cfg.train_frac * m)
+    steps, eval_forwards = n_train // cfg.batch_size, -(-(m - n_train) // cfg.batch_size)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    counts, res = counted(lambda: train_model(model, data, spec.grid, cfg))
+    wall = time.perf_counter() - t0
+    expect_launches("fit1d fpe1d unet bfloat16", counts,
+                    fno1d_layer=per_forward * (steps + eval_forwards) * epochs)
+    losses = [v for h in res.history for v in (h["train_loss"], h["test_loss"])]
+    if not (res.finished and np.isfinite(losses).all()
+            and res.history[-1]["train_loss"] < res.history[0]["train_loss"]):
+        raise RuntimeError(f"fit1d: the bfloat16 UNet run is unfinished, not finite or its "
+                           f"train loss did not fall: {res.history}")
+    emit("fit1d", suite="fpe1d", model="unet", compute_dtype="bfloat16", amp_policy="all",
+         epochs=epochs, steps_per_epoch=steps, launches=counts, history=res.history,
+         loop_steps_per_sec=[h["steps_per_sec"] for h in res.history], wall_s=wall,
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, nvidia_smi=smi_line)
+    return counts["fno1d_layer"]
 
 
 # phase parallel: (case, ranks, tp, backend); NCCL takes one rank per card, so the
@@ -2270,7 +2481,7 @@ def phase_fit1d(smi_line):
 PARALLEL_CASES = [("a_nccl_1rank", 1, 1, "nccl"), ("b_gloo_dp2", 2, 1, "gloo"),
                   ("c_gloo_dp2_tp2", 4, 2, "gloo")]
 PARALLEL_TWO_CARDS = ("d_nccl_dp2_two_cards", 2, 1, "nccl")
-PARALLEL_STEPS = 5  # timed steps a case, after the checked one and a warm-up
+PARALLEL_STEPS = 1  # timed steps a case, after the checked one and a warm-up
 PARALLEL_RANKS = 4
 
 

@@ -169,3 +169,30 @@ def test_sidecar_round_trips_ncfpe2d_stats(tmp_path):
         assert read.stats[k].scale == s.scale
         np.testing.assert_array_equal(read.stats[k].mean, s.mean)
         np.testing.assert_array_equal(read.stats[k].std, s.std)
+
+
+def test_sidecar_is_renamed_into_place_whole(tmp_path, monkeypatch):
+    """``cached_train_stats`` writes the sidecar to a file of its own and renames it into
+    place: a write that fails midway leaves no sidecar and no partial file (a concurrent
+    reader, as the time-error stage's CPU reference beside the card's, could take a
+    partial sidecar for a broken zip), and a whole one is read back."""
+    from types import SimpleNamespace
+
+    import blindno_torch.eval.field_eval as tfe
+
+    os.makedirs(tmp_path / "data")
+    np.savez(tmp_path / "data" / "ncfpe2d_train.npz", **_ncfpe2d_dict())
+    spec = SimpleNamespace(name="ncfpe2d", train_file="ncfpe2d_train.npz", loader=td.load_ncfpe2d)
+
+    def savez_then_fail(fh, **arrays):
+        fh.write(b"PK")  # the start of a zip file, as a write cut short leaves it
+        raise OSError("disk full")
+
+    with monkeypatch.context() as m:
+        m.setattr(tfe.np, "savez", savez_then_fail)
+        with pytest.raises(OSError):
+            tfe.cached_train_stats(spec, str(tmp_path))
+    assert os.listdir(tmp_path / "data") == ["ncfpe2d_train.npz"]
+    written = tfe.cached_train_stats(spec, str(tmp_path))
+    assert sorted(os.listdir(tmp_path / "data")) == ["ncfpe2d.stats.npz", "ncfpe2d_train.npz"]
+    assert tfe.cached_train_stats(spec, str(tmp_path)).n_fields == written.n_fields == 2

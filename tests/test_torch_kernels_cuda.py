@@ -433,3 +433,65 @@ def test_1d_layer_trains_with_weights_written_just_before_each_call(cuda_device)
     for a, g_, p in zip((p for lp in got for p in lp), (p for lp in got_graph for p in lp),
                         (p for lp in want for p in lp)):
         assert rel(a, p) <= 3e-4 and rel(g_, p) <= 3e-4, (rel(a, p), rel(g_, p))
+
+
+# ------------------------------------------------------------------ low-precision operands
+
+LOW = {"bfloat16": (torch.bfloat16, 2.0 ** -8), "float16": (torch.float16, 2.0 ** -11)}
+
+
+@pytest.mark.parametrize("dtype", LOW)
+@pytest.mark.parametrize("dim", [1, 2])
+def test_wrappers_take_low_precision_operands(cuda_device, dim, dtype):
+    """The four wrappers given bfloat16 or float16 operands (the training step's
+    low-precision modes) at the main training shapes (the fpe2d heads', the fpe1d
+    heads'): each launches its float32 kernel once on the operands raised to float32 and
+    returns the result in their dtype, within the kernel's tolerance plus one rounding of
+    the dtype (its unit roundoff, of the output's scale) of the plain version on the same
+    raised operands; the differentiable layer's gradients come back each in its input's
+    dtype, with the one launch of its forward."""
+    low, eps = LOW[dtype]
+    if dim == 1:
+        args, layer, plain, spec, spec_plain, tol = (
+            _inputs_1d(TRAIN_SHAPES_1D[0], cuda_device), fno1d_layer_cuda, fno1d_layer_plain,
+            spectral_conv1d_cuda, spectral_conv1d, TOL_1D)
+    else:
+        args, layer, plain, spec, spec_plain, tol = (
+            _inputs(SHAPES[0], cuda_device), fno2d_layer_cuda, fno2d_layer_plain,
+            spectral_conv2d_cuda, spectral_conv2d, 3e-4)
+    args = [a.to(low) for a in args]
+    raised = [a.float() for a in args]
+
+    def close(got, want):
+        assert got.dtype == low
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got.float(), want, rtol=tol + eps, atol=(tol + eps) * scale)
+
+    for wrapper, ref, n_args in ((layer, plain, 5), (spec, spec_plain, 3)):
+        before = wrapper.launches
+        with torch.inference_mode():
+            got = wrapper(*args[:n_args])
+            want = ref(*raised[:n_args])
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        close(got, want)
+    leaves = [a.clone().requires_grad_() for a in args]
+    before = layer.launches
+    out = layer(*leaves)
+    out.float().square().mean().backward()  # a mean: a sum's gradients overflow float16
+    assert layer.launches == before + 1 and out.dtype == low
+    assert all(t.grad.dtype == low and torch.isfinite(t.grad.float()).all() for t in leaves)
+
+
+def test_padding_beyond_the_kernel_meets_its_refusal(cuda_device):
+    """An FNO2d whose ``padding_frac`` takes the padded grid past the kernel's limits
+    (61 points padded by 2 x 61 to 183, beyond 176 at 32 x 32 modes) raises the kernel's
+    shared-memory refusal and launches nothing: no path falls back."""
+    from blindno_torch.nn.fno import FNO2d
+
+    model = FNO2d(32, 12, 3, 12, 1, padding_frac=2.0).to(cuda_device)
+    x = torch.randn(1, 61, 61, 12, device=cuda_device)
+    before = fno2d_layer_cuda.launches
+    with torch.inference_mode(), pytest.raises(RuntimeError, match="shared memory"):
+        model(x)
+    assert fno2d_layer_cuda.launches == before

@@ -33,14 +33,18 @@ from blindno.data.datasets import load_fpe2d as jax_load_fpe2d
 from blindno.data.datasets import train_test_split as jax_train_test_split
 from blindno.eval.metrics import relative_l2_per_field as jax_rel_l2
 from blindno.models.nio2d import NIOFP2D as JNIOFP2D
+from blindno.nn.cnn import Encoder2D as JEncoder2D
+from blindno.train.loop import amp_cast_fns
 from blindno.train.loop import make_augment as jax_make_augment
 from blindno.train.loop import step_lr as jax_step_lr
 from blindno_torch.convert import from_flax
 from blindno_torch.data.datasets import FPE2D_SCALES, load_fpe2d
 from blindno_torch.models.nio2d import NIOFP2D
+from blindno_torch.nn.cnn import Encoder2D
 from blindno_torch.train.checkpoint import RESUME, load_best
 from blindno_torch.train.loop import TrainConfig, train_model
 from test_nio2d_torch_parity import _randomize_bn
+from test_torch_nio3d import seeded_variables
 from test_torch_train import CFG, ENCODER_GRAD_TOL, NX, STEP_TOL, _grid, _TwoPassBatchNorm
 
 M, L, L_MIN = 12, 4, 2
@@ -115,6 +119,10 @@ def _jax_loop(jmodel, variables, data, grid, cfg, draws, monkeypatch):
     grid = jnp.asarray(grid)
     spe = train_idx.shape[0] // cfg.batch_size
     tx = optax.adam(jax_step_lr(cfg.lr, cfg.lr_gamma, cfg.lr_step_epochs, spe))
+    # the loop's casts (blindno/train/loop.py:369-379); identities in float32
+    cdtype = jnp.dtype(cfg.compute_dtype) if cfg.compute_dtype else jnp.float32
+    cast, uncast = (amp_cast_fns(cdtype, cfg.amp_policy) if cfg.compute_dtype
+                    else (lambda t: t, lambda t: t))
     aug_fns = jax_make_augment(cfg.augment)
     draw = {}
     monkeypatch.setattr(jax_nio2d, "subsample_set", lambda key, xx, l_min, training: (
@@ -129,9 +137,10 @@ def _jax_loop(jmodel, variables, data, grid, cfg, draws, monkeypatch):
         xb, yb = jax.lax.switch(element, aug_fns, xb, yb)
 
         def loss_fn(p):
-            out, upd = jmodel.apply({"params": p, "batch_stats": stats}, xb, grid, training=True,
+            out, upd = jmodel.apply({"params": cast(p), "batch_stats": cast(stats)},
+                                    xb.astype(cdtype), grid, training=True,
                                     rngs={"sample": jax.random.PRNGKey(0)}, mutable=["batch_stats"])
-            return jnp.mean((out - yb) ** 2), upd["batch_stats"]
+            return jnp.mean((out.astype(jnp.float32) - yb) ** 2), uncast(upd["batch_stats"])
 
         (loss, new_stats), grads = jax.value_and_grad(loss_fn, has_aux=True)(params)
         updates, opt_state = tx.update(grads, opt_state, params)
@@ -415,15 +424,50 @@ def test_train_loop_seeded_draws_are_reproducible():
                                     dict(compute_dtype="float16", amp_policy="all"),
                                     dict(compute_dtype="float16", amp_policy="encoder_bn32"),
                                     dict(augment="d8")])
-def test_train_loop_refuses_what_is_not_ported(fields):
-    """What the port does not implement, what JAX refuses too (an unknown amp policy or
-    augment kind), and ``tp=2`` in one process: tensor parallelism is ported
-    (``tests/test_torch_parallel.py``), but one rank is not divisible by a model axis of
-    2, as JAX's ``data_model_mesh`` asserts on one device. The three amp policies with
-    bfloat16 are ported (``tests/test_torch_eval_extras.py``)."""
+def test_train_loop_refuses_what_is_not_ported(fields, monkeypatch):
+    """What the port does not implement (``epoch_scan``), what JAX refuses too (an
+    unknown amp policy or augment kind), and ``tp=2`` in one process: tensor parallelism
+    is ported (``tests/test_torch_parallel.py``), but one rank is not divisible by a
+    model axis of 2, as JAX's ``data_model_mesh`` asserts on one device.
+
+    The two float16 cases were refused until the port took JAX's low-precision steps;
+    they now run (:func:`_float16_loop_matches_jax`). Every amp policy with bfloat16 and
+    float16 is held step by step in ``tests/test_torch_amp*.py``."""
+    if fields.get("compute_dtype") == "float16":
+        _float16_loop_matches_jax(fields, monkeypatch)
+        return
     data, grid = tiny_data()
     with pytest.raises(ValueError, match="not divisible by tp" if "tp" in fields else None):
         train_model(small_model(), data, grid, _cfg(**fields), device="cpu")
+
+
+ENC_DIMS = (16, 32, 32, 32, 32)  # the Encoder2D's five widths, narrowed
+
+
+def _float16_loop_matches_jax(fields, monkeypatch):
+    """One epoch of the loop-parity run (4 steps, d4 augmentation, bfloat16 input
+    storage) in float16 under ``fields``' policy, from the same seeded weights and draws
+    as JAX's loop in float16 (its casts, ``_jax_loop``): the train and test losses and
+    the per-field errors within STEP_TOL, relative, as the float32 loop holds them. The
+    losses are means, over which float16's rounding averages out: measured on the CPU,
+    at most 1.2e-5 apart. The Encoder2D is narrowed to ``ENC_DIMS`` on both sides: at
+    full width, a float16 convolution runs 0.1 steps/s on one CPU thread without
+    oneDNN."""
+    cfg = dataclasses.replace(PARITY_CFG, epochs=1, **fields)
+    data, jdata, grid = load_fpe2d(fpe2d_archive()), jax_load_fpe2d(fpe2d_archive()), _grid()
+    monkeypatch.setattr(jax_nio2d, "Encoder2D", lambda n, fk: JEncoder2D(n, fk, *ENC_DIMS))
+    jmodel = JNIOFP2D(**CFG, l_min=L_MIN)
+    variables = seeded_variables(jmodel, np.random.default_rng(7), data.inputs[:2], grid)
+    want, _, _ = _jax_loop(jmodel, variables, jdata, grid, cfg, _draw_source(), monkeypatch)
+    model = NIOFP2D(**CFG, l_min=L_MIN, device="cpu")
+    model.deeponet.branch = Encoder2D(CFG["n_basis"], dims=ENC_DIMS)
+    model.load_state_dict(from_flax(variables["params"], variables["batch_stats"]))
+    with torch.backends.mkldnn.flags(enabled=False):  # tests/test_torch_train.py: oneDNN
+        got = train_model(model, data, grid, cfg, device="cpu", draws=_draw_source()).history
+    for g, w in zip(got, want, strict=True):
+        for k in ("train_loss", "test_loss"):
+            assert abs(g[k] - w[k]) <= STEP_TOL * abs(w[k]), (g, w)
+        assert _rel(g["field_rel_l2"], w["field_rel_l2"]) <= STEP_TOL, (g, w)
 
 
 def test_train_loop_refuses_an_empty_epoch():

@@ -28,7 +28,7 @@ from blindno_torch.nn.setops import subsample_set
 from blindno_torch.nn.torch_layers import BatchNorm1d, BatchNorm2d
 from blindno_torch.ops.fno_layer import fno2d_layer_plain
 from blindno_torch.ops.spectral_cuda import FNO2dLinear, fno2d_layer_cuda
-from blindno_torch.train.step import make_optimizer, train_step
+from blindno_torch.train.step import AMP_POLICIES, check_compute_dtype, make_optimizer, train_step
 from test_nio2d_torch_parity import _randomize_bn
 
 NX = 61
@@ -462,14 +462,21 @@ def test_small_niofp2d_bf16_encoder_bn32_steps_match_jax(small_step, monkeypatch
 
 
 def test_train_step_refuses_eval_mode_and_unported_policies():
-    """Train mode is the caller's to set; bfloat16 is the one mixed-precision mode, the
-    ``encoder_bn32`` policy (``all`` and ``encoder`` failed their gates in JAX)."""
+    """Train mode is the caller's to set. The compute dtypes are JAX's float ones:
+    float16 and float32 (a no-op cast) were refused until the port took JAX's casts, and
+    now run (``tests/test_torch_amp.py``); a name that is no float dtype and an unknown
+    amp policy are refused, as JAX's ``jnp.dtype`` and ``amp_cast_fns`` refuse them."""
     model = NIOFP2D(width=4, modes=4, n_basis=3, neurons=8, fno_layers=1, device="cpu")
     opt = make_optimizer(model)
     args = torch.zeros(1, 3, NX, NX), torch.zeros(1, NX, NX, 2), torch.tensor(_grid())
     with pytest.raises(ValueError, match="train"):
         train_step(model, opt, *args, generator=torch.Generator())
     model.train()
-    for dtype in ("float16", "float32", "encoder"):
-        with pytest.raises(ValueError, match="compute_dtype"):
-            train_step(model, opt, *args, generator=torch.Generator(), compute_dtype=dtype)
+    for dtype in ("float16", "float32"):  # the steps themselves: tests/test_torch_amp.py
+        for policy in AMP_POLICIES:
+            check_compute_dtype(model, dtype, policy)
+    with pytest.raises(ValueError, match="compute_dtype"):
+        train_step(model, opt, *args, generator=torch.Generator(), compute_dtype="encoder")
+    with pytest.raises(ValueError, match="amp_policy"):
+        train_step(model, opt, *args, generator=torch.Generator(), compute_dtype="float16",
+                   amp_policy="bn32")

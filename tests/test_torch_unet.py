@@ -28,6 +28,7 @@ from blindno.nn.convnext import PlainConvBlock as JPlainConvBlock
 from blindno.nn.setops import TemporalSelfAttention as JTemporalSelfAttention
 from blindno.nn.setops import set_self_attention as jax_set_self_attention
 from blindno.nn.torch_layers import TorchConvTranspose
+from blindno.train.loop import amp_cast_fns
 from blindno_torch.convert import from_flax
 from blindno_torch.eval.field_eval import predict_fields
 from blindno_torch.models.blindno_unet import PermInvUNetAttn
@@ -36,7 +37,8 @@ from blindno_torch.nn.setops import TemporalSelfAttention, set_self_attention
 from blindno_torch.nn.torch_layers import ConvTranspose
 from blindno_torch.train.step import make_optimizer, train_step
 from test_nio2d_torch_parity import _randomize_bn
-from test_torch_train import _TwoPassBatchNorm
+from test_torch_nio3d import seeded_variables
+from test_torch_train import BF16_TOL, _TwoPassBatchNorm
 
 TOL = 2e-3  # of the output's scale: the NIO parity bound, tests/test_nio2d_torch_parity.py:190
 PART_TOL = 1e-5
@@ -324,18 +326,47 @@ def test_unet_f32_train_step_matches_jax(monkeypatch):
     assert not bad, bad
 
 
-def test_unet_train_mode_limits():
+def test_unet_train_mode_limits(monkeypatch):
     """The 1-D UNet trains (it refused train mode until 1-D training came; its step is
-    held to JAX in ``test_torch_train1d.py``); bfloat16 compute is refused on the UNet,
-    in 1-D and 2-D, whose JAX AMP policies cast no leaf."""
+    held to JAX in ``test_torch_train1d.py``). Low precision, which the port refused on
+    the UNet until it took JAX's casts: a bfloat16 step under JAX's default policy
+    ``all`` runs in 2-D and in 1-D, in bfloat16 end to end (the UNet ignores its grid),
+    with its loss within BF16_TOL = 5e-2 of JAX's bfloat16 step from the same seeded
+    weights and draw (measured: 7.4e-5 and 1.8e-3; ``tests/test_torch_amp*.py`` hold
+    every gradient). float16 is refused, because JAX's float16 step of a subsampling
+    UNet gives NaN (its attention's key mask overflows float16, the message says)."""
     model_1d = PermInvUNetAttn(input_size=(80,), depth=2, **SMALL, subsample=True, l_min=2,
                                device="cpu").train()
     args_1d = (torch.randn(1, 3, 80), torch.zeros(1, 80, 2), torch.zeros(80, 1))
     loss = train_step(model_1d, make_optimizer(model_1d), *args_1d, generator=torch.Generator())
     assert torch.isfinite(loss)
-    model = PermInvUNetAttn(**dict(STEP_CFG, depth=1), device="cpu").train()
-    args = (torch.zeros(1, 3, 29, 29), torch.zeros(1, 29, 29, 2), torch.zeros(29, 29, 2))
-    for m, a in ((model, args), (model_1d, args_1d)):
-        with pytest.raises(ValueError, match="compute_dtype"):
-            train_step(m, make_optimizer(m), *a, generator=torch.Generator(),
-                       compute_dtype="bfloat16")
+    monkeypatch.setattr(flax.linen, "BatchNorm", _TwoPassBatchNorm)
+    rng = np.random.default_rng(3)
+    draw = (rng.integers(0, 3, 3), np.array([1.0, 1.0, 0.0], np.float32))
+    monkeypatch.setattr(jax_unet, "subsample_set", lambda key, xx, l_min, training: (
+        jnp.take(xx, jnp.asarray(draw[0]), axis=1), jnp.asarray(draw[1], xx.dtype)))
+    cast, _ = amp_cast_fns(jnp.bfloat16, "all")
+    for cfg in (dict(STEP_CFG, depth=1), dict(STEP_CFG, input_size=(80,), depth=2)):
+        spatial = cfg["input_size"]
+        x = rng.standard_normal((2, 3, *spatial)).astype(np.float32)
+        y = rng.standard_normal((2, *spatial, 2)).astype(np.float32)
+        grid = np.zeros((*spatial, len(spatial)), np.float32)  # ignored on both sides
+        jmodel = JUNet(**cfg)
+        variables = seeded_variables(jmodel, rng, x, grid)
+
+        def loss_fn(p):
+            out, _ = jmodel.apply({"params": cast(p), "batch_stats": cast(variables["batch_stats"])},
+                                  jnp.asarray(x, jnp.bfloat16), training=True,
+                                  rngs={"sample": jax.random.PRNGKey(0)}, mutable=["batch_stats"])
+            return jnp.mean((out.astype(jnp.float32) - y) ** 2)
+
+        want = float(jax.jit(loss_fn)(variables["params"]))
+        model = _port(variables, **cfg).train()
+        with torch.backends.mkldnn.flags(enabled=False):  # tests/test_torch_train.py: oneDNN
+            got = float(train_step(model, make_optimizer(model), torch.tensor(x), torch.tensor(y),
+                                   torch.tensor(grid), subsample=draw,
+                                   compute_dtype="bfloat16", amp_policy="all"))
+        assert abs(got - want) <= BF16_TOL * abs(want), (got, want)
+        with pytest.raises(ValueError, match="NaN"):
+            train_step(model, make_optimizer(model), torch.tensor(x), torch.tensor(y),
+                       torch.tensor(grid), subsample=draw, compute_dtype="float16")
