@@ -91,18 +91,44 @@
 // 27.7 us. Each was slower than this design in all 10 rounds, save the spectral conv
 // with x read from L2, which reads no x and so runs the same code.
 //
-// Limits: S1 holds one x plane and the H matrix in shared memory (or, where both do not
-// fit, the matrix in the plane's place once the rDFT is done), S2 a slice of the H matrix
-// and its partial product, S3 its rows of Z and the W matrix (and x's rows where two
-// blocks still fit on an SM; else the epilogue reads x from L2). A shape whose stage
-// needs more than the 227 KB a block may use is refused with cudaErrorInvalidValue
-// before any launch. That takes square grids up to 144 x 144 with every mode kept
-// (2*m1 = H, m2 = W/2 + 1) and up to 176 x 176 at 32 x 32 modes, and up to 175 input
-// channels at the main shape (S2 holds its slice of every channel's weights): the
-// models' grids (76 and 100) and widths (4-30) with room to spare. The two-stage kernel
-// this replaces took grids up to 232 x 232, thin ones such as 16 x 3600, and any number
-// of channels; taking those again needs S1 and S3 to tile the plane, the matrices and
-// B2, and S2 the channels (ROADMAP.md).
+// Shapes: any B, Cin, Cout >= 1, any H and W, 1 <= m1 <= H/2 and 1 <= m2 <= W/2 + 1,
+// every tensor indexable in 32 bits (the wrapper's guard, ops/spectral_cuda.py). Each
+// stage takes the layout above, its operands whole in one block, where they fit in the
+// 227 KB a block may use and its grid in the y and z limits (65535); else the host plan
+// (launch_layer) picks the stage's tiled layout, in this source, over the same scratch:
+//   S1. Whole, a block holds its x plane and the +-H matrix (where both do not fit, the
+//       matrix in the plane's place after step 1): square grids up to 176 x 176 at
+//       32 x 32 modes, 144 x 144 with every mode kept, 16 rows of up to 1408 points.
+//       Tiled (fno2d_forward_transform_tiled), a block streams its plane in chunks of
+//       hc = min(H, 64) rows by 4096/hc columns (64 by 64 at most), double-buffered by
+//       cp.async, and step 1 sums Y = X Fy over a row chunk's column chunks in
+//       registers, one (row tile, n tile) a warp; step 2 then adds that row chunk's B2
+//       against its rows of the +-H matrix into S, also in registers, over the row
+//       chunks. A block takes at most 256 mode rows (two row tiles a warp): more, and
+//       the mode tiles run as blocks of their own beside the column tiles (grid y and z),
+//       each running step 1 again. At most 207 KB (hc = 64, 256 mode rows).
+//   S2. Whole, a block holds its slice of the inverse H matrix and its partial product
+//       over every H row, and its slice of every input channel's weights: up to 175
+//       input channels at the main shape (193 at B = 2), up to 480 rows. Tiled
+//       (fno2d_mix_inverse_h_tiled), a block takes its slice's mode rows 16 at a time:
+//       one mix item a thread, summed in registers over chunks of 64 input channels'
+//       weights, then that row chunk's inverse product added into the partial product of
+//       an H chunk of up to 256 rows; the cluster sums each H chunk through distributed
+//       shared memory before the next, so an H chunk past the first mixes again. At most
+//       192 KB.
+//   S3. A block holds its 16 rows of Z and the W matrix for its output columns: all W,
+//       or, where that does not fit (W past 672 at m2 = 32, or m2 past 88 at 232
+//       points), a W tile of 256, 128, 64 or 32 columns (the tiles beside the row tiles
+//       in grid y and z); where even 32 columns do not fit (m2 past 324), it takes
+//       Z's columns and the matrix's rows in passes whose products add into y. Where one
+//       pass takes all of Z's columns and the rows are whole 16-byte pieces, the
+//       multicast bulk copies stay, W tile by W tile. The pointwise weights of at most
+//       4096 input channels are staged; the epilogue reads the rest from L2.
+// Where the grid of S1 (column tiles) or S2 (output channels, batch groups) passes the y
+// or z limit, that stage takes its tiled layout, whose grids fold their tiles over y and
+// z (`folded`); S3's always do. The whole layouts, and so the models' shapes, are those of
+// the design above. tests/test_torch_kernels_cuda.py holds every tiled layout against the
+// plain version (TILED_SHAPES); PERF.md section 6 has their times beside their bounds.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -138,8 +164,17 @@ constexpr int kSlice2 = 16;   // S2: mode rows per block, as a rule
 constexpr int kCluster2 = 8;  // S2: largest cluster (the portable limit)
 constexpr int kRows3 = 16;    // S3: output rows per block (one mma row tile)
 constexpr int kBarFloats = 4;  // S3: room for its mbarrier ahead of the operands
+// The tiled layouts, for shapes whose whole operands do not fit in a block (see the note)
+constexpr int kRowsT1 = 64;     // S1: most rows of an H chunk
+constexpr int kChunkT1 = 4096;  // S1: most floats of an x chunk (rows x columns)
+constexpr int kModesT1 = 256;   // S1: most mode rows of a block (2 row tiles a warp)
+constexpr int kRowsT2 = 256;    // S2: most rows of an H chunk
+constexpr int kChansT2 = 64;    // S2: input channels of a weight chunk
+constexpr int kPkStaged = 4096;  // S3: most pointwise weights staged; the rest read from L2
+constexpr int kMaxGridYZ = 65535;
 
 __host__ __device__ constexpr int round_up(int n, int m) { return (n + m - 1) / m * m; }
+__host__ __device__ constexpr int ceil_div(int n, int m) { return (n + m - 1) / m; }
 // Row strides that keep a warp's fragment loads conflict-free (see the note above).
 __host__ __device__ constexpr int stride_rows(int n) {  // read as (g, t) -> g*s + t
   return round_up(n, 8) + 4;
@@ -152,6 +187,15 @@ struct Shape {
   int B, Cin, Cout, H, W, K, m2;
   int Hp8, Hp16, Wp8, Kp16, J;  // padded: rows, mma row tiles, W, modes, 2*m2
 };
+
+// A grid of x blocks by n tiles, the tiles over y and z where n exceeds the y limit; a
+// block's tile is folded_tile(), and blocks past n return at once.
+dim3 folded(unsigned x, int n) {
+  const int y = n < kMaxGridYZ ? n : kMaxGridYZ;
+  return dim3(x, y, ceil_div(n, y));
+}
+
+__device__ __forceinline__ int folded_tile() { return blockIdx.z * gridDim.y + blockIdx.y; }
 
 // ---- cp.async staging ------------------------------------------------------------------
 
@@ -315,6 +359,20 @@ __device__ __forceinline__ void warp_tiles(float (&d)[NT][4], const float* A, in
 
 // ---- S1: forward transforms ------------------------------------------------------------
 
+// Write the spectrum tile st (mc kept columns, each a run of 2*kc floats: mode rows
+// [k0, k0 + kc) as re/im pairs; k0 and kc even) into the scratch, as whole float4.
+__device__ __forceinline__ void write_spectrum(float* __restrict__ spec, const float* st,
+                                               const Shape& s, int plane, int m0, int mc,
+                                               int k0, int kc) {
+  const int row4 = kc / 2, stride4 = s.K / 2;
+  float4* spec4 = reinterpret_cast<float4*>(spec);
+  const float4* st4 = reinterpret_cast<const float4*>(st);
+  for (int i = threadIdx.x; i < mc * row4; i += kThreads1) {
+    const int c = i / row4, r = i % row4;
+    spec4[(size_t(m0 + c) * s.B * s.Cin + plane) * stride4 + k0 / 2 + r] = st4[c * row4 + r];
+  }
+}
+
 // Shared-memory layout of S1, in floats from the start of the block's buffer.
 struct Layout1 {
   int xs_s, fx_s;      // row strides of the x plane and of the +-H matrix
@@ -422,16 +480,245 @@ __global__ void __launch_bounds__(kThreads1) fno2d_forward_transform(
         }
   __syncthreads();
   // each kept column's spectrum is one contiguous row of 2*K floats (K is even)
-  const int row4 = s.K / 2;
-  float4* spec4 = reinterpret_cast<float4*>(spec);
-  const float4* st4 = reinterpret_cast<const float4*>(st);
-  for (int i = threadIdx.x; i < mc * row4; i += kThreads1) {
-    const int c = i / row4, r = i % row4;
-    spec4[(size_t(m0 + c) * s.B * s.Cin + plane) * row4 + r] = st4[c * row4 + r];
+  write_spectrum(spec, st, s, plane, m0, mc, 0, s.K);
+}
+
+// S1 in chunks, where the whole plane and matrix do not fit (the note above): rows of an H
+// chunk by columns of a W chunk of the plane, double-buffered; the +-H matrix's rows of
+// the H chunk; at most kModesT1 mode rows a block (grid z with y: column tiles x mode
+// tiles). Step 1 sums Y over the W chunks in registers, step 2 sums S over the H chunks.
+struct Tiled1 {
+  int hc, wc, kt;       // rows of an H chunk, columns of a W chunk, mode rows of a block
+  int xs_s, fx_s;       // row strides of an x chunk and of a matrix chunk
+  int off_fy, off_b2, off_fx, b2_lo;
+  int col_tiles, tiles;  // tiles of kept columns; of columns x mode rows
+  size_t bytes;
+};
+
+Tiled1 tiled1(const Shape& s) {
+  Tiled1 L;
+  L.hc = min(s.Hp16, kRowsT1);
+  L.wc = min(s.Wp8, kChunkT1 / L.hc / 8 * 8);
+  L.kt = min(s.Kp16, kModesT1);
+  L.xs_s = stride_rows(L.wc);
+  L.fx_s = stride_cols(L.kt);
+  const int xs = 2 * L.hc * L.xs_s, fy = 2 * L.wc * kS1, b2 = 2 * L.hc * kS1;
+  L.off_fy = xs;  // the x buffers hold the spectrum tile at the end: 16*kt <= 2*hc*xs_s
+  L.off_b2 = xs + fy;
+  L.b2_lo = b2;
+  L.off_fx = L.off_b2 + 2 * b2;
+  L.col_tiles = ceil_div(s.m2, kCols1);
+  L.tiles = L.col_tiles * ceil_div(s.K, L.kt);
+  L.bytes = (size_t(L.off_fx) + size_t(2) * L.hc * L.fx_s) * sizeof(float);
+  return L;
+}
+
+__global__ void __launch_bounds__(kThreads1) fno2d_forward_transform_tiled(
+    const float* __restrict__ x,                                      // (B, Cin, H, W)
+    const float* __restrict__ fyre, const float* __restrict__ fyim,   // (W, m2)
+    const float* __restrict__ fxre, const float* __restrict__ fxim,   // (H, K)
+    float* __restrict__ spec,                                         // (m2, B*Cin, K, 2)
+    Shape s, Tiled1 L) {
+  extern __shared__ __align__(16) float smem[];
+  const int tile = folded_tile();
+  if (tile >= L.tiles) return;
+  float* b2 = smem + L.off_b2;  // 2*hc x kS1, split: the H chunk's [[Yr, Yi], [-Yi, Yr]]
+  float* fx = smem + L.off_fx;  // 2*hc x fx_s: fx[kk][k] = A2(k0 + k, h0 + kk)
+  const int plane = blockIdx.x, m0 = (tile % L.col_tiles) * kCols1;
+  const int k0 = (tile / L.col_tiles) * L.kt;
+  const int mc = min(kCols1, s.m2 - m0), kc = min(L.kt, s.K - k0);
+  constexpr int kWarps1 = kThreads1 / 32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int w_chunks = ceil_div(s.W, L.wc), chunks = w_chunks * ceil_div(s.H, L.hc);
+  const float* xp = x + size_t(plane) * s.H * s.W;
+  auto xs = [&](int i) { return smem + (i & 1) * L.hc * L.xs_s; };
+  auto fy = [&](int i) { return smem + L.off_fy + (i & 1) * L.wc * kS1; };
+
+  launch_dependents();
+  // chunk i of the plane (H chunk i / w_chunks, W chunk i % w_chunks) and the W matrices'
+  // rows of its columns, into buffer i % 2
+  auto stage_chunk = [&](int i) {
+    const int h0 = (i / w_chunks) * L.hc, w0 = (i % w_chunks) * L.wc;
+    const int wn = min(L.wc, s.W - w0);
+    stage_rows(xs(i), L.xs_s, xp + size_t(h0) * s.W + w0, s.W, min(L.hc, s.H - h0), wn, L.hc,
+               L.wc);
+    stage_rows(fy(i), kS1, fyre + size_t(w0) * s.m2 + m0, s.m2, wn, mc, L.wc, kCols1);
+    stage_rows(fy(i) + kCols1, kS1, fyim + size_t(w0) * s.m2 + m0, s.m2, wn, mc, L.wc, kCols1);
+    cp_async_commit();
+  };
+  stage_chunk(0);
+
+  // step 1: each warp one (row tile, n tile) of the H chunk's Y (hc <= 64: 8 tasks at
+  // most); step 2: each warp at most two row tiles of S (kt <= 256), summed over H chunks
+  const int mt1 = warp >> 1, j1 = warp & 1, mtiles = L.kt / 16;
+  const bool step1 = mt1 < L.hc / 16;
+  float acc[2][2][4] = {};
+  for (int i = 0; i < chunks;) {
+    const int h0 = (i / w_chunks) * L.hc, hn = min(L.hc, s.H - h0);
+    stage_rows(fx, L.fx_s, fxre + size_t(h0) * s.K + k0, s.K, hn, kc, L.hc, L.kt);
+    stage_rows(fx + L.hc * L.fx_s, L.fx_s, fxim + size_t(h0) * s.K + k0, s.K, hn, kc, L.hc,
+               L.kt);
+    cp_async_commit();
+    float y[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int wi = 0; wi < w_chunks; ++wi, ++i) {
+      // the next chunk comes in while this one is multiplied; the wait also lands the
+      // matrix chunk, committed before it
+      if (i + 1 < chunks) {
+        stage_chunk(i + 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      if (step1) {
+        float d[1][4];
+        warp_tiles<1, false, false>(d, xs(i) + mt1 * 16 * L.xs_s, L.xs_s, 1, 0,
+                                    fy(i) + j1 * kCols1, kS1, 1, 0, L.wc);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) y[e] += d[0][e];
+      }
+      __syncthreads();  // buffer i % 2 is free for chunk i + 2
+    }
+    if (step1)  // rows past H are zero, since the plane's are
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = mt1 * 16 + g + (e >> 1) * 8, n = 2 * t + (e & 1);
+        store_split(b2 + h * kS1 + j1 * kCols1 + n, L.b2_lo, y[e]);
+        store_split(b2 + (L.hc + h) * kS1 + (1 - j1) * kCols1 + n, L.b2_lo,
+                    j1 == 0 ? y[e] : -y[e]);
+      }
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+      if (warp + q * kWarps1 < mtiles) {
+        float d[2][4];
+        warp_tiles<2, false, true>(d, fx + (warp + q * kWarps1) * 16, 1, L.fx_s, 0, b2, kS1, 1,
+                                   L.b2_lo, 2 * L.hc);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[q][j][e] += d[j][e];
+      }
+    __syncthreads();  // the matrix and B2 are free for the next H chunk
   }
+
+  float* st = smem;  // kCols1 x kc x 2, where the x buffers were
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+    if (warp + q * kWarps1 < mtiles)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int k = (warp + q * kWarps1) * 16 + g + (e >> 1) * 8, c = 2 * t + (e & 1);
+          if (k < kc) st[(c * kc + k) * 2 + j] = acc[q][j][e];
+        }
+  __syncthreads();
+  write_spectrum(spec, st, s, plane, m0, mc, k0, kc);
 }
 
 // ---- S2: mode mix and inverse +-DFT along H, one cluster per column tile ------------------
+
+// Stage the weights of input channels [c0, c0 + cn), output channel o: rows [k0, k0 + kc)
+// of each (K, m2) plane, mode columns [m0, m0 + mc), into rows of kCols2 floats,
+// wsr[(c - c0) * rows + k] (rows past kc and columns past mc zero), as 16-byte pieces
+// where the rows allow.
+__device__ __forceinline__ void stage_weights(float* wsr, float* wsi, int rows,
+                                              const float* __restrict__ wr,
+                                              const float* __restrict__ wi, const Shape& s,
+                                              int o, int c0, int cn, int k0, int kc, int m0,
+                                              int mc) {
+  const bool wvec = s.m2 % 4 == 0 && ((reinterpret_cast<uintptr_t>(wr) |
+                                       reinterpret_cast<uintptr_t>(wi)) & 15) == 0;
+  for (int i = threadIdx.x; i < cn * rows * 2; i += kThreads2) {
+    const int c = i / (2 * rows), k = (i / 2) % rows, e0 = (i % 2) * 4;
+    const int n = k < kc ? min(4, mc - e0) : 0;
+    const size_t q = ((size_t(c0 + c) * s.Cout + o) * s.K + k0 + k) * s.m2 + m0 + e0;
+    float* dr = wsr + (c * rows + k) * kCols2 + e0;
+    float* di = wsi + (c * rows + k) * kCols2 + e0;
+    if (wvec && n > 0) {
+      cp_async16(dr, wr + q, 4 * n);
+      cp_async16(di, wi + q, 4 * n);
+    } else {
+      for (int e = 0; e < 4; ++e) {
+        if (e < n) {
+          cp_async4(dr + e, wr + q + e);
+          cp_async4(di + e, wi + q + e);
+        } else {
+          dr[e] = di[e] = 0.f;
+        }
+      }
+    }
+  }
+}
+
+// One item of the mix, summed over cn input channels: sp at the first channel's (re, im)
+// of the item's first batch element (nb of 4 present, b_stride apart, channels K apart),
+// ur and ui at that channel's staged weights (w_step floats a channel). The spectrum is
+// read through L2 (ld.global.cg), not the read-only path: S1 wrote it during this grid's
+// lifetime.
+__device__ __forceinline__ void mix_item(float (&ar)[4], float (&ai)[4], const float2* sp,
+                                         size_t b_stride, int K, const float* ur_s,
+                                         const float* ui_s, int w_step, int cn, int nb) {
+#pragma unroll 4
+  for (int c = 0; c < cn; ++c) {
+    const float ur = ur_s[c * w_step], ui = ui_s[c * w_step];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j < nb) {
+        const float2 v = __ldcg(sp + j * b_stride + size_t(c) * K);
+        ar[j] = fmaf(v.x, ur, fmaf(-v.y, ui, ar[j]));
+        ai[j] = fmaf(v.x, ui, fmaf(v.y, ur, ai[j]));
+      }
+    }
+  }
+}
+
+// Store an item's mixed values, split, into Bm = [[Or, Oi], [-Oi, Or]] (rows of each half).
+__device__ __forceinline__ void store_mixed(float* bm, int bm_s, int bm_lo, int rows, int k,
+                                            int mm, int grp, int bt, const float (&ar)[4],
+                                            const float (&ai)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int bb = grp * 4 + j;
+    if (bb < bt) {
+      const int n = (bb * kCols2 + mm) * 2;
+      store_split(bm + k * bm_s + n, bm_lo, ar[j]);
+      store_split(bm + k * bm_s + n + 1, bm_lo, ai[j]);
+      store_split(bm + (rows + k) * bm_s + n, bm_lo, -ai[j]);
+      store_split(bm + (rows + k) * bm_s + n + 1, bm_lo, ar[j]);
+    }
+  }
+}
+
+// Sum rows [lo, hi) of the cluster's parts zp over its blocks and store each (batch,
+// row)'s run of mode columns as row h_base + h of Z.
+__device__ __forceinline__ void sum_parts(cg::cluster_group& cluster, float* zp, int zp_s,
+                                          int slices, int lo, int hi, int h_base, int n_cols,
+                                          float* __restrict__ z, const Shape& s, int o, int b0,
+                                          int m0, int mc) {
+  const int q4 = n_cols / 4;
+  const bool whole = mc == kCols2 && s.m2 % 2 == 0;  // 16-byte aligned runs of 16 floats
+  for (int i = threadIdx.x; i < max(0, hi - lo) * q4; i += kThreads2) {
+    const int h = lo + i / q4, n = (i % q4) * 4;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int r = 0; r < slices; ++r) {
+      const float4 v = *reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(zp, r) + h * zp_s + n);
+      acc.x += v.x, acc.y += v.y, acc.z += v.z, acc.w += v.w;
+    }
+    const int bb = n / (2 * kCols2), j = n % (2 * kCols2), b = b0 + bb;  // j: 2*mm + part
+    if (b >= s.B) continue;
+    float* zr = z + (((size_t(b) * s.Cout + o) * s.H + h_base + h) * s.m2 + m0) * 2;
+    if (whole) {
+      *reinterpret_cast<float4*>(zr + j) = acc;
+    } else {
+      const float a[4] = {acc.x, acc.y, acc.z, acc.w};
+      for (int e = 0; e < 4; ++e)
+        if ((j + e) / 2 < mc) zr[j + e] = a[e];
+    }
+  }
+}
 
 struct Layout2 {
   int slices, ks;  // blocks in a cluster (mode-row slices), rows of a slice
@@ -480,30 +767,7 @@ __global__ void __launch_bounds__(kThreads2) fno2d_mix_inverse_h(
 
   stage_rows(gx, L.gx_s, gxre + size_t(k0) * s.H, s.H, kc, s.H, ks, s.Hp16);
   stage_rows(gx + ks * L.gx_s, L.gx_s, gxim + size_t(k0) * s.H, s.H, kc, s.H, ks, s.Hp16);
-  // the weights: rows k0.. of each (K, m2) plane (c, o), 8 columns, as 16-byte pieces
-  // where the rows allow
-  const bool wvec = s.m2 % 4 == 0 && ((reinterpret_cast<uintptr_t>(wr) |
-                                       reinterpret_cast<uintptr_t>(wi)) & 15) == 0;
-  for (int i = threadIdx.x; i < s.Cin * ks * 2; i += kThreads2) {
-    const int c = i / (2 * ks), k = (i / 2) % ks, c0 = (i % 2) * 4;
-    const int n = k < kc ? min(4, mc - c0) : 0;
-    const size_t q = ((size_t(c) * s.Cout + o) * s.K + k0 + k) * s.m2 + m0 + c0;
-    float* dr = wsr + (c * ks + k) * kCols2 + c0;
-    float* di = wsi + (c * ks + k) * kCols2 + c0;
-    if (wvec && n > 0) {
-      cp_async16(dr, wr + q, 4 * n);
-      cp_async16(di, wi + q, 4 * n);
-    } else {
-      for (int e = 0; e < 4; ++e) {
-        if (e < n) {
-          cp_async4(dr + e, wr + q + e);
-          cp_async4(di + e, wi + q + e);
-        } else {
-          dr[e] = di[e] = 0.f;
-        }
-      }
-    }
-  }
+  stage_weights(wsr, wsi, ks, wr, wi, s, o, 0, s.Cin, k0, kc, m0, mc);
   cp_async_commit();
   launch_dependents();
   wait_prerequisites();  // the spectrum is S1's
@@ -512,9 +776,7 @@ __global__ void __launch_bounds__(kThreads2) fno2d_mix_inverse_h(
 
   // the per-mode complex mix on the f32 cores: an item is one (mode row, mode column,
   // group of 4 batch elements); lanes run along the rows, which are contiguous in the
-  // spectrum, and the spectrum loads of several input channels are in flight at once.
-  // The spectrum is read through L2 (ld.global.cg), not the read-only path: S1 wrote it
-  // during this grid's lifetime
+  // spectrum, and the spectrum loads of several input channels are in flight at once
   const float2* spec2 = reinterpret_cast<const float2*>(spec);
   const size_t b_stride = size_t(s.Cin) * s.K;
   const int groups = (L.bt + 3) / 4;
@@ -523,33 +785,10 @@ __global__ void __launch_bounds__(kThreads2) fno2d_mix_inverse_h(
     const int mm = rest % kCols2, grp = rest / kCols2, m = m0 + mm;
     const int nb = max(0, min(min(4, L.bt - grp * 4), s.B - b0 - grp * 4));
     float ar[4] = {0.f, 0.f, 0.f, 0.f}, ai[4] = {0.f, 0.f, 0.f, 0.f};
-    if (k < kc && m < s.m2) {
-      const float2* sp = spec2 + (size_t(m) * s.B + b0 + grp * 4) * b_stride + k0 + k;
-#pragma unroll 4
-      for (int c = 0; c < s.Cin; ++c) {
-        const float ur = wsr[(c * ks + k) * kCols2 + mm];
-        const float ui = wsi[(c * ks + k) * kCols2 + mm];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if (j < nb) {
-            const float2 v = __ldcg(sp + j * b_stride + size_t(c) * s.K);
-            ar[j] = fmaf(v.x, ur, fmaf(-v.y, ui, ar[j]));
-            ai[j] = fmaf(v.x, ui, fmaf(v.y, ur, ai[j]));
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int bb = grp * 4 + j;
-      if (bb < L.bt) {
-        const int n = (bb * kCols2 + mm) * 2;
-        store_split(bm + k * L.bm_s + n, bm_lo, ar[j]);
-        store_split(bm + k * L.bm_s + n + 1, bm_lo, ai[j]);
-        store_split(bm + (ks + k) * L.bm_s + n, bm_lo, -ai[j]);
-        store_split(bm + (ks + k) * L.bm_s + n + 1, bm_lo, ar[j]);
-      }
-    }
+    if (k < kc && m < s.m2)
+      mix_item(ar, ai, spec2 + (size_t(m) * s.B + b0 + grp * 4) * b_stride + k0 + k, b_stride,
+               s.K, wsr + k * kCols2 + mm, wsi + k * kCols2 + mm, ks * kCols2, s.Cin, nb);
+    store_mixed(bm, L.bm_s, bm_lo, ks, k, mm, grp, L.bt, ar, ai);
   }
   __syncthreads();
 
@@ -575,31 +814,173 @@ __global__ void __launch_bounds__(kThreads2) fno2d_mix_inverse_h(
   // sum the parts over the cluster, this block taking its share of the rows, and store
   // each (batch, row)'s run of mode columns
   const int rows = (s.H + L.slices - 1) / L.slices, h0 = rank * rows;
-  const int h1 = min(s.H, h0 + rows), q4 = n_cols / 4;
-  const bool whole = mc == kCols2 && s.m2 % 2 == 0;  // 16-byte aligned runs of 16 floats
-  for (int i = threadIdx.x; i < max(0, h1 - h0) * q4; i += kThreads2) {
-    const int h = h0 + i / q4, n = (i % q4) * 4;
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int r = 0; r < L.slices; ++r) {
-      const float4 v = *reinterpret_cast<const float4*>(
-          cluster.map_shared_rank(zp, r) + h * L.zp_s + n);
-      acc.x += v.x, acc.y += v.y, acc.z += v.z, acc.w += v.w;
-    }
-    const int bb = n / (2 * kCols2), j = n % (2 * kCols2), b = b0 + bb;  // j: 2*mm + part
-    if (b >= s.B) continue;
-    float* zr = z + (((size_t(b) * s.Cout + o) * s.H + h) * s.m2 + m0) * 2;
-    if (whole) {
-      *reinterpret_cast<float4*>(zr + j) = acc;
-    } else {
-      const float a[4] = {acc.x, acc.y, acc.z, acc.w};
-      for (int e = 0; e < 4; ++e)
-        if ((j + e) / 2 < mc) zr[j + e] = a[e];
-    }
-  }
+  sum_parts(cluster, zp, L.zp_s, L.slices, h0, min(s.H, h0 + rows), 0, n_cols, z, s, o, b0, m0,
+            mc);
   cluster.sync();  // no block leaves while another still reads its part
 }
 
+// S2 in chunks, where a block's whole slice does not fit (the note above): the slice's
+// mode rows kSlice2 at a time, each mixed over chunks of kChansT2 input channels with the
+// sums in registers, and the H rows a chunk of kRowsT2 at a time, each summed over the
+// cluster before the next (grid z with y: output channels x batch groups).
+struct Tiled2 {
+  int slices, ks;  // blocks in a cluster (mode-row slices), rows of a slice (x kSlice2)
+  int bt, hc, cc;  // batch elements, rows of an H chunk, channels of a weight chunk
+  int gx_s, bm_s, zp_s;
+  int off_bm, off_w, off_zp;
+  int tiles;       // output channels x batch groups
+  size_t bytes;
+};
+
+Tiled2 tiled2(const Shape& s) {
+  Tiled2 L;
+  L.slices = min(kCluster2, ceil_div(s.K, kSlice2));
+  L.ks = round_up(ceil_div(s.K, L.slices), kSlice2);
+  L.bt = min(kBatch2, round_up(s.B, 2));
+  L.hc = min(s.Hp16, kRowsT2);
+  L.cc = min(s.Cin, kChansT2);
+  const int n = 2 * kCols2 * L.bt;
+  L.gx_s = stride_cols(L.hc);
+  L.bm_s = stride_cols(n);
+  L.zp_s = round_up(n, 32) + 8;
+  L.off_bm = 2 * kSlice2 * L.gx_s;
+  L.off_w = L.off_bm + 2 * (2 * kSlice2 * L.bm_s);
+  L.off_zp = L.off_w + 2 * L.cc * kSlice2 * kCols2;
+  L.tiles = s.Cout * ceil_div(s.B, L.bt);
+  L.bytes = (size_t(L.off_zp) + size_t(L.hc) * L.zp_s) * sizeof(float);
+  return L;
+}
+
+__global__ void __launch_bounds__(kThreads2) fno2d_mix_inverse_h_tiled(
+    const float* spec,  // (m2, B*Cin, K, 2), written by S1 while this grid may be running
+    const float* __restrict__ wr, const float* __restrict__ wi,      // (Cin, Cout, K, m2)
+    const float* __restrict__ gxre, const float* __restrict__ gxim,  // (K, H)
+    float* __restrict__ z,                                           // (B, Cout, H, m2, 2)
+    Shape s, Tiled2 L) {
+  extern __shared__ __align__(16) float smem[];
+  const int tile = folded_tile();
+  if (tile >= L.tiles) return;  // the whole cluster: it spans blockIdx.x only
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = int(cluster.block_rank());  // this block's mode-row slice
+  const int n_cols = 2 * kCols2 * L.bt;
+  float* gx = smem;             // 2*kSlice2 x gx_s: the row chunk's gx[kk][h] = A3(h, kk)
+  float* bm = smem + L.off_bm;  // 2*kSlice2 x bm_s, split: [[Or, Oi], [-Oi, Or]]
+  const int bm_lo = 2 * kSlice2 * L.bm_s;
+  float* wsr = smem + L.off_w;  // cc x kSlice2 x kCols2: a channel chunk's weights
+  float* wsi = wsr + L.cc * kSlice2 * kCols2;
+  float* zp = smem + L.off_zp;  // hc x zp_s: this slice's part of the H chunk's Z
+  const int m0 = (blockIdx.x / L.slices) * kCols2, o = tile % s.Cout;
+  const int b0 = (tile / s.Cout) * L.bt, mc = min(kCols2, s.m2 - m0);
+  const int k0 = rank * L.ks, kc = max(0, min(L.ks, s.K - k0));
+  const int nb = max(0, min(L.bt, s.B - b0));
+  constexpr int kWarps2 = kThreads2 / 32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int kk = threadIdx.x % kSlice2, mm = threadIdx.x / kSlice2;  // one mix item a thread
+  static_assert(kThreads2 == kSlice2 * kCols2, "one mix item a thread");
+  const float2* spec2 = reinterpret_cast<const float2*>(spec);
+  const size_t b_stride = size_t(s.Cin) * s.K;
+
+  launch_dependents();
+  wait_prerequisites();  // the spectrum is S1's
+  for (int h0 = 0; h0 < s.H; h0 += L.hc) {
+    const int hn = min(L.hc, s.H - h0), hp = round_up(hn, 16);
+    for (int i = threadIdx.x; i < hp * L.zp_s; i += kThreads2) zp[i] = 0.f;
+    for (int r0 = 0; r0 < kc; r0 += kSlice2) {
+      const int rn = min(kSlice2, kc - r0), kr = k0 + r0;
+      stage_rows(gx, L.gx_s, gxre + size_t(kr) * s.H + h0, s.H, rn, hn, kSlice2, hp);
+      stage_rows(gx + kSlice2 * L.gx_s, L.gx_s, gxim + size_t(kr) * s.H + h0, s.H, rn, hn,
+                 kSlice2, hp);
+      float ar[4] = {0.f, 0.f, 0.f, 0.f}, ai[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int c0 = 0; c0 < s.Cin; c0 += L.cc) {
+        const int cn = min(L.cc, s.Cin - c0);
+        stage_weights(wsr, wsi, kSlice2, wr, wi, s, o, c0, cn, kr, rn, m0, mc);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        if (kk < rn && mm < mc)
+          mix_item(ar, ai, spec2 + (size_t(m0 + mm) * s.B + b0) * b_stride + size_t(c0) * s.K +
+                   kr + kk, b_stride, s.K, wsr + kk * kCols2 + mm, wsi + kk * kCols2 + mm,
+                   kSlice2 * kCols2, cn, nb);
+        __syncthreads();  // the chunk's weights are read
+      }
+      store_mixed(bm, L.bm_s, bm_lo, kSlice2, kk, mm, 0, L.bt, ar, ai);
+      __syncthreads();
+      // this row chunk's part of the H chunk: zp += [Gxre^T | Gxim^T] Bm
+      const int ngroups = n_cols / 32;
+      for (int task = warp; task < (hp / 16) * ngroups; task += kWarps2) {
+        const int mt = task / ngroups, n0 = (task % ngroups) * 32;
+        float d[4][4];
+        warp_tiles<4, false, true>(d, gx + mt * 16, 1, L.gx_s, 0, bm + n0, L.bm_s, 1, bm_lo,
+                                   2 * kSlice2);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            float2* p = reinterpret_cast<float2*>(zp + (mt * 16 + g + half * 8) * L.zp_s + n0 +
+                                                  j * 8 + 2 * t);
+            const float2 v = *p;
+            *p = make_float2(v.x + d[j][2 * half], v.y + d[j][2 * half + 1]);
+          }
+      }
+      __syncthreads();  // gx and bm are free for the next row chunk
+    }
+    cluster.sync();  // every slice's part of the H chunk is in its block's shared memory
+    const int rows = ceil_div(hn, L.slices), lo = rank * rows;
+    sum_parts(cluster, zp, L.zp_s, L.slices, lo, min(hn, lo + rows), h0, n_cols, z, s, o, b0,
+              m0, mc);
+    cluster.sync();  // no block overwrites its part while another still reads it
+  }
+}
+
 // ---- S3: inverse rDFT along W and the epilogue -------------------------------------------
+
+// S3's plan: a block's output columns (all W, or a W tile as grid z with y) and the columns
+// of Z (2*m2 padded to J) it multiplies a pass (all of them, or chunks where the W tile's
+// matrix and rows of Z still do not fit; see the note above).
+struct Layout3 {
+  int wc, jc;             // output columns of a block, Z columns of a pass (x 8)
+  int row_tiles, tiles;   // row tiles; of rows x W tiles
+  int z_s, gy_s, ys_s;    // row strides of Z's rows, the matrix and the spectral part of y
+  int xt_s;               // row stride of x's staged rows, 0 where the epilogue reads L2
+  int pk_n;               // pointwise weights staged (Cin, up to kPkStaged)
+  int bulk;               // the matrix (and x's rows) by multicast bulk copies
+  size_t bytes;
+};
+
+size_t smem3(const Shape& s, int wc, int jc) {
+  const int wp = round_up(wc, 8);
+  return (kBarFloats + size_t(kRows3) * (3 * stride_rows(jc) + round_up(wp, 32) + 8) +
+          size_t(jc) * stride_cols(wp) + round_up(min(s.Cin, kPkStaged), 4)) * sizeof(float);
+}
+
+// `aligned`: the W matrices and x start on 16-byte boundaries.
+Layout3 layout3(const Shape& s, int epilogue, bool aligned) {
+  Layout3 L;
+  L.wc = s.W, L.jc = s.J;
+  if (smem3(s, L.wc, L.jc) > kMaxSmem) {  // W tiles, then chunks of Z's columns
+    L.wc = 256;
+    while (L.wc > 32 && smem3(s, L.wc, L.jc) > kMaxSmem) L.wc /= 2;
+    while (smem3(s, L.wc, L.jc) > kMaxSmem) L.jc = round_up(L.jc / 2, 8);
+  }
+  const int wp = round_up(L.wc, 8);
+  L.row_tiles = ceil_div(s.H, kRows3);
+  L.tiles = L.row_tiles * ceil_div(s.W, L.wc);
+  L.z_s = stride_rows(L.jc);
+  L.gy_s = stride_cols(wp);
+  L.ys_s = round_up(wp, 32) + 8;  // 8-byte stores of a half-warp on distinct banks
+  L.pk_n = min(s.Cin, kPkStaged);
+  L.bytes = smem3(s, L.wc, L.jc);
+  // Where the rows of the W matrix and of x are whole 16-byte pieces and one pass takes
+  // all of Z's columns, S3 clusters up to 4 output channels' blocks, which take the matrix
+  // by multicast bulk copies, and x's rows for the pointwise term too where two blocks
+  // still fit on an SM. Elsewhere each block stages the matrix with cp.async and reads x
+  // from L2: staging x's rows per block was slower than that (PERF.md section 6).
+  L.bulk = s.W % 4 == 0 && aligned && L.jc == s.J;
+  const size_t x_tile = size_t(s.Cin) * kRows3 * L.wc * sizeof(float);
+  L.xt_s = L.bulk && epilogue >= 1 && L.bytes + x_tile <= kMaxSmem / 2 ? L.wc : 0;
+  if (L.xt_s > 0) L.bytes += x_tile;
+  return L;
+}
 
 template <int kEpilogue>
 __global__ void __launch_bounds__(kThreads3) fno2d_inverse_w(
@@ -609,17 +990,21 @@ __global__ void __launch_bounds__(kThreads3) fno2d_inverse_w(
     const float* __restrict__ pk, int pk_si, int pk_so,              // (Cin, Cout) strided
     const float* __restrict__ pb,                                    // (Cout,)
     float* __restrict__ out,                                         // (B, Cout, H, W)
-    Shape s, int z_s, int gy_s, int ys_s, int xt_s, int bulk) {
+    Shape s, Layout3 L) {
   extern __shared__ __align__(16) float smem[];
+  const int tile = folded_tile();
+  if (tile >= L.tiles) return;  // the whole cluster: it spans blockIdx.x only
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
-  float* zs = smem + kBarFloats;     // kRows3 x z_s, split: A4(r, 2m + re/im)
-  const int zs_lo = kRows3 * z_s;
+  float* zs = smem + kBarFloats;     // kRows3 x z_s, split: A4(r, 2m + re/im), this pass's
+  const int zs_lo = kRows3 * L.z_s;
   float* zraw = zs + 2 * zs_lo;      // kRows3 x z_s: the rows of Z as they come in
-  float* gy = zraw + zs_lo;          // J x gy_s: B4(2m + re/im, w)
-  float* pks = gy + s.J * gy_s;      // Cin: this output channel's pointwise column
-  float* ys = pks + round_up(s.Cin, 4);  // kRows3 x ys_s: the spectral part of y
-  float* xt = ys + kRows3 * ys_s;    // Cin x kRows3 x xt_s: x's rows, where xt_s > 0
-  const int bo = blockIdx.x, b = bo / s.Cout, o = bo % s.Cout, h0 = blockIdx.y * kRows3;
+  float* gy = zraw + zs_lo;          // jc x gy_s: B4(2m + re/im, w), this pass's rows
+  float* pks = gy + L.jc * L.gy_s;   // pk_n: this output channel's pointwise column
+  float* ys = pks + round_up(L.pk_n, 4);  // kRows3 x ys_s: the spectral part of y
+  float* xt = ys + kRows3 * L.ys_s;  // Cin x kRows3 x xt_s: x's rows, where xt_s > 0
+  const int bo = blockIdx.x, b = bo / s.Cout, o = bo % s.Cout;
+  const int h0 = (tile % L.row_tiles) * kRows3, w0 = (tile / L.row_tiles) * L.wc;
+  const int wn = min(L.wc, s.W - w0), wp = round_up(wn, 8);  // this block's columns
   constexpr int kWarps3 = kThreads3 / 32;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 
@@ -628,53 +1013,74 @@ __global__ void __launch_bounds__(kThreads3) fno2d_inverse_w(
   // and each brings in a share of them, multicast to all
   const size_t hw = size_t(s.H) * s.W;
   const int rows = min(kRows3, s.H - h0);
-  const bool x_tile = kEpilogue >= 1 && xt_s > 0;
-  const float* xb = x + size_t(b) * s.Cin * hw + size_t(h0) * s.W;
-  if (bulk) {
+  const bool x_tile = kEpilogue >= 1 && L.xt_s > 0;
+  const float* xb = x + size_t(b) * s.Cin * hw + size_t(h0) * s.W + w0;
+  // the matrix's rows [j0, j0 + jc) and Z's columns [j0, j0 + jc) (j = 2m + re/im), by
+  // cp.async, and zeros in the matrix's rows past 2*m2
+  auto stage_matrix = [&](int j0) {
+    const int modes = min(L.jc, 2 * s.m2 - j0) / 2;
+    stage_rows(gy, 2 * L.gy_s, gyre + size_t(j0 / 2) * s.W + w0, s.W, modes, wn, modes, wp);
+    stage_rows(gy + L.gy_s, 2 * L.gy_s, gyim + size_t(j0 / 2) * s.W + w0, s.W, modes, wn, modes,
+               wp);
+  };
+  auto stage_z = [&](int j0) {
+    const int n = min(L.jc, 2 * s.m2 - j0);
+    stage_rows(zraw, L.z_s, z + (size_t(bo) * s.H + h0) * 2 * s.m2 + j0, 2 * s.m2, rows, n,
+               kRows3, L.jc);
+    cp_async_commit();
+    for (int i = threadIdx.x; i < (L.jc - n) * L.gy_s; i += kThreads3) gy[n * L.gy_s + i] = 0.f;
+  };
+  if (L.bulk) {
     cg::cluster_group cluster = cg::this_cluster();
     const int rank = int(cluster.block_rank()), csize = int(cluster.num_blocks());
     if (threadIdx.x == 0) mbar_init(bar);
     cluster.sync();  // every block's barrier is ready before any copy lands
     if (threadIdx.x == 0)
-      mbar_expect(bar, (2u * s.m2 + (x_tile ? unsigned(s.Cin) * rows : 0u)) * s.W * 4);
-    multicast_rows(gy, 2 * gy_s, gyre, s.W, s.m2, s.W, bar, rank, csize);
-    multicast_rows(gy + gy_s, 2 * gy_s, gyim, s.W, s.m2, s.W, bar, rank, csize);
-    zero_pad(gy, 2 * gy_s, s.m2, s.W, s.m2, s.Wp8);
-    zero_pad(gy + gy_s, 2 * gy_s, s.m2, s.W, s.m2, s.Wp8);
+      mbar_expect(bar, (2u * s.m2 + (x_tile ? unsigned(s.Cin) * rows : 0u)) * wn * 4);
+    multicast_rows(gy, 2 * L.gy_s, gyre + w0, s.W, s.m2, wn, bar, rank, csize);
+    multicast_rows(gy + L.gy_s, 2 * L.gy_s, gyim + w0, s.W, s.m2, wn, bar, rank, csize);
+    zero_pad(gy, 2 * L.gy_s, s.m2, wn, s.m2, wp);
+    zero_pad(gy + L.gy_s, 2 * L.gy_s, s.m2, wn, s.m2, wp);
     if (x_tile)
       for (int c = 0; c < s.Cin; ++c)
-        multicast_rows(xt + c * kRows3 * xt_s, xt_s, xb + c * hw, s.W, rows, s.W, bar, rank,
+        multicast_rows(xt + c * kRows3 * L.xt_s, L.xt_s, xb + c * hw, s.W, rows, wn, bar, rank,
                        csize);
   } else {
-    stage_rows(gy, 2 * gy_s, gyre, s.W, s.m2, s.W, s.m2, s.Wp8);
-    stage_rows(gy + gy_s, 2 * gy_s, gyim, s.W, s.m2, s.W, s.m2, s.Wp8);
+    stage_matrix(0);
   }
   wait_prerequisites();  // Z is S2's
-  stage_rows(zraw, z_s, z + (size_t(bo) * s.H + h0) * 2 * s.m2, 2 * s.m2, rows, 2 * s.m2,
-             kRows3, s.J);
-  cp_async_commit();
-  for (int i = threadIdx.x; i < (s.J - 2 * s.m2) * gy_s; i += kThreads3)
-    gy[2 * s.m2 * gy_s + i] = 0.f;
+  stage_z(0);
   if (kEpilogue >= 1)
-    for (int c = threadIdx.x; c < s.Cin; c += kThreads3) pks[c] = pk[c * pk_si + o * pk_so];
-  cp_async_wait<0>();
-  if (bulk) mbar_wait(bar, 0);
-  __syncthreads();
-  for (int i = threadIdx.x; i < kRows3 * s.J; i += kThreads3) {  // every warp reads all
-    const int r = i / s.J, c = i % s.J;                            // of them: split once
-    store_split(zs + r * z_s + c, zs_lo, zraw[r * z_s + c]);
-  }
-  __syncthreads();
+    for (int c = threadIdx.x; c < L.pk_n; c += kThreads3) pks[c] = pk[c * pk_si + o * pk_so];
 
-  for (int n0 = warp * 2; n0 < s.Wp8 / 8; n0 += 2 * kWarps3) {  // 2 n-tiles a warp
-    float d[2][4];
-    warp_tiles<2, true, false>(d, zs, z_s, 1, zs_lo, gy + n0 * 8, gy_s, 1, 0, s.J);
+  for (int j0 = 0;;) {  // one pass, unless Z's columns come in chunks
+    cp_async_wait<0>();
+    if (L.bulk) mbar_wait(bar, 0);
+    __syncthreads();
+    for (int i = threadIdx.x; i < kRows3 * L.jc; i += kThreads3) {  // every warp reads
+      const int r = i / L.jc, c = i % L.jc;                          // all of them: split once
+      store_split(zs + r * L.z_s + c, zs_lo, zraw[r * L.z_s + c]);
+    }
+    __syncthreads();
+
+    for (int n0 = warp * 2; n0 < wp / 8; n0 += 2 * kWarps3) {  // 2 n-tiles a warp
+      float d[2][4];
+      warp_tiles<2, true, false>(d, zs, L.z_s, 1, zs_lo, gy + n0 * 8, L.gy_s, 1, 0, L.jc);
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
+      for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int half = 0; half < 2; ++half)
-        *reinterpret_cast<float2*>(ys + (g + half * 8) * ys_s + (n0 + j) * 8 + 2 * t) =
-            make_float2(d[j][2 * half], d[j][2 * half + 1]);
+        for (int half = 0; half < 2; ++half) {
+          float2* p = reinterpret_cast<float2*>(ys + (g + half * 8) * L.ys_s + (n0 + j) * 8 +
+                                                2 * t);
+          const float2 v = j0 == 0 ? make_float2(0.f, 0.f) : *p;
+          *p = make_float2(v.x + d[j][2 * half], v.y + d[j][2 * half + 1]);
+        }
+    }
+    j0 += L.jc;
+    if (j0 >= 2 * s.m2) break;
+    __syncthreads();  // every warp is done with this pass's rows
+    stage_matrix(j0);
+    stage_z(j0);
   }
   __syncthreads();
 
@@ -683,43 +1089,54 @@ __global__ void __launch_bounds__(kThreads3) fno2d_inverse_w(
   // the loads of several input channels in flight at once
   const bool quads = s.W % 4 == 0 && (x_tile || (reinterpret_cast<uintptr_t>(x) & 15) == 0) &&
                      (reinterpret_cast<uintptr_t>(out) & 15) == 0;
-  const int per_row = quads ? s.W / 4 : s.W;
+  const int per_row = quads ? wn / 4 : wn;
   const float bias = kEpilogue >= 1 ? __ldg(pb + o) : 0.f;
-  float* ob = out + (size_t(b) * s.Cout + o) * hw + size_t(h0) * s.W;
+  float* ob = out + (size_t(b) * s.Cout + o) * hw + size_t(h0) * s.W + w0;
   for (int i = threadIdx.x; i < rows * per_row; i += kThreads3) {
     const int r = i / per_row, w = quads ? (i % per_row) * 4 : i % per_row;
     const int n = quads ? 4 : 1;
     float v[4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) v[e] = e < n ? ys[r * ys_s + w + e] : 0.f;
+    for (int e = 0; e < 4; ++e) v[e] = e < n ? ys[r * L.ys_s + w + e] : 0.f;
     if (x_tile) {
-      const float* xp = xt + r * xt_s + w;
+      const float* xp = xt + r * L.xt_s + w;
       if (quads) {
 #pragma unroll 4
         for (int c = 0; c < s.Cin; ++c) {
-          const float4 xv = *reinterpret_cast<const float4*>(xp + c * kRows3 * xt_s);
+          const float4 xv = *reinterpret_cast<const float4*>(xp + c * kRows3 * L.xt_s);
           v[0] = fmaf(xv.x, pks[c], v[0]);
           v[1] = fmaf(xv.y, pks[c], v[1]);
           v[2] = fmaf(xv.z, pks[c], v[2]);
           v[3] = fmaf(xv.w, pks[c], v[3]);
         }
       } else {
-        for (int c = 0; c < s.Cin; ++c) v[0] = fmaf(xp[c * kRows3 * xt_s], pks[c], v[0]);
+        for (int c = 0; c < s.Cin; ++c) v[0] = fmaf(xp[c * kRows3 * L.xt_s], pks[c], v[0]);
       }
     } else if (kEpilogue >= 1) {
       const float* xp = xb + size_t(r) * s.W + w;
       if (quads) {
 #pragma unroll 8
-        for (int c = 0; c < s.Cin; ++c) {
+        for (int c = 0; c < L.pk_n; ++c) {
           const float4 xv = __ldg(reinterpret_cast<const float4*>(xp + c * hw));
           v[0] = fmaf(xv.x, pks[c], v[0]);
           v[1] = fmaf(xv.y, pks[c], v[1]);
           v[2] = fmaf(xv.z, pks[c], v[2]);
           v[3] = fmaf(xv.w, pks[c], v[3]);
         }
+        for (int c = L.pk_n; c < s.Cin; ++c) {  // channels past those staged
+          const float4 xv = __ldg(reinterpret_cast<const float4*>(xp + c * hw));
+          const float u = __ldg(pk + size_t(c) * pk_si + size_t(o) * pk_so);
+          v[0] = fmaf(xv.x, u, v[0]);
+          v[1] = fmaf(xv.y, u, v[1]);
+          v[2] = fmaf(xv.z, u, v[2]);
+          v[3] = fmaf(xv.w, u, v[3]);
+        }
       } else {
 #pragma unroll 8
-        for (int c = 0; c < s.Cin; ++c) v[0] = fmaf(__ldg(xp + c * hw), pks[c], v[0]);
+        for (int c = 0; c < L.pk_n; ++c) v[0] = fmaf(__ldg(xp + c * hw), pks[c], v[0]);
+        for (int c = L.pk_n; c < s.Cin; ++c)
+          v[0] = fmaf(__ldg(xp + c * hw), __ldg(pk + size_t(c) * pk_si + size_t(o) * pk_so),
+                      v[0]);
       }
     }
     if (kEpilogue >= 1)
@@ -738,20 +1155,19 @@ __global__ void __launch_bounds__(kThreads3) fno2d_inverse_w(
 }
 
 template <int kEpilogue>
-cudaError_t launch_inverse_w(dim3 grid, size_t smem, int csize, int device,
-                             cudaStream_t stream, const float* z, const float* gyre,
-                             const float* gyim, const float* x, const float* pk, int pk_si,
-                             int pk_so, const float* pb, float* out, const Shape& s, int z_s,
-                             int gy_s, int ys_s, int xt_s, int bulk) {
+cudaError_t launch_inverse_w(dim3 grid, int csize, int device, cudaStream_t stream,
+                             const float* z, const float* gyre, const float* gyim,
+                             const float* x, const float* pk, int pk_si, int pk_so,
+                             const float* pb, float* out, const Shape& s, const Layout3& L) {
   static bool raised[kMaxDevices] = {};
-  cudaError_t err = allow_smem(fno2d_inverse_w<kEpilogue>, smem, device, raised);
+  cudaError_t err = allow_smem(fno2d_inverse_w<kEpilogue>, L.bytes, device, raised);
   if (err != cudaSuccess) return err;
-  return launch_clusters(fno2d_inverse_w<kEpilogue>, grid, kThreads3, smem, dim3(csize), stream,
-                         z, gyre, gyim, x, pk, pk_si, pk_so, pb, out, s, z_s, gy_s, ys_s, xt_s,
-                         bulk);
+  return launch_clusters(fno2d_inverse_w<kEpilogue>, grid, kThreads3, L.bytes, dim3(csize),
+                         stream, z, gyre, gyim, x, pk, pk_si, pk_so, pb, out, s, L);
 }
 
-// The three launches of one layer; `device` is current.
+// The three launches of one layer; `device` is current. Each stage takes its whole
+// operands where they fit in a block and its grid in y and z, else its tiled layout.
 cudaError_t launch_layer(const float* x, const float* fyre, const float* fyim,
                          const float* fxre, const float* fxim, const float* gxre,
                          const float* gxim, const float* gyre, const float* gyim,
@@ -763,47 +1179,53 @@ cudaError_t launch_layer(const float* x, const float* fyre, const float* fyim,
   s.B = B, s.Cin = Cin, s.Cout = Cout, s.H = H, s.W = W, s.K = 2 * m1, s.m2 = m2;
   s.Hp8 = round_up(H, 8), s.Hp16 = round_up(H, 16), s.Wp8 = round_up(W, 8);
   s.Kp16 = round_up(s.K, 16), s.J = round_up(2 * m2, 8);
-
   auto aligned16 = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
-  const Layout1 L1 = layout1(s);
-  const Layout2 L2 = layout2(s);
-  const int z_s = stride_rows(s.J), gy_s = stride_cols(s.Wp8);
-  const int ys_s = round_up(s.Wp8, 32) + 8;  // 8-byte stores of a half-warp on distinct banks
-  size_t smem3 = (kBarFloats + size_t(kRows3) * (3 * z_s + ys_s) + size_t(s.J) * gy_s +
-                  round_up(Cin, 4)) * sizeof(float);
-  // Where the rows of the W matrix and of x are whole 16-byte pieces, S3 clusters up to 4
-  // output channels' blocks, which take the matrix by multicast bulk copies, and x's rows
-  // for the pointwise term too where two blocks still fit on an SM. Elsewhere each block
-  // stages the matrix with cp.async and reads x from L2: staging x's rows per block was
-  // slower than that (PERF.md section 6).
-  const int bulk3 = W % 4 == 0 && aligned16(gyre) && aligned16(gyim) && aligned16(x);
-  const int csize3 = !bulk3 ? 1 : Cout % 4 == 0 ? 4 : Cout % 2 == 0 ? 2 : 1;
-  const size_t x_tile = size_t(Cin) * kRows3 * W * sizeof(float);
-  const int xt_s = bulk3 && epilogue >= 1 && smem3 + x_tile <= kMaxSmem / 2 ? W : 0;
-  if (xt_s > 0) smem3 += x_tile;
-  if (L1.bytes > kMaxSmem || L2.bytes > kMaxSmem || smem3 > kMaxSmem)
-    return cudaErrorInvalidValue;
 
-  static bool raised1[kMaxDevices] = {}, raised2[kMaxDevices] = {};
-  cudaError_t err = allow_smem(fno2d_forward_transform, L1.bytes, device, raised1);
-  if (err != cudaSuccess) return err;
-  const dim3 grid1(B * Cin, (m2 + kCols1 - 1) / kCols1);
-  fno2d_forward_transform<<<grid1, kThreads1, L1.bytes, stream>>>(x, fyre, fyim, fxre, fxim,
-                                                                 spec, s, L1);
+  static bool raised1[kMaxDevices] = {}, raised1t[kMaxDevices] = {};
+  cudaError_t err;
+  const Layout1 L1 = layout1(s);
+  if (L1.bytes <= kMaxSmem && ceil_div(m2, kCols1) <= kMaxGridYZ) {
+    err = allow_smem(fno2d_forward_transform, L1.bytes, device, raised1);
+    if (err != cudaSuccess) return err;
+    const dim3 grid1(B * Cin, ceil_div(m2, kCols1));
+    fno2d_forward_transform<<<grid1, kThreads1, L1.bytes, stream>>>(x, fyre, fyim, fxre, fxim,
+                                                                   spec, s, L1);
+  } else {
+    const Tiled1 T1 = tiled1(s);
+    err = allow_smem(fno2d_forward_transform_tiled, T1.bytes, device, raised1t);
+    if (err != cudaSuccess) return err;
+    fno2d_forward_transform_tiled<<<folded(B * Cin, T1.tiles), kThreads1, T1.bytes, stream>>>(
+        x, fyre, fyim, fxre, fxim, spec, s, T1);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  err = allow_smem(fno2d_mix_inverse_h, L2.bytes, device, raised2);
-  if (err != cudaSuccess) return err;
-  const dim3 grid2(L2.slices * ((m2 + kCols2 - 1) / kCols2), Cout, (B + L2.bt - 1) / L2.bt);
-  err = launch_clusters(fno2d_mix_inverse_h, grid2, kThreads2, L2.bytes, dim3(L2.slices),
-                        stream, spec, wr, wi, gxre, gxim, z, s, L2);
+  static bool raised2[kMaxDevices] = {}, raised2t[kMaxDevices] = {};
+  const Layout2 L2 = layout2(s);
+  const int col_tiles2 = ceil_div(m2, kCols2);
+  if (L2.bytes <= kMaxSmem && Cout <= kMaxGridYZ && ceil_div(B, L2.bt) <= kMaxGridYZ) {
+    err = allow_smem(fno2d_mix_inverse_h, L2.bytes, device, raised2);
+    if (err != cudaSuccess) return err;
+    const dim3 grid2(L2.slices * col_tiles2, Cout, ceil_div(B, L2.bt));
+    err = launch_clusters(fno2d_mix_inverse_h, grid2, kThreads2, L2.bytes, dim3(L2.slices),
+                          stream, spec, wr, wi, gxre, gxim, z, s, L2);
+  } else {
+    const Tiled2 T2 = tiled2(s);
+    err = allow_smem(fno2d_mix_inverse_h_tiled, T2.bytes, device, raised2t);
+    if (err != cudaSuccess) return err;
+    err = launch_clusters(fno2d_mix_inverse_h_tiled, folded(T2.slices * col_tiles2, T2.tiles),
+                          kThreads2, T2.bytes, dim3(T2.slices), stream, spec, wr, wi, gxre, gxim,
+                          z, s, T2);
+  }
   if (err != cudaSuccess) return err;
 
-  const dim3 grid3(B * Cout, (H + kRows3 - 1) / kRows3);
-#define FNO2D_LAUNCH(E)                                                                   \
-  launch_inverse_w<E>(grid3, smem3, csize3, device, stream, z, gyre, gyim, x, pk, pk_si,      \
-                      pk_so, pb, out, s, z_s, gy_s, ys_s, xt_s, bulk3)
+  const Layout3 L3 =
+      layout3(s, epilogue, aligned16(gyre) && aligned16(gyim) && aligned16(x));
+  const int csize3 = !L3.bulk ? 1 : Cout % 4 == 0 ? 4 : Cout % 2 == 0 ? 2 : 1;
+  const dim3 grid3 = folded(B * Cout, L3.tiles);
+#define FNO2D_LAUNCH(E)                                                                      \
+  launch_inverse_w<E>(grid3, csize3, device, stream, z, gyre, gyim, x, pk, pk_si, pk_so, pb, \
+                      out, s, L3)
   switch (epilogue) {
     case 0: return FNO2D_LAUNCH(0);
     case 1: return FNO2D_LAUNCH(1);

@@ -39,9 +39,6 @@ from blindno_torch.ops.spectral import dft_matrices_2d, spectral_conv1d, spectra
 _INT_MAX = 2**31 - 1
 _F32 = torch.float32
 _LOW = (torch.bfloat16, torch.float16)
-_CUDA_ERROR_INVALID_VALUE = 1
-_INVALID_2D_HINT = ("; a stage of this shape may need more shared memory than a block has "
-                    "(the limits are in the source note of csrc/fno2d_layer.cu)")
 
 
 def _dtype(*tensors):
@@ -97,10 +94,10 @@ def _check_indexing(name, *numels):
         raise ValueError(f"{name}: tensors too large for the kernel's 32-bit indexing")
 
 
-def _raise_on_error(lib, name, err, hint=""):
+def _raise_on_error(lib, name, err):
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed: CUDA error {err} "
-                           f"({lib.blindno_error_string(err).decode()}){hint}")
+                           f"({lib.blindno_error_string(err).decode()})")
 
 
 def _ptr(t):
@@ -139,7 +136,7 @@ def _launch2d(name, x, wr, wi, pk, pb, epilogue):
         _ptr(x), *map(_ptr, mats), _ptr(wr), _ptr(wi), _ptr(pk), pk_si, pk_so, _ptr(pb),
         _ptr(spec), _ptr(z), _ptr(out), b, c, cout, h, w, k // 2, m2, epilogue, dev,
         torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on_error(lib, name, err, _INVALID_2D_HINT if err == _CUDA_ERROR_INVALID_VALUE else "")
+    _raise_on_error(lib, name, err)
     return out
 
 

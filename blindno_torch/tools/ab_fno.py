@@ -9,6 +9,7 @@ Run from the repository root::
                     'programmaticStreamSerializationAllowed = 0' \\
         --variant old --source old blindno_torch/_build/old/blindno_torch/csrc \\
         [--probe NAME ...] [--design]
+    python3 -m blindno_torch.tools.ab_fno --dim 2 --tiled --variant base
     python3 -m blindno_torch.tools.ab_fno --dim 1 --host OLD_SPECTRAL_CUDA_PY
 
 Each variant is the kernel sources of ``--csrc`` (default ``blindno_torch/csrc``), or of
@@ -23,9 +24,12 @@ adds, after the variants named, one variant per design element of
 ``csrc/fno1d_layer.cu`` and its stage probes: ``DESIGN_1D`` and ``PROBES_1D`` below,
 which are tied to that source's text (a variant whose OLD text is gone raises).
 
-The cases: with ``--dim 2`` (the default), ``chip_smoke.py``'s ``MAIN_SHAPE`` and
-``NIOFNO2D_INNER``; with ``--dim 1``, its ``HEADS_1D``, ``BRANCH_1D`` and ``GPE_HEADS_1D``;
-each for the layer with gelu and for the spectral conv alone. At each case every
+The cases: with ``--dim 2`` (the default), ``chip_smoke.py``'s ``MAIN_SHAPE``,
+``NIOFNO2D_INNER`` and ``FIT_SHAPE``, or with ``--tiled`` its ``TILED_SHAPES`` (the 2-D
+kernel's tiled layouts), where each row also carries the plain version's and the
+``torch.fft`` restatement's times from one variant's round and the layer's bound
+(``chip_smoke.layer_bound``); with ``--dim 1``, its ``HEADS_1D``, ``BRANCH_1D`` and
+``GPE_HEADS_1D``; each for the layer with gelu and for the spectral conv alone. At each case every
 variant's output is held against the plain version (``chip_smoke``'s tolerance of that
 dimension, also after replay from a CUDA graph) and its device time is taken by
 CUDA-graph replay, ``chip_smoke.graph_ms``, in ``--rounds`` rounds that run the variants
@@ -124,7 +128,7 @@ def variant_sources(csrc: Path, name: str, subs) -> Path:
     return out
 
 
-def cases(dim, wrappers=spectral_cuda):
+def cases(dim, wrappers=spectral_cuda, tiled=False):
     """(label, shape, kernel call, plain call) of each timed case, the kernel called
     through the wrappers of ``wrappers``; the calls take the inputs of
     ``chip_smoke.layer_inputs``."""
@@ -141,8 +145,9 @@ def cases(dim, wrappers=spectral_cuda):
                  lambda x, wr, wi, pk, pb: fno2d_layer_plain(x, wr, wi, pk, pb, True))
         spectral = (lambda x, wr, wi, pk, pb: w.spectral_conv2d_cuda(x, wr, wi),
                     lambda x, wr, wi, pk, pb: spectral_conv2d(x, wr, wi))
-        shapes, names = ((chip_smoke.MAIN_SHAPE, chip_smoke.NIOFNO2D_INNER),
-                         ("fno2d_layer gelu", "spectral_conv2d"))
+        shapes = (chip_smoke.TILED_SHAPES if tiled else
+                  (chip_smoke.MAIN_SHAPE, chip_smoke.NIOFNO2D_INNER, chip_smoke.FIT_SHAPE))
+        names = ("fno2d_layer gelu", "spectral_conv2d")
     return [(name, shape, *calls) for shape in shapes
             for name, calls in zip(names, (layer, spectral))]
 
@@ -203,6 +208,7 @@ def main():
                     metavar=("VARIANT", "OLD", "NEW"))
     ap.add_argument("--probe", action="append", default=[], metavar="VARIANT")
     ap.add_argument("--design", action="store_true")
+    ap.add_argument("--tiled", action="store_true")
     ap.add_argument("--host", type=Path, metavar="OLD_SPECTRAL_CUDA_PY")
     ap.add_argument("--calls", type=int, default=500)
     args = ap.parse_args()
@@ -233,9 +239,12 @@ def main():
     with ThreadPoolExecutor(len(dirs)) as pool:
         libs = dict(zip(dirs, pool.map(lambda d: _build.load(_build.build(d)), dirs.values())))
 
-    todo = cases(args.dim)
+    if args.tiled and args.dim != 2:
+        raise SystemExit("ab_fno: --tiled is the 2-D kernel's")
+    todo = cases(args.dim, tiled=args.tiled)
     times = {(v, i): [] for v in libs for i in range(len(todo))}
-    errs, stages = {}, {}
+    errs, stages, yardsticks = {}, {}, {}
+    library = chip_smoke.fft_restatements()
     with torch.inference_mode():
         inputs = [chip_smoke.layer_inputs(shape, "cuda") for _, shape, _, _ in todo]
         for r, order in enumerate(alternating(args.rounds + 1, libs)):
@@ -254,6 +263,14 @@ def main():
                         errs[v, i] = max(
                             chip_smoke.check_close(f"{v} {shape}", fn(), want, tol),
                             chip_smoke.check_close(f"{v} {shape} replayed", out, want, tol))
+                    if r == 0 and args.tiled and i not in yardsticks:
+                        name = todo[i][0]
+                        act = True if "gelu" in name else None
+                        lib = library[name.split()[0]]
+                        yardsticks[i] = dict(
+                            plain_ms=chip_smoke.graph_ms(lambda: plain(*xs)),
+                            library_ms=chip_smoke.graph_ms(lambda: lib(*xs, act)),
+                            **chip_smoke.layer_bound(shape, act is not None))
                     times[v, i].append(ms)
     summary, first = {}, args.variant[0]
     for (v, i), ts in times.items():
@@ -261,7 +278,8 @@ def main():
         slower = sum(t > t0 for t, t0 in zip(ts, times[first, i]))
         row = dict(variant=v, kernel=name, shape=shape, ms=ts, median_ms=statistics.median(ts),
                    min_ms=min(ts), max_ms=max(ts), rounds_slower_than_first=slower,
-                   max_abs_err=errs[v, i], stages_ms=stages[v, i], nvidia_smi=smi)
+                   max_abs_err=errs[v, i], stages_ms=stages[v, i], **yardsticks.get(i, {}),
+                   nvidia_smi=smi)
         print(json.dumps(row), flush=True)
         summary.setdefault(f"{name} {shape}", {})[v] = [round(1e3 * row["median_ms"], 3),
                                                          slower]

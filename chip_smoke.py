@@ -10,16 +10,18 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``. It
    (in 1-D the gpe1d heads' and the ODE-observation NIO's head's among them, and the
    1-D training shapes at batch 32), a
    ragged one and, in 2-D, the ncfpe2d heads' and the NIOFNO2D inner branch's shapes on
-   the fpe2d and the ncfpe2d grid and the heads' layer as tensor parallelism slices it
-   (``TP_SLICE``: Cout 6 of 12),
-   and times, at the main shapes and those of this slice's low-precision steps, kernel,
-   plain version and a ``torch.fft`` restatement on
+   the fpe2d and the ncfpe2d grid, the heads' layer as tensor parallelism slices it
+   (``TP_SLICE``: Cout 6 of 12) and the shapes that take the 2-D kernel's tiled layouts
+   (``TILED_SHAPES``: grids of 200 and 232 points a side, a thin 16 x 3600 one, 192
+   input channels, the heads padded to 183 x 183),
+   and times, at the main shapes, the NIOFNO2D inner branch and the padded heads,
+   kernel, plain version and a ``torch.fft`` restatement on
    the device (each replayed from a CUDA graph, so host launch costs drop out; the
    kernel's replayed output is held against the plain version too), the wrapper's host
-   cost per call beside that of one ``torch.add`` on the same input, and the gelu
-   layers' stages at the main shapes in a ``torch.profiler`` trace; then each wrapper on
+   cost per call beside that of one ``torch.add`` on the same input, and the 2-D gelu
+   layer's stages at the main shape in a ``torch.profiler`` trace; then each wrapper on
    bfloat16 and float16 operands at the training shapes, against its plain version on
-   them raised to float32, its cast-and-launch time beside the float32 call's;
+   them raised to float32;
 4. serves the fpe2d NIO model at the width of ``bench.py`` (seeded weights, calibrated
    BatchNorm) through ``predict_fields`` on 8 sets of 100 snapshots of a 61x61 grid,
    counts the kernel launches, checks the result against the CPU plain path, and times
@@ -39,10 +41,11 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``. It
 7. serves the FNO-branch and token-attention NIOs (phase ``serve_nio2d``) the same way:
    the fpe2d suite's ``NIOFNO2D``, ``NIOAttn2D`` and ``NIOFNOAttn2D`` on 8 sets of 100
    snapshots of 61x61 and the ncfpe2d suite's ``NIOFNO2D`` on 4 sets of 80x80, each
-   forward split on the device between the per-snapshot fields, the attention, the
-   fusion and the heads; then (phase ``serve3d``) the 3-D NIO ``NIOFP3D`` at its defaults
-   on 4 sets of 100 snapshots of a 40^3 grid, batch 2 (no kernel of the port on its path:
-   FNO3d's spectral convolution is the einsum chain, as in JAX), against the CPU on the
+   forward split on the device between the per-snapshot fields (but ``NIOAttn2D``'s),
+   the attention, the fusion and the heads; then (phase ``serve3d``) the 3-D NIO
+   ``NIOFP3D`` at its defaults on 4 sets of 100 snapshots of a 40^3 grid, batch 2 (no
+   kernel of the port on its path: FNO3d's spectral convolution is the einsum chain, as
+   in JAX), against the CPU on the
    first set cut to 8 snapshots, its forwards per second, peak memory and forward split
    on the device between the encoder, the trunk, the fusion and the FNO3d head, and
    three float32 training steps with finite losses; and the ODE-observation NIO
@@ -56,9 +59,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``. It
    them too, its 6 launches counted, its loss and heads' gradients held to the card's
    float32 step, 10 timed float16 steps whose loss must fall
    (:func:`low_precision_steps`); ten float32 steps on one batch with fresh draws, whose
-   loss must fall, timed; steps per second in bfloat16 ``encoder_bn32`` from fresh
-   weights (``blindno_torch.tools.bench_train``), the step's split, the FNO2d layer's
-   backward per call, the BatchNorm correction's cost and the peak memory;
+   loss must fall, timed; the step's split, the FNO2d layer's backward per call, the
+   BatchNorm correction's cost and the peak memory;
 9. trains the fpe2d suite's UNet on the same batch (phase ``train_unet``): one float32
    step on the card against the CPU, its exact zero gradients exact; ten timed steps
    whose loss must fall; a bfloat16 step under JAX's default policy ``all`` from the
@@ -108,14 +110,20 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``. It
    step at the sliced shape, Cout 6 of 12) within phase 8's tolerances, and two ranks
    over NCCL on two cards where the host has them; each case's steps per second and
    wall time; the sliced layer is timed in phase 3;
-14. serves and trains the Transolver NIOs (phase ``trans``): the fpe2d suite's
+14. serves and trains ``NIOFP2D`` at the ``bench.py`` config with ``padding_frac=2.0``
+   on its FNO2d heads (phase ``padded``: each layer at (4, 12, 183, 183), past what one
+   block holds, so the kernel's first stage takes its tiled layout): served through
+   ``predict_fields`` on 4 sets of 100 snapshots of 61x61, 6 launches a forward, the
+   first set against the CPU, then one float32 step on the first set of ``bench.py``'s batch against the
+   CPU's step, 6 launches;
+15. serves and trains the Transolver NIOs (phase ``trans``): the fpe2d suite's
    ``NIOTrans2D`` and ``NIOTransAttn2D`` (Transolver weights drawn at random) through
    ``predict_fields`` on 8 sets of 100 snapshots of 61x61, batch 4, against the CPU,
-   timed and split on the device between the Transolver, the attention, the fusion and
-   the heads, with peak memory; one float32 step of each on the first set of
+   timed and split on the device between the attention, the fusion and the heads, with
+   peak memory; one float32 step of each on the first set of
    ``bench.py``'s batch against the CPU's step, 6 ``fno2d_layer`` launches a forward or
    step counted exactly, and ten timed steps on the whole batch whose loss must fall;
-15. generates every FPE and GPE suite's archives through the CLI (phase ``datagen``) at
+16. generates every FPE and GPE suite's archives through the CLI (phase ``datagen``) at
    each suite's full grid and time axis and a few sets (48 fpe1d, 64 gpe1d, 8 fpe2d, 2
    ncfpe2d), with TF32 on for matrix products, timed per set: the parameters equal to a
    CPU run's bit for bit, the trajectories within 1e-3 of the CPU's on the first set (of
@@ -123,7 +131,7 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``. It
    time-error stage through the CLI on an fpe1d NIO and a gpe1d FNO-branch NIO trained
    for one epoch on those archives, and on one fpe2d sample of an untrained
    ``NIOTrans2D``, each against the CPU's errors;
-16. prints one JSON line per phase, the nvidia-smi line, the kernels line, and last
+17. prints one JSON line per phase, the nvidia-smi line, the kernels line, and last
    ``{"ok": true, "device": {...}}``.
 
 Every path runs with all four kernels' launch counts set to 0 just before it and read
@@ -131,7 +139,7 @@ just after. Any failed check raises, and the script exits non-zero without the l
 line. TF32 is off for matmul and cuDNN throughout, so every comparison is in full
 float32, except around the datagen stage, where the solver must turn it off itself.
 
-The CPU references of phases 14 and 15 run in CPU_WORKERS worker processes, started
+The CPU references of phases 14 to 16 run in CPU_WORKERS worker processes, started
 before the build on the cores it leaves idle and stopped (SIGSTOP) from the build's end
 until after phase 13: phases 3 to 13 run with no other process of this script running
 but phase 13's ranks.
@@ -140,6 +148,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import io
 import json
 import math
@@ -188,6 +197,14 @@ NCFPE2D_HEADS = (4, 12, 100, 100, 32, 32)
 NIOFNO2D_INNER = (400, 4, 76, 76, 12, 12)
 # the same inner FNO2d on the ncfpe2d suite's 80x80 grid, padded to 100x100
 NCFPE2D_INNER = (400, 4, 100, 100, 12, 12)
+# shapes whose stages take the 2-D kernel's tiled layouts (csrc/fno2d_layer.cu): a
+# 200x200 grid at 64x64 modes; the largest grid with every mode kept that the two-stage
+# kernel before took; a thin grid; 192 input channels into 12 at B=2, and at B=4, where
+# S2 takes its weights in channel chunks; and the fpe2d heads with padding_frac=2.0,
+# 61 + 2 x 61 = 183 points a side
+PADDED_HEADS = (4, 12, 183, 183, 32, 32)
+TILED_SHAPES = [(1, 1, 200, 200, 64, 64), (1, 2, 232, 232, 116, 117), (2, 3, 16, 3600, 8, 40),
+                (2, 192, 76, 76, 32, 32, 12), (4, 192, 76, 76, 32, 32, 12), PADDED_HEADS]
 # (B, C, H, W, m1, m2, Cout): the heads' layer sliced for tensor parallelism, as phase
 # parallel's 2 x 2 mesh runs it: 2 of bench.py's 4 sets a data rank, 6 of 12 output
 # channels a model rank
@@ -207,6 +224,13 @@ ODE_HEADS_1D = (16, 30, 125, 15, True)
 PEAK_F32_FLOP_S = 67e12
 PEAK_BYTES_S = 3.35e12
 SERVE = dict(m=8, l=100, n=61, batch=4, timed_rounds=5)
+# phase padded: NIOFP2D at bench.py's config with padding_frac=2.0 on both FNO2d heads
+# (each layer at PADDED_HEADS), served on one batch of 4 sets and stepped once on
+# bench.py's batch, the first PADDED_CHECK_SETS sets of each against the CPU's run in
+# the cpu_pool workers (a set takes the card host's CPU 1.5 s to serve, 7 s to step)
+PADDING_FRAC = 2.0
+PADDED = dict(m=4, l=100, n=61, batch=4)
+PADDED_CHECK_SETS = 1
 MODEL = dict(width=12, modes=32, n_basis=25, neurons=100, fno_layers=3)
 # fpe1d (blindno/suites/registry.py:88-90): 64 sets in batches of 16, the JAX
 # predict_fields default
@@ -469,7 +493,7 @@ def check_and_time(cases, variants, library, tol, stats):
                            eager_kernel_ms=eager_ms, wrapper_host_ms=host_ms,
                            torch_add_host_ms=op_host_ms,
                            **layer_bound(bound_shape, act is not None))
-                if main and act:  # the stages of the gelu layer at the main shape
+                if shape == MAIN_SHAPE and act:  # the 2-D gelu layer's stages
                     row["stages_ms"] = stage_ms(lambda: kernel(*args))
             emit("kernels", **row)
             s = stats.setdefault(name, {"max_abs_err": 0.0})
@@ -479,16 +503,14 @@ def check_and_time(cases, variants, library, tol, stats):
                                               "bound_ms", "bound_by")})
 
 
-def phase_kernels():
-    from blindno_torch.ops.fno_layer import fno1d_layer_plain, fno2d_layer_plain
-    from blindno_torch.ops.spectral import (spectral_conv1d, spectral_conv1d_fft,
-                                            spectral_conv2d, spectral_conv2d_fft)
-    from blindno_torch.ops.spectral_cuda import (fno1d_layer_cuda, fno2d_layer_cuda,
-                                                 spectral_conv1d_cuda, spectral_conv2d_cuda)
+def fft_restatements():
+    """Each kernel's function in ``torch.fft`` calls (its ``library_ms`` yardstick),
+    called with the kernel's inputs (:func:`layer_inputs`) and its activation flag."""
+    from blindno_torch.ops.spectral import spectral_conv1d_fft, spectral_conv2d_fft
 
     gelu = torch.nn.functional.gelu
     act_fn = lambda act: gelu if act else (lambda y: y)
-    library = {
+    return {
         "fno2d_layer": lambda x, wr, wi, pk, pb, act: act_fn(act)(
             spectral_conv2d_fft(x, wr, wi) + torch.einsum("bchw,co->bohw", x, pk)
             + pb.reshape(1, -1, 1, 1)),
@@ -498,6 +520,15 @@ def phase_kernels():
             + pb.reshape(1, -1, 1)),
         "spectral_conv1d": lambda x, wr, wi, pk, pb, dc, act: spectral_conv1d_fft(x, wr, wi, dc),
     }
+
+
+def phase_kernels():
+    from blindno_torch.ops.fno_layer import fno1d_layer_plain, fno2d_layer_plain
+    from blindno_torch.ops.spectral import spectral_conv1d, spectral_conv2d
+    from blindno_torch.ops.spectral_cuda import (fno1d_layer_cuda, fno2d_layer_cuda,
+                                                 spectral_conv1d_cuda, spectral_conv2d_cuda)
+
+    library = fft_restatements()
     variants_2d = [
         ("fno2d_layer", True, lambda x, wr, wi, pk, pb: fno2d_layer_cuda(x, wr, wi, pk, pb, True),
          lambda x, wr, wi, pk, pb: fno2d_layer_plain(x, wr, wi, pk, pb, True)),
@@ -515,13 +546,14 @@ def phase_kernels():
                    lambda x, wr, wi, pk, pb, dc: spectral_conv1d(x, wr, wi, dc))
     stats = {}
     with torch.inference_mode():
-        # every shape checked; timed: the main shapes and the low-precision steps' (the
-        # fpe2d heads and the NIOFNO2D inner branch, the fpe1d heads and the NIOFNO1D
-        # branch at batch 32); the other shapes' times are in PERF.md from earlier runs
+        # every shape checked; timed: the main shapes, and in 2-D the NIOFNO2D inner
+        # branch and the padded heads (the kernel's tiled layout on the slice's path);
+        # the other shapes' times are in PERF.md from earlier runs
         check_and_time([(MAIN_SHAPE, True, True), (RAGGED_SHAPE, False, False),
                         (NCFPE2D_HEADS, False, False), (NIOFNO2D_INNER, True, False),
                         (NCFPE2D_INNER, False, False), (FIT_SHAPE, False, False),
-                        (TP_SLICE, False, False)],
+                        (TP_SLICE, False, False),
+                        *((shape, shape == PADDED_HEADS, False) for shape in TILED_SHAPES)],
                        variants_2d, library, KERNEL_TOL, stats)
         check_and_time([(HEADS_1D, True, True), (RAGGED_1D, False, False)],
                        [layer_1d(True), layer_1d(False), spectral_1d], library,
@@ -533,7 +565,7 @@ def phase_kernels():
                        stats)
         check_and_time([(ODE_HEADS_1D, False, False)], [layer_1d(True), layer_1d(False)],
                        library, KERNEL_TOL_1D, stats)
-        check_and_time([(TRAIN_HEADS_1D, True, False), (TRAIN_BRANCH_1D, True, False),
+        check_and_time([(TRAIN_HEADS_1D, False, False), (TRAIN_BRANCH_1D, False, False),
                         (TRAIN_GPE_HEADS_1D, False, False)], [layer_1d(True), layer_1d(False)],
                        library, KERNEL_TOL_1D, stats)
         for shape, (name, act, kernel, plain), tol in (
@@ -549,10 +581,8 @@ def low_precision_operands(name, act, kernel, plain, shape, tol):
     """The wrapper given bfloat16 and float16 operands at ``shape``, as the training
     step's low-precision modes call it: its result in that dtype, within ``tol`` plus the
     dtype's unit roundoff (of the output's scale) of the plain version on the operands
-    raised to float32; and the call's time from a CUDA graph (the casts to float32, the
-    float32 kernel, the cast back) beside the float32 call's."""
+    raised to float32 (the casts' and the kernel's time are in PERF.md section 6, PR 16)."""
     args = layer_inputs(shape, "cuda")
-    f32_ms = graph_ms(lambda: kernel(*args))
     for dtype, eps in ((torch.bfloat16, 2.0 ** -8), (torch.float16, 2.0 ** -11)):
         low = [a.to(dtype) if torch.is_tensor(a) else a for a in args]
         got = kernel(*low)
@@ -563,8 +593,7 @@ def low_precision_operands(name, act, kernel, plain, shape, tol):
         err = check_close(f"{name} act={act} {shape} {dtype}", got.float(), want, tol + eps,
                           scale)
         emit("kernels", kernel=name, gelu=act, shape=shape, operands=str(dtype)[6:],
-             max_abs_err=err, tol=f"rtol {tol + eps:.3g}, atol that x {scale:.3g}",
-             cast_and_kernel_ms=graph_ms(lambda: kernel(*low)), float32_kernel_ms=f32_ms)
+             max_abs_err=err, tol=f"rtol {tol + eps:.3g}, atol that x {scale:.3g}")
 
 
 def calibrate_bn(model, x, grid, rng):
@@ -595,12 +624,12 @@ def calibrate_bn(model, x, grid, rng):
 
 
 def serve(label, cpu_model, inputs, grid, batch, rounds, layer, per_forward, min_spread=1e-5,
-          out_dim=2, cpu_reference=None):
+          out_dim=2, cpu_reference=None, cpu_sets=None):
     """One model's main path: ``predict_fields`` on the card with every launch counted
     (``per_forward`` launches of kernel ``layer`` per forward and no other), its
     throughput, and its output of ``out_dim`` fields checked against the CPU plain path
-    on the first batch of sets, computed here or handed in by ``cpu_reference()`` as
-    (output, seconds). The
+    on the first batch of sets (the first ``cpu_sets`` where given), computed here or
+    handed in by ``cpu_reference()`` as (output, seconds). The
     outputs of the first two sets must differ by ``min_spread`` at least, so that the
     output depends on the input. Returns the model on the card, the launch counts and
     the fields of its phase line."""
@@ -628,7 +657,7 @@ def serve(label, cpu_model, inputs, grid, batch, rounds, layer, per_forward, min
     forwards = rounds * n_batches
 
     # the same weights on the CPU plain path; the tolerance scales with the output
-    k = batch
+    k = cpu_sets or batch
     if cpu_reference is None:
         t0 = time.perf_counter()
         want = predict_fields(cpu_model, inputs[:k], grid, batch=k, device="cpu")
@@ -1046,7 +1075,13 @@ def phase_serve_nio2d():
              ("fpe2d NIOFNOAttn2D", nio2d.NIOFNOAttn2D, FNO_CONFIG, SERVE, 8, 1e-7),
              ("ncfpe2d NIOFNO2D", nio2d.NIOFNO2D, FNO_CONFIG, SERVE_UNET_NC, 8, 1e-7))
     for label, cls, config, sizes, per_forward, min_spread in paths:
-        counts, fields, split = serve_split(label, cls, config, sizes, per_forward, min_spread)
+        # NIOAttn2D's split times the attention, the fusion and the heads: its forward
+        # and DeepONet times are PERF.md's (section 5, PR 11: 18.3-18.5 ms, the DeepONet
+        # 98%)
+        parts_of = (("fusion", "heads", "attention") if cls is nio2d.NIOAttn2D else
+                    ("forward", "fields", "fusion", "heads", "attention"))
+        counts, fields, split = serve_split(label, cls, config, sizes, per_forward, min_spread,
+                                            parts_of=parts_of)
         launches += counts["fno2d_layer"]
         emit("serve_nio2d", model=label, config=config, **fields, device_split=split)
     return launches
@@ -1281,11 +1316,9 @@ def phase_train(kernel_ms, smi_line):
     if not losses[-1] < losses[0]:
         raise RuntimeError(f"train: loss did not fall over {TRAIN_STEPS} steps: {losses}")
 
-    # 5. throughput (bf16 encoder_bn32 from fresh weights, bench_train), the step's
-    # split, the layer's backward, the BatchNorm correction
-    cdtype, policy = bench_train.MODES["bf16_encoder_bn32"]
-    sps = {"f32": f32_sps,
-           "bf16_encoder_bn32": bench_train.steps_per_sec(cdtype, amp_policy=policy)}
+    # 5. the step's split, the layer's backward, the BatchNorm correction (the bf16
+    # encoder_bn32 steps/s from fresh weights are bench_train's, PERF.md section 5)
+    sps = {"f32": f32_sps}
     ev = lambda: torch.cuda.Event(enable_timing=True)
     split = {k: 0.0 for k in ("forward_ms", "backward_ms", "optimizer_ms", "encoder_fwd_bwd_ms",
                              "heads_fwd_bwd_ms")}
@@ -1658,10 +1691,91 @@ def trans_step_reference(name):
     return (loss, as_numpy(grads), as_numpy(state)), time.perf_counter() - t0
 
 
+def padded_nio():
+    """Phase ``padded``'s model class: NIOFP2D with PADDING_FRAC on its FNO2d heads."""
+    from blindno_torch.models import nio2d
+
+    return functools.partial(nio2d.NIOFP2D, padding_frac=PADDING_FRAC)
+
+
+def padded_serve_reference():
+    """On the CPU: the padded NIOFP2D's output on the first PADDED_CHECK_SETS of PADDED's
+    sets (the model and sets of :func:`served_model`), and the seconds it took."""
+    from blindno_torch.eval.field_eval import predict_fields
+
+    t0 = time.perf_counter()
+    cpu_model, inputs, grid = served_model(padded_nio(), MODEL, PADDED, calibrate_bn)
+    k = PADDED_CHECK_SETS
+    out = predict_fields(cpu_model, inputs[:k], grid, batch=k, device="cpu")
+    return out, time.perf_counter() - t0
+
+
+def padded_step_reference():
+    """On the CPU: phase ``padded``'s training step (:func:`one_step` of the padded
+    NIOFP2D from seed 0 on the first PADDED_CHECK_SETS sets of ``bench.py``'s batch) and
+    its seconds."""
+    from blindno_torch.tools import bench_train
+
+    model = padded_nio()(**bench_train.CONFIG, generator=torch.Generator().manual_seed(0),
+                         device="cpu").train()
+    x, y, grid = bench_train.bench_batch("cpu")
+    k = PADDED_CHECK_SETS
+    t0 = time.perf_counter()
+    loss, grads, state = one_step(model, x[:k], y[:k], grid, trans_draw(bench_train.BATCH["l"]))
+    as_numpy = lambda d: {k: v.numpy() for k, v in d.items()}
+    return (loss, as_numpy(grads), as_numpy(state)), time.perf_counter() - t0
+
+
+def phase_padded(smi_line, refs):
+    """NIOFP2D at ``bench.py``'s config with ``padding_frac=2.0`` on both FNO2d heads, a
+    model the JAX registry builds whose padded grid (183 x 183) the 2-D kernel takes in
+    its tiled layout: served through ``predict_fields`` on PADDED's sets (6 launches a
+    forward, every one at PADDED_HEADS), the first PADDED_CHECK_SETS against the CPU,
+    then one float32 ``train_step``
+    on the first PADDED_CHECK_SETS sets of ``bench.py``'s batch (the forward kernel inside
+    ``FNO2dLinear``, 6 launches) against the CPU's step within phase ``train``'s
+    tolerances. The CPU's output and step are ``refs``' futures
+    (:func:`submit_cpu_references`). Returns the ``fno2d_layer`` launches."""
+    from blindno_torch.tools import bench_train
+
+    cpu_model, inputs, grid = served_model(padded_nio(), MODEL, PADDED, calibrate_bn)
+    head = cpu_model.heads[0]
+    padded = tuple(head.lift(torch.zeros(1, *grid.shape[:2], head.fc0.in_features)).shape[2:])
+    if padded != PADDED_HEADS[2:4]:
+        raise RuntimeError(f"padded: the heads' grid is {padded}, want {PADDED_HEADS[2:4]}")
+    _, counts, fields = serve("NIOFP2D padding_frac=2.0", cpu_model, inputs, grid,
+                              PADDED["batch"], 1, "fno2d_layer", 2 * MODEL["fno_layers"],
+                              cpu_reference=refs["serve"].result, cpu_sets=PADDED_CHECK_SETS)
+    launches = counts["fno2d_layer"]
+
+    model = padded_nio()(**bench_train.CONFIG, generator=torch.Generator().manual_seed(0),
+                         device="cuda").train()
+    x, y, grid = bench_train.bench_batch("cuda")
+    k = PADDED_CHECK_SETS
+    counts, card = counted(lambda: one_step(model, x[:k], y[:k], grid,
+                                            trans_draw(bench_train.BATCH["l"])))
+    expect_launches("padded NIOFP2D training step", counts, fno2d_layer=6)
+    launches += counts["fno2d_layer"]
+    (loss_cpu, grads_cpu, state_cpu), cpu_s = refs["step"].result()
+    as_torch = lambda d: {k: torch.from_numpy(v) for k, v in d.items()}
+    errs = train_errors(card, (loss_cpu, as_torch(grads_cpu), as_torch(state_cpu)))
+    emit("padded", model="NIOFP2D", config=MODEL, padding_frac=PADDING_FRAC,
+         layer_shape=PADDED_HEADS, serve=fields, train_sets=k, train_launches=counts,
+         loss_card=card[0], loss_cpu=loss_cpu,
+         worst_rel_l2=sorted(errs.items(), key=lambda kv: -kv[1])[:3],
+         tol=f"relative L2: {TRAIN_TOL}, encoder gradients and parameters {ENCODER_TOL}",
+         cpu_step_s=cpu_s, nvidia_smi=smi_line)
+    return launches
+
+
 def submit_cpu_references(pool):
-    """Queue the CPU references of phases ``trans`` and ``datagen`` on ``pool``'s worker:
-    each Transolver NIO's served output and training step, each suite's generator run."""
-    return {"serve": {name: pool.submit(trans_serve_reference, name) for name in TRANS_MODELS},
+    """Queue the CPU references of phases ``padded``, ``trans`` and ``datagen`` on
+    ``pool``'s workers, in that order: the padded NIOFP2D's served output and training
+    step, each Transolver NIO's served output and training step, each suite's generator
+    run."""
+    return {"padded": {"serve": pool.submit(padded_serve_reference),
+                       "step": pool.submit(padded_step_reference)},
+            "serve": {name: pool.submit(trans_serve_reference, name) for name in TRANS_MODELS},
             "step": {name: pool.submit(trans_step_reference, name) for name in TRANS_MODELS},
             "datagen": {suite: pool.submit(datagen_reference, suite, m, 0)
                         for suite, (m, _) in DATAGEN.items()}}
@@ -1670,8 +1784,8 @@ def submit_cpu_references(pool):
 def phase_trans(smi_line, refs):
     """The Transolver NIOs (``NIOTrans2D``, ``NIOTransAttn2D``) at the fpe2d suite's
     config: served on SERVE's sets through ``predict_fields`` (Transolver weights drawn
-    at random), against the CPU, timed and split on the device between the Transolver,
-    the attention, the fusion and the heads, with peak memory; then one float32
+    at random), against the CPU, timed and split on the device between the attention,
+    the fusion and the heads, with peak memory; then one float32
     ``train_step`` on the first TRANS_CHECK_SETS sets of ``bench.py``'s batch against the
     CPU's step, 6 ``fno2d_layer`` launches counted, the frozen fusion unchanged, and ten
     steps on the whole batch whose loss must fall, timed. The CPU's outputs and steps are
@@ -1684,8 +1798,9 @@ def phase_trans(smi_line, refs):
     served, stepped = refs["serve"], refs["step"]
     launches = 0
     # the attention model's Transolver, fusion and heads are the plain one's: its split
-    # times the attention alone
-    for name, parts_of in (("trans", ("forward", "fields", "fusion", "heads")),
+    # times the attention alone. The forward's and the Transolver's graph times and top
+    # kernels are PERF.md's (section 5, PR 13)
+    for name, parts_of in (("trans", ("fusion", "heads")),
                            ("trans_attn", ("attention",))):
         cls, config = getattr(nio2d, TRANS_MODELS[name]), bench_train.MODELS[name][1]
         torch.cuda.reset_peak_memory_stats()
@@ -2898,6 +3013,7 @@ def main():
         with stopped(workers):
             launches = earlier_phases(timed, smi_line, ranks)
         stats = launches.pop("stats")
+        launches["fno2d_layer"] += timed("padded", phase_padded, smi_line, refs["padded"])
         launches["fno2d_layer"] += timed("trans", phase_trans, smi_line, refs)
         for kernel, count in timed("datagen", phase_datagen, smi_line, pool, refs).items():
             launches[kernel] += count

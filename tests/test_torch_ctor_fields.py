@@ -3,7 +3,8 @@ value other than its default against flax on the CPU.
 
 - ``head_dims`` of the six 2-D NIOs, at (2, 1): heads of any output width, concatenated;
 - ``input_dimensions_trunk`` and ``n_hidden_layers`` of ``NIOFP2D`` and ``NIOAttn2D``;
-- ``padding_frac`` of ``FNO1d`` and ``FNO2d`` and of the models that build them, at 0.5;
+- ``padding_frac`` of ``FNO1d`` and ``FNO2d`` and of the models that build them, at 0.5,
+  and of ``NIOFP2D`` at 2.0;
 - ``trainable`` of ``MeanFieldFusion`` and ``TokenMeanFusion``: the fusion takes
   gradients, joins ``make_optimizer``'s Adam, and a step moves it as JAX's step does;
 - ``dims`` of ``Encoder1D`` and ``Encoder2D`` (JAX's ``dim1``-``dim5``), narrowed.
@@ -175,16 +176,21 @@ def test_padding_frac_of_the_fnos(dim):
     assert _scale_err(got, want) < TOL
 
 
-@pytest.mark.parametrize("name", ["fno", "trans"])
-def test_padding_frac_of_the_models(name, monkeypatch):
-    """A model at ``padding_frac=0.5`` against JAX's with its FNO2d given the same
-    (``NIOFNO2D``: the branch and the heads; ``NIOTrans2D``: the heads)."""
-    monkeypatch.setattr(jax_nio2d, "FNO2d", functools.partial(jax_fno.FNO2d, padding_frac=0.5))
+@pytest.mark.parametrize("name,frac", [("fno", 0.5), ("trans", 0.5), ("nio", 2.0)],
+                         ids=["fno", "trans", "nio-2.0"])
+def test_padding_frac_of_the_models(name, frac, monkeypatch):
+    """A model at ``padding_frac`` ``frac`` against JAX's with its FNO2d given the same
+    (``NIOFNO2D``: the branch and the heads; ``NIOTrans2D`` and ``NIOFP2D``: the heads).
+    ``NIOFP2D`` at 2.0, with the narrowed Encoder2D, pads its 61x61 grid to 183x183: a
+    grid that the CUDA kernel takes in its tiled layout."""
+    monkeypatch.setattr(jax_nio2d, "FNO2d", functools.partial(jax_fno.FNO2d, padding_frac=frac))
     jcls, cls, cfg, spatial = HEAD_MODELS[name]
     rng = np.random.default_rng(5)
     x, grid = _sets(rng, *spatial), _grid(*spatial)
-    model = cls(**cfg, padding_frac=0.5, device="cpu")
-    assert {m.padding_frac for m in model.modules() if isinstance(m, FNO2d)} == {0.5}
+    model = cls(**cfg, padding_frac=frac, device="cpu")
+    if name == "nio":
+        _narrow_encoder2d(monkeypatch)(model)
+    assert {m.padding_frac for m in model.modules() if isinstance(m, FNO2d)} == {frac}
     _held(jcls(**cfg), model, x, grid)
 
 

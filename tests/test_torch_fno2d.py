@@ -17,13 +17,16 @@ import torch
 from blindno.nn.fno import FNO2d as JFNO2d
 from blindno.nn.fno import SpectralConv2d as JSpectralConv2d
 from blindno.ops.config import set_spectral_impl, spectral_impl
-from blindno.ops.spectral_pallas import fno2d_layer_pallas
+from blindno.ops.spectral_pallas import fno2d_layer_pallas, spectral_conv2d_pallas
 from blindno_torch.convert import from_flax
 from blindno_torch.nn.fno import FNO2d, SpectralConv2d
 from blindno_torch.ops.fno_layer import fno2d_layer_plain
 from blindno_torch.ops.spectral import dft_matrices_2d, spectral_conv2d
 
-SHAPES = [(2, 4, 24, 20, 6, 5), (3, 5, 40, 36, 7, 9)]
+# (B, C, H, W, m1, m2); the last two are shapes whose padded grid the CUDA kernel takes in
+# its tiled layouts, at small widths: a thin grid, and a square one past 176 x 176
+TILED_SHAPES = [(1, 2, 16, 360, 4, 40), (1, 1, 184, 184, 32, 32)]
+SHAPES = [(2, 4, 24, 20, 6, 5), (3, 5, 40, 36, 7, 9), *TILED_SHAPES]
 
 
 @pytest.mark.parametrize("apply_act", [True, False])
@@ -38,6 +41,18 @@ def test_fno2d_layer_plain_matches_pallas(shape, apply_act):
     want = np.asarray(fno2d_layer_pallas(*map(jnp.asarray, (x, wr, wi, pk, pb)),
                                          apply_act=apply_act, interpret=True))
     got = fno2d_layer_plain(*map(torch.tensor, (x, wr, wi, pk, pb)), apply_act=apply_act)
+    np.testing.assert_allclose(got.numpy(), want, rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.parametrize("shape", TILED_SHAPES)
+def test_spectral_conv2d_plain_matches_pallas(shape):
+    b, c, h, w, m1, m2 = shape
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((b, c, h, w)).astype(np.float32)
+    wr, wi = (rng.standard_normal((c, c + 1, 2 * m1, m2)).astype(np.float32) for _ in range(2))
+    want = np.asarray(spectral_conv2d_pallas(*map(jnp.asarray, (x, wr, wi)), interpret=True))
+    got = spectral_conv2d(*map(torch.tensor, (x, wr, wi)))
+    assert got.shape == want.shape == (b, c + 1, h, w)
     np.testing.assert_allclose(got.numpy(), want, rtol=3e-4, atol=3e-4)
 
 

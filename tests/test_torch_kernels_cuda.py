@@ -3,6 +3,8 @@
 Marked ``cuda``: each test asks the ``cuda_device`` fixture, which skips it where no
 CUDA device is present (the decision is taken when the test runs, never at import).
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -25,6 +27,17 @@ SHAPES = [(4, 12, 76, 76, 32, 32), (3, 5, 40, 36, 7, 9), (4, 12, 100, 100, 32, 3
           (400, 4, 76, 76, 12, 12), (1, 1, 9, 11, 2, 3), (1, 2, 130, 132, 65, 20),
           (16, 12, 76, 76, 32, 32), (4, 12, 76, 76, 32, 32, 6), (2, 4, 76, 76, 12, 12, 2)]
 TP_SHAPES = [s for s in SHAPES if len(s) > 6]
+# shapes past one block's shared memory or the grid's y and z limits, each in a stage's
+# tiled layout: a 200x200 grid at 64x64 modes; the largest grid with every mode kept
+# that the two-stage kernel before this design took; a thin grid; 192 input channels at
+# B=2 (whole) and B=4 (S2 in channel chunks); the fpe2d heads padded by 2x61 to 183; a
+# tall grid (S2 in H chunks); 2*m1 = 300 mode rows (S1 in two mode tiles); 600 of 601
+# W-modes (S3 in two passes over Z's columns); 4100 input channels (pointwise weights
+# past those staged); 140000 batch elements (the grids folded over y and z)
+TILED_SHAPES = [(1, 1, 200, 200, 64, 64), (1, 2, 232, 232, 116, 117), (2, 3, 16, 3600, 8, 40),
+                (2, 192, 76, 76, 32, 32), (4, 192, 76, 76, 32, 32), (4, 12, 183, 183, 32, 32),
+                (1, 2, 1200, 12, 4, 5), (1, 2, 600, 8, 150, 3), (1, 1, 4, 1200, 1, 600),
+                (1, 4100, 4, 4, 1, 1, 2), (140000, 1, 2, 1, 1, 1)]
 # 1-D (B, C, N, modes, dc_half[, Cout], Cout = C unless given): the fpe1d heads, the
 # FNO-branch model's inner FNO1d, the GPE width, a ragged shape without the DC halving,
 # the gpe1d heads, an even N that keeps its Nyquist mode, one batch row with more output
@@ -103,15 +116,37 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
             spectral_conv2d_cuda(x, wr[:, :, :-1], wi[:, :, :-1])
 
 
-def test_kernel_refuses_a_grid_beyond_its_shared_memory(cuda_device):
-    """A 200x200 grid at 64x64 modes (the PR 5 kernel took it) needs more shared memory
-    in the first stage than a block has: the wrapper raises and counts no launch."""
-    x, wr, wi, pk, pb = _inputs((1, 1, 200, 200, 64, 64), cuda_device)
+@pytest.mark.parametrize("shape", TILED_SHAPES)
+def test_fno2d_kernel_takes_shapes_beyond_one_block(cuda_device, shape):
+    """Shapes whose stages take their tiled layouts (the note of csrc/fno2d_layer.cu):
+    fno2d_layer_cuda with and without gelu and spectral_conv2d_cuda against their plain
+    versions, one launch each."""
+    x, wr, wi, pk, pb = _inputs(shape, cuda_device)
+    for wrapper, call, plain in (
+            (fno2d_layer_cuda, lambda: fno2d_layer_cuda(x, wr, wi, pk, pb, True),
+             lambda: fno2d_layer_plain(x, wr, wi, pk, pb, True)),
+            (fno2d_layer_cuda, lambda: fno2d_layer_cuda(x, wr, wi, pk, pb, False),
+             lambda: fno2d_layer_plain(x, wr, wi, pk, pb, False)),
+            (spectral_conv2d_cuda, lambda: spectral_conv2d_cuda(x, wr, wi),
+             lambda: spectral_conv2d(x, wr, wi))):
+        before = wrapper.launches
+        with torch.inference_mode():
+            got = call()
+            want = plain()
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        torch.testing.assert_close(got, want, rtol=3e-4, atol=3e-4)
+
+
+def test_kernel_refuses_tensors_beyond_32_bit_indexing(cuda_device):
+    """An output of more than 2^31 - 1 elements (2^21 output channels of a 32x32 grid) is
+    the one shape the 2-D kernel refuses: the wrapper raises before any launch."""
+    x, wr, wi, pk, pb = _inputs((1, 1, 32, 32, 1, 1, 2 ** 21), cuda_device)
     before = fno2d_layer_cuda.launches, spectral_conv2d_cuda.launches
     with torch.inference_mode():
-        with pytest.raises(RuntimeError, match="shared memory"):
+        with pytest.raises(ValueError, match="32-bit"):
             fno2d_layer_cuda(x, wr, wi, pk, pb)
-        with pytest.raises(RuntimeError, match="shared memory"):
+        with pytest.raises(ValueError, match="32-bit"):
             spectral_conv2d_cuda(x, wr, wi)
     assert (fno2d_layer_cuda.launches, spectral_conv2d_cuda.launches) == before
 
@@ -483,15 +518,23 @@ def test_wrappers_take_low_precision_operands(cuda_device, dim, dtype):
     assert all(t.grad.dtype == low and torch.isfinite(t.grad.float()).all() for t in leaves)
 
 
-def test_padding_beyond_the_kernel_meets_its_refusal(cuda_device):
-    """An FNO2d whose ``padding_frac`` takes the padded grid past the kernel's limits
-    (61 points padded by 2 x 61 to 183, beyond 176 at 32 x 32 modes) raises the kernel's
-    shared-memory refusal and launches nothing: no path falls back."""
+def test_padding_beyond_one_block_runs_on_the_card(cuda_device):
+    """An FNO2d whose ``padding_frac`` takes the padded grid past what one block holds
+    (61 points padded by 2 x 61 to 183 at 32 x 32 modes: S1 takes its tiled layout) runs
+    on the card through the kernel, 3 launches, within 2e-3 of the output's scale (the NIO
+    parity bound, tests/test_nio2d_torch_parity.py:190) of its own CPU run."""
     from blindno_torch.nn.fno import FNO2d
 
-    model = FNO2d(32, 12, 3, 12, 1, padding_frac=2.0).to(cuda_device)
-    x = torch.randn(1, 61, 61, 12, device=cuda_device)
+    model = FNO2d(32, 12, 3, 12, 1, padding_frac=2.0)
+    x = torch.tensor(np.random.default_rng(2).standard_normal((1, 61, 61, 12)),
+                     dtype=torch.float32)
+    card = copy.deepcopy(model).to(cuda_device)
+    assert card.lift(x.to(cuda_device)).shape[2:] == (183, 183)
     before = fno2d_layer_cuda.launches
-    with torch.inference_mode(), pytest.raises(RuntimeError, match="shared memory"):
-        model(x)
-    assert fno2d_layer_cuda.launches == before
+    with torch.inference_mode():
+        got = card(x.to(cuda_device))
+        want = model(x)
+    torch.cuda.synchronize()
+    assert fno2d_layer_cuda.launches == before + 3
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-3, atol=2e-3 * scale)
