@@ -80,12 +80,13 @@ __device__ __forceinline__ void wait_prerequisites() {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
-// Launch `kernel` as clusters of cluster_dims blocks that may start before the previous
-// kernel on `stream` ends (see wait_prerequisites); returns the first error of the
-// launch.
+// Launch `kernel` as clusters of cluster_dims blocks; with `dependent`, they may start
+// before the previous kernel on `stream` ends (see wait_prerequisites), else only after
+// it. Returns the first error of the launch.
 template <typename... Params, typename... Args>
-cudaError_t launch_clusters(void (*kernel)(Params...), dim3 grid, int threads, size_t smem,
-                            dim3 cluster_dims, cudaStream_t stream, Args... args) {
+cudaError_t launch_cluster_grid(void (*kernel)(Params...), dim3 grid, int threads, size_t smem,
+                                dim3 cluster_dims, bool dependent, cudaStream_t stream,
+                                Args... args) {
   cudaLaunchAttribute attrs[2];
   attrs[0].id = cudaLaunchAttributeClusterDimension;
   attrs[0].val.clusterDim.x = cluster_dims.x;
@@ -99,9 +100,16 @@ cudaError_t launch_clusters(void (*kernel)(Params...), dim3 grid, int threads, s
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = attrs;
-  cfg.numAttrs = 2;
+  cfg.numAttrs = dependent ? 2 : 1;
   const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
   return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// launch_cluster_grid as a programmatic dependent of the kernel before it on `stream`.
+template <typename... Params, typename... Args>
+cudaError_t launch_clusters(void (*kernel)(Params...), dim3 grid, int threads, size_t smem,
+                            dim3 cluster_dims, cudaStream_t stream, Args... args) {
+  return launch_cluster_grid(kernel, grid, threads, smem, cluster_dims, true, stream, args...);
 }
 
 }  // namespace blindno

@@ -90,32 +90,72 @@
 // L2) 34.3 and 30.2 us; with only the matrix multicast and x read from L2, 32.5 and
 // 27.7 us. Each was slower than this design in all 10 rounds, save the spectral conv
 // with x read from L2, which reads no x and so runs the same code.
+// The layouts past the whole ones ("Shapes" below) are bound by their blocks' chains of
+// loads and barriers, not by the card's rates (10-190x their bound by bytes), so they
+// are laid out to fill the card. The same tool (--tiled: medians of 10 alternating rounds
+// against the layouts before this design in the same process, same card) gives, gelu
+// layer / spectral conv in us, before, and torch.fft's restatement of the layer:
+// 200 x 200 at 64 x 64 modes 22.4 / 21.4 (67.2 / 63.7; 30.7 / 23.6), 232 x 232 with
+// every mode kept 55.4 / 54.4 (106.5 / 103.9; 66.4 / 58.7), 16 x 3600 31.0 / 30.3
+// (73.7 / 67.2; 88.6 / 41.8), 192 -> 12 channels at B = 2 164.6 / 137.6 (281.4 / 196.6;
+// 252.8 / 216.3) and at B = 4 251.9 / 215.8 (334.3 / 236.1; 308.1 / 249.6), the fpe2d
+// heads padded to 183 x 183 122.6 / 103.8 (180.4 / 109.9; 181.0 / 144.6). The models'
+// shapes kept their layouts, each as fast as before or faster (by up to 2.9%).
+// Tried and not kept: two accumulator chains a product for the tiled products (no
+// change), 48-row or 32-row S1 chunks (up to 30% slower), half the mode rows a S1
+// block at 200 x 200 (blocks packed two an SM: slower), a tiled S2 launched as a
+// programmatic dependent of the tiled S1 (a fifth slower) and the tiled S1 as one where
+// its grid takes more than one block an SM (16 x 3600: 38.5 against 30.7 us).
 //
 // Shapes: any B, Cin, Cout >= 1, any H and W, 1 <= m1 <= H/2 and 1 <= m2 <= W/2 + 1,
-// every tensor indexable in 32 bits (the wrapper's guard, ops/spectral_cuda.py). Each
-// stage takes the layout above, its operands whole in one block, where they fit in the
-// 227 KB a block may use and its grid in the y and z limits (65535); else the host plan
-// (launch_layer) picks the stage's tiled layout, in this source, over the same scratch:
+// every tensor indexable in 32 bits (the wrapper's guard, ops/spectral_cuda.py). The host
+// plan (launch_layer) picks each stage's layout from the shape, the card's SM count and
+// the kernels' occupancy. The models' layers (chip_smoke.py's MAIN_SHAPE, RAGGED_SHAPE,
+// FIT_SHAPE, NCFPE2D_HEADS, NIOFNO2D_INNER, NCFPE2D_INNER and TP_SLICE: at most 12 input
+// channels, grids up to 100 x 100 whose planes and matrices fit one block, whole-layout
+// S2 blocks of at most 78 KB, S3 grids of 45 blocks or more) take the whole layouts of
+// the design above at every stage; each other layout below is taken only past one of
+// those bounds, and tests/test_torch_kernels_cuda.py holds each against the plain
+// version (TILED_SHAPES).
 //   S1. Whole, a block holds its x plane and the +-H matrix (where both do not fit, the
 //       matrix in the plane's place after step 1): square grids up to 176 x 176 at
 //       32 x 32 modes, 144 x 144 with every mode kept, 16 rows of up to 1408 points.
-//       Tiled (fno2d_forward_transform_tiled), a block streams its plane in chunks of
+//       Tiled (fno2d_forward_transform_tiled), the plane comes in chunks of
 //       hc = min(H, 64) rows by 4096/hc columns (64 by 64 at most), double-buffered by
-//       cp.async, and step 1 sums Y = X Fy over a row chunk's column chunks in
-//       registers, one (row tile, n tile) a warp; step 2 then adds that row chunk's B2
-//       against its rows of the +-H matrix into S, also in registers, over the row
-//       chunks. A block takes at most 256 mode rows (two row tiles a warp): more, and
-//       the mode tiles run as blocks of their own beside the column tiles (grid y and z),
-//       each running step 1 again. At most 207 KB (hc = 64, 256 mode rows).
+//       cp.async; step 1 sums Y = X Fy over a row chunk's column chunks in registers, one
+//       (row tile, n tile) a warp, and step 2 adds the row chunk's B2 against its rows of
+//       the +-H matrix into S, in registers too. A block takes at most 256 mode rows (two
+//       row tiles a warp); more, and the mode tiles run as blocks of their own beside the
+//       column tiles (grid y and z). A block's chain of chunks, each a load, a barrier
+//       and a small product, bounds this layout, not the card's rates: where the grid
+//       would leave SMs idle, a cluster of cs = 2, 4 or 8 blocks (the largest whose grid
+//       still fits on the card at once, at most one block a chunk) splits the plane's
+//       chunks, in order, into cs runs that may cross row chunks (and where even 8 blocks
+//       would take more than a chunk each, W chunks wide enough for one a block are
+//       taken where they keep the cluster: 200 x 200 at 64 x 64 modes, 2 chunks of
+//       64 x 104 a row chunk instead of 4 of 64 x 64). Each block keeps its
+//       part of S in registers and sends each block of the cluster its share of the part
+//       through distributed shared memory; after one cluster barrier each block sums its
+//       share in rank order and writes it: no atomics, no launch more, the same sums in
+//       every run. Where its grid takes one block an SM at most, the layout is a
+//       programmatic dependent of the kernel before: it stages its first rows of the
+//       +-H matrix (a constant) while that kernel ends, and reads x after the wait. At
+//       most 224 KB (hc = 64, 256 mode rows).
 //   S2. Whole, a block holds its slice of the inverse H matrix and its partial product
 //       over every H row, and its slice of every input channel's weights: up to 175
-//       input channels at the main shape (193 at B = 2), up to 480 rows. Tiled
-//       (fno2d_mix_inverse_h_tiled), a block takes its slice's mode rows 16 at a time:
-//       one mix item a thread, summed in registers over chunks of 64 input channels'
-//       weights, then that row chunk's inverse product added into the partial product of
-//       an H chunk of up to 256 rows; the cluster sums each H chunk through distributed
-//       shared memory before the next, so an H chunk past the first mixes again. At most
-//       192 KB.
+//       input channels at the main shape (193 at B = 2), up to 480 rows. Past kChansS2
+//       (64) input channels, each slice's channels split among the cluster's blocks
+//       (slices x ranks <= 8: 2 ranks at 2*m1 = 64, so 98 KB of weights a block at 192
+//       channels instead of 196), each mixing its run of channels with the loads of 8
+//       channels in flight a thread, and the cluster sums every block's partial product,
+//       slices and channel runs alike. Tiled (fno2d_mix_inverse_h_tiled), a block takes
+//       its slice's mode rows 16 at a time: one mix item a thread, summed in registers
+//       over chunks of 64 input channels' weights, then that row chunk's inverse product
+//       added into the partial product of an H chunk of up to 256 rows; the cluster sums
+//       each H chunk through distributed shared memory before the next, so an H chunk
+//       past the first mixes again. At most 192 KB. It also takes the shapes whose whole
+//       block would hold an SM alone where its own would not (232 x 232 with every mode
+//       kept: 126 KB against 82), and is launched plainly.
 //   S3. A block holds its 16 rows of Z and the W matrix for its output columns: all W,
 //       or, where that does not fit (W past 672 at m2 = 32, or m2 past 88 at 232
 //       points), a W tile of 256, 128, 64 or 32 columns (the tiles beside the row tiles
@@ -124,11 +164,25 @@
 //       pass takes all of Z's columns and the rows are whole 16-byte pieces, the
 //       multicast bulk copies stay, W tile by W tile. The pointwise weights of at most
 //       4096 input channels are staged; the epilogue reads the rest from L2.
+//       Grouped (fno2d_inverse_w_grouped), where that layout would read x for the
+//       pointwise term from L2 one column a thread (W % 4 != 0, unaligned rows) or over
+//       more than kChansL2 (16) input channels, would leave three in four SMs idle, or
+//       tiles W, and one pass takes all of Z's columns: a block takes up to kOut3 (4)
+//       output channels of one batch element's row tile and W tile (all W up to 256
+//       columns, halved down to 32 while the grid has fewer than two blocks an SM or two
+//       blocks would not share an SM's shared memory). It stages the tile's W matrix
+//       columns once for its channels, splits their rows of Z, and runs one product a
+//       channel. The pointwise term then streams x's rows in chunks of input channels
+//       (double-buffered by cp.async, 16-byte pieces where the rows allow, 4-byte ones
+//       elsewhere, rows padded to whole 16-byte pieces in shared memory), and each thread
+//       adds 4 columns of every staged channel into each output channel's row: x is read
+//       once for kOut3 output channels, and its loads are in flight a chunk at a time
+//       instead of one L2 round trip a channel. The chunk is as large as the shared
+//       memory left allows. It lets the next kernel start once all its blocks have.
 // Where the grid of S1 (column tiles) or S2 (output channels, batch groups) passes the y
 // or z limit, that stage takes its tiled layout, whose grids fold their tiles over y and
-// z (`folded`); S3's always do. The whole layouts, and so the models' shapes, are those of
-// the design above. tests/test_torch_kernels_cuda.py holds every tiled layout against the
-// plain version (TILED_SHAPES); PERF.md section 6 has their times beside their bounds.
+// z (`folded`); S3's always do. PERF.md section 6 has every layout's times beside its
+// bound and the torch.fft restatement's.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -148,6 +202,7 @@ using blindno::cp_async_commit;
 using blindno::cp_async_wait;
 using blindno::kMaxDevices;
 using blindno::kMaxSmem;
+using blindno::launch_cluster_grid;
 using blindno::launch_clusters;
 using blindno::launch_dependents;
 using blindno::smem_addr;
@@ -168,9 +223,14 @@ constexpr int kBarFloats = 4;  // S3: room for its mbarrier ahead of the operand
 constexpr int kRowsT1 = 64;     // S1: most rows of an H chunk
 constexpr int kChunkT1 = 4096;  // S1: most floats of an x chunk (rows x columns)
 constexpr int kModesT1 = 256;   // S1: most mode rows of a block (2 row tiles a warp)
+constexpr int kCluster1 = 8;    // S1: most blocks splitting a plane's chunks
 constexpr int kRowsT2 = 256;    // S2: most rows of an H chunk
 constexpr int kChansT2 = 64;    // S2: input channels of a weight chunk
+constexpr int kChansS2 = 64;    // S2: most input channels a block mixes without the split
 constexpr int kPkStaged = 4096;  // S3: most pointwise weights staged; the rest read from L2
+constexpr int kChansL2 = 16;     // S3: most input channels whose x rows it reads from L2
+constexpr int kOut3 = 4;         // S3 grouped: most output channels of a block
+constexpr int kTileG3 = 32;      // S3 grouped: least W tile
 constexpr int kMaxGridYZ = 65535;
 
 __host__ __device__ constexpr int round_up(int n, int m) { return (n + m - 1) / m * m; }
@@ -226,6 +286,26 @@ __device__ void stage_rows(float* dst, int ds, const float* src, int ss, int row
         dst[r * ds + c] = 0.f;
     }
   }
+}
+
+// stage_rows for the tiled and grouped layouts: where the rows are not whole 16-byte
+// pieces and at least 32 columns long, a warp takes a row, its lanes along it, so that no
+// copy costs a division.
+__device__ void stage_rows_t(float* dst, int ds, const float* src, int ss, int rows, int cols,
+                             int rows_pad, int cols_pad) {
+  const bool vec = ss % 4 == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0;
+  if (vec || cols_pad < 32) {
+    stage_rows(dst, ds, src, ss, rows, cols, rows_pad, cols_pad);
+    return;
+  }
+  const int lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+  for (int r = threadIdx.x >> 5; r < rows_pad; r += warps)
+    for (int c = lane; c < cols_pad; c += 32) {
+      if (r < rows && c < cols)
+        cp_async4(dst + r * ds + c, src + size_t(r) * ss + c);
+      else
+        dst[r * ds + c] = 0.f;
+    }
 }
 
 // Zero what stage_rows would zero around a rows x cols block: columns [cols, cols_pad)
@@ -487,18 +567,23 @@ __global__ void __launch_bounds__(kThreads1) fno2d_forward_transform(
 // chunk by columns of a W chunk of the plane, double-buffered; the +-H matrix's rows of
 // the H chunk; at most kModesT1 mode rows a block (grid z with y: column tiles x mode
 // tiles). Step 1 sums Y over the W chunks in registers, step 2 sums S over the H chunks.
+// Where the grid alone would leave SMs idle, a cluster of cs blocks splits the plane's
+// chunks (H chunk by W chunk, in order) into cs runs, one a block, and sums the blocks'
+// parts of S through distributed shared memory.
 struct Tiled1 {
   int hc, wc, kt;       // rows of an H chunk, columns of a W chunk, mode rows of a block
   int xs_s, fx_s;       // row strides of an x chunk and of a matrix chunk
-  int off_fy, off_b2, off_fx, b2_lo;
+  int off_fy, off_b2, off_fx, off_recv, b2_lo;
   int col_tiles, tiles;  // tiles of kept columns; of columns x mode rows
+  int chunks, cs;       // chunks of a plane; blocks of a cluster (1, 2, 4 or 8)
   size_t bytes;
 };
 
-Tiled1 tiled1(const Shape& s) {
+// `wc` > 0: W chunks of wc columns instead of kChunkT1 / hc.
+Tiled1 tiled1(const Shape& s, int wc = 0) {
   Tiled1 L;
   L.hc = min(s.Hp16, kRowsT1);
-  L.wc = min(s.Wp8, kChunkT1 / L.hc / 8 * 8);
+  L.wc = min(s.Wp8, wc > 0 ? wc : kChunkT1 / L.hc / 8 * 8);
   L.kt = min(s.Kp16, kModesT1);
   L.xs_s = stride_rows(L.wc);
   L.fx_s = stride_cols(L.kt);
@@ -509,8 +594,52 @@ Tiled1 tiled1(const Shape& s) {
   L.off_fx = L.off_b2 + 2 * b2;
   L.col_tiles = ceil_div(s.m2, kCols1);
   L.tiles = L.col_tiles * ceil_div(s.K, L.kt);
-  L.bytes = (size_t(L.off_fx) + size_t(2) * L.hc * L.fx_s) * sizeof(float);
+  L.chunks = ceil_div(s.W, L.wc) * ceil_div(s.H, L.hc);
+  L.cs = 1;
+  L.off_recv = L.off_fx + 2 * L.hc * L.fx_s;  // the cluster's parts of S, write_spectrum_summed
+  L.bytes = (size_t(L.off_recv) + 16 * L.kt + 4 * kCluster1) * sizeof(float);
   return L;
+}
+
+// The largest cluster (a power of two up to kCluster1, at most one block a chunk) whose
+// blocks all fit on the card at once beside the grid's other clusters, given `resident`
+// blocks an SM.
+int split1(const Shape& s, const Tiled1& L, int sms, int resident) {
+  const long blocks = long(s.B) * s.Cin * L.tiles, room = long(sms) * resident;
+  int cs = 1;
+  while (2 * cs <= kCluster1 && 2 * cs <= L.chunks && blocks * 2 * cs <= room) cs *= 2;
+  return cs;
+}
+
+// Sum the cluster's spectrum tiles st (each block's part of S, laid out as write_spectrum
+// reads it) and write them as write_spectrum does. Block o owns share o of the tile's
+// float4s: every block sends it its part of that share, into slot `rank` of o's `recv`
+// (cs slots, a region of its own that no block uses before), and after one cluster
+// barrier o sums its slots in rank order and writes them. No block touches another's
+// shared memory after the barrier, so none waits for the others to leave.
+__device__ __forceinline__ void write_spectrum_summed(float* __restrict__ spec, const float* st,
+                                                      float4* recv, const Shape& s, int plane,
+                                                      int m0, int mc, int k0, int kc, int rank,
+                                                      int cs) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int row4 = kc / 2, stride4 = s.K / 2, n4 = mc * row4, share = ceil_div(n4, cs);
+  const float4* st4 = reinterpret_cast<const float4*>(st);
+  for (int i = threadIdx.x; i < n4; i += kThreads1) {
+    const int owner = i / share;
+    cluster.map_shared_rank(recv, owner)[rank * share + i - owner * share] = st4[i];
+  }
+  cluster.sync();  // every part is with its share's owner
+  float4* spec4 = reinterpret_cast<float4*>(spec);
+  const int lo = rank * share, hi = min(n4, lo + share);
+  for (int i = lo + threadIdx.x; i < hi; i += kThreads1) {
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int r = 0; r < cs; ++r) {
+      const float4 v = recv[r * share + i - lo];
+      a.x += v.x, a.y += v.y, a.z += v.z, a.w += v.w;
+    }
+    const int c = i / row4, q = i % row4;
+    spec4[(size_t(m0 + c) * s.B * s.Cin + plane) * stride4 + k0 / 2 + q] = a;
+  }
 }
 
 __global__ void __launch_bounds__(kThreads1) fno2d_forward_transform_tiled(
@@ -521,49 +650,64 @@ __global__ void __launch_bounds__(kThreads1) fno2d_forward_transform_tiled(
     Shape s, Tiled1 L) {
   extern __shared__ __align__(16) float smem[];
   const int tile = folded_tile();
-  if (tile >= L.tiles) return;
+  if (tile >= L.tiles) return;  // the whole cluster: it spans blockIdx.x only
   float* b2 = smem + L.off_b2;  // 2*hc x kS1, split: the H chunk's [[Yr, Yi], [-Yi, Yr]]
   float* fx = smem + L.off_fx;  // 2*hc x fx_s: fx[kk][k] = A2(k0 + k, h0 + kk)
-  const int plane = blockIdx.x, m0 = (tile % L.col_tiles) * kCols1;
-  const int k0 = (tile / L.col_tiles) * L.kt;
+  const int plane = blockIdx.x / L.cs, rank = blockIdx.x % L.cs;  // rank in the cluster
+  const int m0 = (tile % L.col_tiles) * kCols1, k0 = (tile / L.col_tiles) * L.kt;
   const int mc = min(kCols1, s.m2 - m0), kc = min(L.kt, s.K - k0);
   constexpr int kWarps1 = kThreads1 / 32;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int w_chunks = ceil_div(s.W, L.wc), chunks = w_chunks * ceil_div(s.H, L.hc);
+  const int w_chunks = ceil_div(s.W, L.wc);
+  // this block's run of the plane's chunks: at least one, since cs <= chunks
+  const int first = rank * L.chunks / L.cs, last = (rank + 1) * L.chunks / L.cs;
   const float* xp = x + size_t(plane) * s.H * s.W;
   auto xs = [&](int i) { return smem + (i & 1) * L.hc * L.xs_s; };
   auto fy = [&](int i) { return smem + L.off_fy + (i & 1) * L.wc * kS1; };
 
-  launch_dependents();
   // chunk i of the plane (H chunk i / w_chunks, W chunk i % w_chunks) and the W matrices'
   // rows of its columns, into buffer i % 2
   auto stage_chunk = [&](int i) {
     const int h0 = (i / w_chunks) * L.hc, w0 = (i % w_chunks) * L.wc;
     const int wn = min(L.wc, s.W - w0);
-    stage_rows(xs(i), L.xs_s, xp + size_t(h0) * s.W + w0, s.W, min(L.hc, s.H - h0), wn, L.hc,
-               L.wc);
-    stage_rows(fy(i), kS1, fyre + size_t(w0) * s.m2 + m0, s.m2, wn, mc, L.wc, kCols1);
-    stage_rows(fy(i) + kCols1, kS1, fyim + size_t(w0) * s.m2 + m0, s.m2, wn, mc, L.wc, kCols1);
+    stage_rows_t(xs(i), L.xs_s, xp + size_t(h0) * s.W + w0, s.W, min(L.hc, s.H - h0), wn, L.hc,
+                 L.wc);
+    stage_rows_t(fy(i), kS1, fyre + size_t(w0) * s.m2 + m0, s.m2, wn, mc, L.wc, kCols1);
+    stage_rows_t(fy(i) + kCols1, kS1, fyim + size_t(w0) * s.m2 + m0, s.m2, wn, mc, L.wc,
+                 kCols1);
     cp_async_commit();
   };
-  stage_chunk(0);
+  // H chunk hi's rows of the +-H matrix
+  auto stage_fx = [&](int hi) {
+    const int h0 = hi * L.hc, hn = min(L.hc, s.H - h0);
+    stage_rows_t(fx, L.fx_s, fxre + size_t(h0) * s.K + k0, s.K, hn, kc, L.hc, L.kt);
+    stage_rows_t(fx + L.hc * L.fx_s, L.fx_s, fxim + size_t(h0) * s.K + k0, s.K, hn, kc, L.hc,
+                 L.kt);
+    cp_async_commit();
+  };
+  // The +-H matrix is a constant, written once by a host copy when the wrapper caches it:
+  // its first chunk comes in while the kernel before (a layer's S3, say) may still run.
+  // Nothing else is read or written before the wait, and S2 is let start only after it,
+  // so no later stage of this call runs beside the kernel before.
+  const int h_first = first / w_chunks;
+  stage_fx(h_first);
+  wait_prerequisites();
+  launch_dependents();
+  stage_chunk(first);
 
   // step 1: each warp one (row tile, n tile) of the H chunk's Y (hc <= 64: 8 tasks at
   // most); step 2: each warp at most two row tiles of S (kt <= 256), summed over H chunks
   const int mt1 = warp >> 1, j1 = warp & 1, mtiles = L.kt / 16;
   const bool step1 = mt1 < L.hc / 16;
   float acc[2][2][4] = {};
-  for (int i = 0; i < chunks;) {
-    const int h0 = (i / w_chunks) * L.hc, hn = min(L.hc, s.H - h0);
-    stage_rows(fx, L.fx_s, fxre + size_t(h0) * s.K + k0, s.K, hn, kc, L.hc, L.kt);
-    stage_rows(fx + L.hc * L.fx_s, L.fx_s, fxim + size_t(h0) * s.K + k0, s.K, hn, kc, L.hc,
-               L.kt);
-    cp_async_commit();
-    float y[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int wi = 0; wi < w_chunks; ++wi, ++i) {
+  for (int i = first; i < last;) {
+    const int hi = i / w_chunks;
+    if (hi != h_first) stage_fx(hi);
+    float y[4] = {0.f, 0.f, 0.f, 0.f};  // this block's part of the H chunk's Y
+    for (; i < last && i / w_chunks == hi; ++i) {
       // the next chunk comes in while this one is multiplied; the wait also lands the
       // matrix chunk, committed before it
-      if (i + 1 < chunks) {
+      if (i + 1 < last) {
         stage_chunk(i + 1);
         cp_async_wait<1>();
       } else {
@@ -614,7 +758,25 @@ __global__ void __launch_bounds__(kThreads1) fno2d_forward_transform_tiled(
           if (k < kc) st[(c * kc + k) * 2 + j] = acc[q][j][e];
         }
   __syncthreads();
-  write_spectrum(spec, st, s, plane, m0, mc, k0, kc);
+  if (L.cs == 1) {
+    write_spectrum(spec, st, s, plane, m0, mc, k0, kc);
+  } else {
+    write_spectrum_summed(spec, st, reinterpret_cast<float4*>(smem + L.off_recv), s, plane,
+                          m0, mc, k0, kc, rank, L.cs);
+  }
+}
+
+// The tiled S1's layout at W chunks of wc columns (0: kChunkT1 / hc), its cluster fitted
+// to the card's `sms` SMs at the occupancy its shared memory allows.
+cudaError_t fit_tiled1(const Shape& s, int wc, int sms, int device, bool* raised, Tiled1& L) {
+  L = tiled1(s, wc);
+  cudaError_t err = allow_smem(fno2d_forward_transform_tiled, L.bytes, device, raised);
+  int resident = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, fno2d_forward_transform_tiled,
+                                                        kThreads1, L.bytes);
+  L.cs = split1(s, L, sms, max(1, resident));
+  return err;
 }
 
 // ---- S2: mode mix and inverse +-DFT along H, one cluster per column tile ------------------
@@ -657,11 +819,35 @@ __device__ __forceinline__ void stage_weights(float* wsr, float* wsi, int rows,
 // ur and ui at that channel's staged weights (w_step floats a channel). The spectrum is
 // read through L2 (ld.global.cg), not the read-only path: S1 wrote it during this grid's
 // lifetime.
+// With U > 4, the loads of U channels are issued before any of their products, so that
+// more of them are in flight where a block walks many channels.
+template <int U = 4>
 __device__ __forceinline__ void mix_item(float (&ar)[4], float (&ai)[4], const float2* sp,
                                          size_t b_stride, int K, const float* ur_s,
                                          const float* ui_s, int w_step, int cn, int nb) {
+  int c = 0;
+  if constexpr (U > 4) {
+    for (; c + U <= cn; c += U) {
+      float2 v[U][4];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (j < nb) v[u][j] = __ldcg(sp + j * b_stride + size_t(c + u) * K);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const float ur = ur_s[(c + u) * w_step], ui = ui_s[(c + u) * w_step];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (j < nb) {
+            ar[j] = fmaf(v[u][j].x, ur, fmaf(-v[u][j].y, ui, ar[j]));
+            ai[j] = fmaf(v[u][j].x, ui, fmaf(v[u][j].y, ur, ai[j]));
+          }
+      }
+    }
+  }
 #pragma unroll 4
-  for (int c = 0; c < cn; ++c) {
+  for (; c < cn; ++c) {
     const float ur = ur_s[c * w_step], ui = ui_s[c * w_step];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -721,16 +907,21 @@ __device__ __forceinline__ void sum_parts(cg::cluster_group& cluster, float* zp,
 }
 
 struct Layout2 {
-  int slices, ks;  // blocks in a cluster (mode-row slices), rows of a slice
+  int slices, ks;  // mode-row slices of a cluster, rows of a slice
+  int cranks, cn;  // blocks of a slice in a cluster, input channels of one
   int bt;          // batch elements per block (even: 16*bt columns, 4 n-tiles a warp)
   int gx_s, bm_s, zp_s;
   int off_bm, off_w, off_zp;
   size_t bytes;
 };
 
-Layout2 layout2(const Shape& s) {
+// `cranks` blocks of a cluster share each slice, each mixing its run of cn input
+// channels: a cluster of slices x cranks blocks (at most kCluster2).
+Layout2 layout2(const Shape& s, int cranks) {
   Layout2 L;
   L.slices = min(kCluster2, (s.K + kSlice2 - 1) / kSlice2);
+  L.cranks = cranks;
+  L.cn = ceil_div(s.Cin, cranks);
   L.ks = round_up((s.K + L.slices - 1) / L.slices, 8);
   L.bt = min(kBatch2, round_up(s.B, 2));
   const int n = 2 * kCols2 * L.bt;  // (batch, mode column, re/im)
@@ -739,11 +930,14 @@ Layout2 layout2(const Shape& s) {
   L.zp_s = round_up(n, 32) + 8;     // 8-byte stores of a half-warp on distinct banks
   L.off_bm = 2 * L.ks * L.gx_s;
   L.off_w = L.off_bm + 2 * (2 * L.ks * L.bm_s);
-  L.off_zp = L.off_w + 2 * s.Cin * L.ks * kCols2;
+  L.off_zp = L.off_w + 2 * L.cn * L.ks * kCols2;
   L.bytes = (size_t(L.off_zp) + size_t(s.Hp16) * L.zp_s) * sizeof(float);
   return L;
 }
 
+// kSplit: the slices' input channels split among L.cranks blocks each (the note above),
+// whose mix issues the loads of 8 channels at a time; else every block mixes all of them.
+template <bool kSplit>
 __global__ void __launch_bounds__(kThreads2) fno2d_mix_inverse_h(
     const float* spec,  // (m2, B*Cin, K, 2), written by S1 while this grid may be running
     const float* __restrict__ wr, const float* __restrict__ wi,      // (Cin, Cout, K, m2)
@@ -752,22 +946,26 @@ __global__ void __launch_bounds__(kThreads2) fno2d_mix_inverse_h(
     Shape s, Layout2 L) {
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
-  const int rank = int(cluster.block_rank());  // this block's mode-row slice
+  const int rank = int(cluster.block_rank());
+  const int slice = kSplit ? rank % L.slices : rank;  // this block's mode-row slice
+  const int parts = kSplit ? L.slices * L.cranks : L.slices;  // blocks of the cluster
+  const int c0 = kSplit ? (rank / L.slices) * L.cn : 0;  // and its input channels
+  const int cn = kSplit ? max(0, min(L.cn, s.Cin - c0)) : s.Cin;
   const int ks = L.ks, n_cols = 2 * kCols2 * L.bt;
   float* gx = smem;                            // 2*ks x gx_s: gx[kk][h] = A3(h, kk)
   float* bm = smem + L.off_bm;                 // 2*ks x bm_s, split: [[Or, Oi], [-Oi, Or]]
   const int bm_lo = 2 * ks * L.bm_s;
-  float* wsr = smem + L.off_w;                 // Cin x ks x kCols2: the slice's weights
-  float* wsi = wsr + s.Cin * ks * kCols2;
-  float* zp = smem + L.off_zp;                 // Hp16 x zp_s: this slice's part of Z
-  const int m0 = (blockIdx.x / L.slices) * kCols2, o = blockIdx.y, b0 = blockIdx.z * L.bt;
-  const int k0 = rank * ks, kc = max(0, min(ks, s.K - k0)), mc = min(kCols2, s.m2 - m0);
+  float* wsr = smem + L.off_w;                 // cn x ks x kCols2: the slice's weights
+  float* wsi = wsr + L.cn * ks * kCols2;
+  float* zp = smem + L.off_zp;                 // Hp16 x zp_s: this block's part of Z
+  const int m0 = (blockIdx.x / parts) * kCols2, o = blockIdx.y, b0 = blockIdx.z * L.bt;
+  const int k0 = slice * ks, kc = max(0, min(ks, s.K - k0)), mc = min(kCols2, s.m2 - m0);
   constexpr int kWarps2 = kThreads2 / 32;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 
   stage_rows(gx, L.gx_s, gxre + size_t(k0) * s.H, s.H, kc, s.H, ks, s.Hp16);
   stage_rows(gx + ks * L.gx_s, L.gx_s, gxim + size_t(k0) * s.H, s.H, kc, s.H, ks, s.Hp16);
-  stage_weights(wsr, wsi, ks, wr, wi, s, o, 0, s.Cin, k0, kc, m0, mc);
+  stage_weights(wsr, wsi, ks, wr, wi, s, o, c0, cn, k0, kc, m0, mc);
   cp_async_commit();
   launch_dependents();
   wait_prerequisites();  // the spectrum is S1's
@@ -786,8 +984,9 @@ __global__ void __launch_bounds__(kThreads2) fno2d_mix_inverse_h(
     const int nb = max(0, min(min(4, L.bt - grp * 4), s.B - b0 - grp * 4));
     float ar[4] = {0.f, 0.f, 0.f, 0.f}, ai[4] = {0.f, 0.f, 0.f, 0.f};
     if (k < kc && m < s.m2)
-      mix_item(ar, ai, spec2 + (size_t(m) * s.B + b0 + grp * 4) * b_stride + k0 + k, b_stride,
-               s.K, wsr + k * kCols2 + mm, wsi + k * kCols2 + mm, ks * kCols2, s.Cin, nb);
+      mix_item<kSplit ? 8 : 4>(
+          ar, ai, spec2 + (size_t(m) * s.B + b0 + grp * 4) * b_stride + size_t(c0) * s.K + k0 + k,
+          b_stride, s.K, wsr + k * kCols2 + mm, wsi + k * kCols2 + mm, ks * kCols2, cn, nb);
     store_mixed(bm, L.bm_s, bm_lo, ks, k, mm, grp, L.bt, ar, ai);
   }
   __syncthreads();
@@ -813,8 +1012,8 @@ __global__ void __launch_bounds__(kThreads2) fno2d_mix_inverse_h(
 
   // sum the parts over the cluster, this block taking its share of the rows, and store
   // each (batch, row)'s run of mode columns
-  const int rows = (s.H + L.slices - 1) / L.slices, h0 = rank * rows;
-  sum_parts(cluster, zp, L.zp_s, L.slices, h0, min(s.H, h0 + rows), 0, n_cols, z, s, o, b0, m0,
+  const int rows = (s.H + parts - 1) / parts, h0 = rank * rows;
+  sum_parts(cluster, zp, L.zp_s, parts, h0, min(s.H, h0 + rows), 0, n_cols, z, s, o, b0, m0,
             mc);
   cluster.sync();  // no block leaves while another still reads its part
 }
@@ -1154,6 +1353,272 @@ __global__ void __launch_bounds__(kThreads3) fno2d_inverse_w(
   }
 }
 
+// S3 grouped, where the layout above would leave SMs idle, tile W, or read x for the
+// pointwise term from L2 one column a thread or over many input channels (the note
+// above): a block takes kOut3 consecutive output channels' rows of one row tile and W
+// tile. It stages the W matrix's columns of its tile once for them all and, for the
+// pointwise term, x's rows of the tile in chunks of input channels (double-buffered by
+// cp.async, rows padded to whole 16-byte pieces), read 4 columns a thread and summed
+// into each of the block's output channels from one staging.
+struct Group3 {
+  int oc, groups;            // output channels of a block; blocks of a batch element
+  int wc, row_tiles, tiles;  // W tile; row tiles; row tiles x W tiles
+  int cc, chunks;            // input channels of an x chunk (0: no pointwise term); chunks
+  int z_s, gy_s, ys_s, xs_s;
+  int off_zs, off_ys, off_xs, off_pk;
+  size_t bytes;
+};
+
+// Shared memory of S3 grouped, in floats, at W tile wc and x chunks of cc channels.
+size_t smem_g3(const Shape& s, int wc, int cc) {
+  const size_t wp = round_up(wc, 8), oc = min(s.Cout, kOut3);
+  return size_t(s.J) * stride_cols(int(wp)) + 2 * oc * kRows3 * stride_rows(s.J) +
+         oc * kRows3 * (round_up(int(wp), 32) + 8) + size_t(2) * cc * (kRows3 * wp + kOut3);
+}
+
+// The grouped layout: W tiles of up to 256 columns (all W where it has no more), halved
+// down to kTileG3 while the grid would have fewer than two blocks an SM or two blocks
+// would not fit in an SM's shared memory; then x chunks as large as the shared memory
+// left allows (all of it where one block an SM holds the grid). bytes is 0 where even
+// kTileG3 columns do not fit: S3 then takes the layout above.
+Group3 group3(const Shape& s, int epilogue, int sms) {
+  Group3 L;
+  L.oc = min(s.Cout, kOut3);
+  L.groups = ceil_div(s.Cout, L.oc);
+  L.row_tiles = ceil_div(s.H, kRows3);
+  const long base = long(s.B) * L.groups * L.row_tiles;
+  const int c1 = epilogue >= 1 ? 1 : 0;
+  const size_t half = kMaxSmem / 2 / sizeof(float), most = kMaxSmem / sizeof(float);
+  int wc = min(s.W, 256);
+  while (wc > kTileG3 && (base * ceil_div(s.W, wc) < 2L * sms || smem_g3(s, wc, c1) > half)) {
+    int p = kTileG3;  // the largest power of two below wc, at least kTileG3
+    while (2 * p < wc) p *= 2;
+    wc = p;
+  }
+  const long blocks = base * ceil_div(s.W, wc);
+  const size_t fixed = smem_g3(s, wc, 0), per_channel = smem_g3(s, wc, 1) - fixed;
+  const size_t budget = blocks <= sms || smem_g3(s, wc, c1) > half ? most : half;
+  size_t cc = budget > fixed ? (budget - fixed) / per_channel : 0;
+  if (cc < 1) cc = 1;
+  if (cc > size_t(s.Cin)) cc = size_t(s.Cin);
+  L.cc = c1 * int(cc);
+  L.wc = wc;
+  L.tiles = L.row_tiles * ceil_div(s.W, wc);
+  L.chunks = L.cc > 0 ? ceil_div(s.Cin, L.cc) : 0;
+  const int wp = round_up(wc, 8);
+  L.z_s = stride_rows(s.J);
+  L.gy_s = stride_cols(wp);
+  L.ys_s = round_up(wp, 32) + 8;
+  L.xs_s = wp;
+  const size_t floats = smem_g3(s, wc, L.cc);
+  if (floats > most) {
+    L.bytes = 0;
+    return L;
+  }
+  L.off_zs = s.J * L.gy_s;
+  L.off_ys = L.off_zs + 2 * L.oc * kRows3 * L.z_s;
+  L.off_xs = L.off_ys + L.oc * kRows3 * L.ys_s;
+  L.off_pk = L.off_xs + 2 * L.cc * kRows3 * L.xs_s;
+  L.bytes = floats * sizeof(float);
+  return L;
+}
+
+template <int kEpilogue>
+__global__ void __launch_bounds__(kThreads3) fno2d_inverse_w_grouped(
+    const float* __restrict__ z,                                     // (B, Cout, H, m2, 2)
+    const float* __restrict__ gyre, const float* __restrict__ gyim,  // (m2, W)
+    const float* __restrict__ x,                                     // (B, Cin, H, W)
+    const float* __restrict__ pk, int pk_si, int pk_so,              // (Cin, Cout) strided
+    const float* __restrict__ pb,                                    // (Cout,)
+    float* __restrict__ out,                                         // (B, Cout, H, W)
+    Shape s, Group3 L) {
+  extern __shared__ __align__(16) float smem[];
+  const int tile = folded_tile();
+  if (tile >= L.tiles) return;
+  float* gy = smem;             // J x gy_s: B4(2m + re/im, w) of the W tile
+  float* zs = smem + L.off_zs;  // oc x kRows3 x z_s, split: the channels' rows of Z
+  const int zs_lo = L.oc * kRows3 * L.z_s;
+  float* ys = smem + L.off_ys;  // oc x kRows3 x ys_s: the channels' rows of y
+  float* xs = smem + L.off_xs;  // 2 x cc x kRows3 x xs_s: x's rows, a chunk a buffer
+  float* pks = smem + L.off_pk;  // 2 x cc x kOut3: the chunk's pointwise weights
+  static_assert(kOut3 == 4, "a channel's pointwise weights are one float4");
+  const int b = blockIdx.x / L.groups, o0 = (blockIdx.x % L.groups) * L.oc;
+  const int on = min(L.oc, s.Cout - o0);
+  const int h0 = (tile % L.row_tiles) * kRows3, w0 = (tile / L.row_tiles) * L.wc;
+  const int rows = min(kRows3, s.H - h0), wn = min(L.wc, s.W - w0), wp = round_up(wn, 8);
+  constexpr int kWarps3 = kThreads3 / 32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const size_t hw = size_t(s.H) * s.W;
+  const bool vec_x = s.W % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+
+  // x's rows [h0, h0 + rows) of chunk i's input channels, columns [w0, w0 + wn) and zeros
+  // up to wp, into buffer i % 2, as pieces of 4 floats where x's rows are whole 16-byte
+  // pieces, else of 1; each thread steps through its pieces without a division. Then the
+  // chunk's pointwise weights, kOut3 a channel (zero past the block's channels).
+  const int per = vec_x ? 4 : 1, pieces = wp / per;
+  const int step_rows = kThreads3 / pieces, step_q = kThreads3 % pieces;
+  auto stage_x = [&](int i) {
+    const int c0 = i * L.cc, cn = min(L.cc, s.Cin - c0), n_rows = cn * kRows3;
+    float* dst = xs + (i & 1) * L.cc * kRows3 * L.xs_s;
+    const float* src0 = x + (size_t(b) * s.Cin + c0) * hw + size_t(h0) * s.W + w0;
+    int row = threadIdx.x / pieces, q = threadIdx.x - row * pieces;
+    while (row < n_rows) {
+      const int r = row % kRows3, w = q * per;
+      if (r < rows) {
+        float* d = dst + row * L.xs_s + w;
+        const float* src = src0 + size_t(row / kRows3) * hw + size_t(r) * s.W + w;
+        if (vec_x) {
+          const int n = min(4, wn - w);
+          if (n > 0)
+            cp_async16(d, src, 4 * n);  // zero-fills past n floats
+          else
+            *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+        } else if (w < wn) {
+          cp_async4(d, src);
+        } else {
+          *d = 0.f;
+        }
+      }
+      row += step_rows, q += step_q;
+      if (q >= pieces) q -= pieces, ++row;
+    }
+    float* pkd = pks + (i & 1) * L.cc * kOut3;
+    for (int e = threadIdx.x; e < cn * kOut3; e += kThreads3) {
+      const int c = e / kOut3, j = e % kOut3;
+      if (j < on)
+        cp_async4(pkd + e, pk + size_t(c0 + c) * pk_si + size_t(o0 + j) * pk_so);
+      else
+        pkd[e] = 0.f;
+    }
+    cp_async_commit();
+  };
+
+  // the next kernel (a next layer's tiled S1) may stage its constants from here on: every
+  // kernel of this source reads the output of the kernel before only after its wait
+  launch_dependents();
+  // the W matrix's columns of the tile (rows j = 2m + re/im, zero past 2*m2) and the first
+  // x chunk come in while S2 finishes
+  stage_rows_t(gy, 2 * L.gy_s, gyre + w0, s.W, s.m2, wn, s.m2, wp);
+  stage_rows_t(gy + L.gy_s, 2 * L.gy_s, gyim + w0, s.W, s.m2, wn, s.m2, wp);
+  for (int i = threadIdx.x; i < (s.J - 2 * s.m2) * L.gy_s; i += kThreads3)
+    gy[2 * s.m2 * L.gy_s + i] = 0.f;
+  cp_async_commit();
+  if (kEpilogue >= 1) stage_x(0);
+  wait_prerequisites();  // Z is S2's
+  for (int j = 0; j < on; ++j)
+    stage_rows_t(zs + j * kRows3 * L.z_s, L.z_s,
+               z + ((size_t(b) * s.Cout + o0 + j) * s.H + h0) * 2 * s.m2, 2 * s.m2, rows,
+               2 * s.m2, kRows3, s.J);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int r = warp; r < on * kRows3; r += kWarps3)  // every warp reads every row of Z:
+    for (int c = lane; c < s.J; c += 32) {           // split each once, in place
+      float* p = zs + r * L.z_s + c;
+      store_split(p, zs_lo, *p);
+    }
+  __syncthreads();
+
+  // the spectral part of each channel's rows, y_j = Z_j [Gyre; Gyim], kNT3 n-tiles a task
+  constexpr int kNT3 = 2;
+  const int groups_n = ceil_div(wp, 8 * kNT3);
+  for (int task = warp; task < on * groups_n; task += kWarps3) {
+    const int j = task / groups_n, n0 = (task % groups_n) * kNT3;
+    float d[kNT3][4];
+    warp_tiles<kNT3, true, false>(d, zs + j * kRows3 * L.z_s, L.z_s, 1, zs_lo, gy + n0 * 8,
+                                  L.gy_s, 1, 0, s.J);
+    float* yj = ys + j * kRows3 * L.ys_s;
+#pragma unroll
+    for (int jj = 0; jj < kNT3; ++jj)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        *reinterpret_cast<float2*>(yj + (g + half * 8) * L.ys_s + (n0 + jj) * 8 + 2 * t) =
+            make_float2(d[jj][2 * half], d[jj][2 * half + 1]);
+  }
+  __syncthreads();
+
+  // the pointwise term, chunk by chunk: each thread adds its quads (a row's 4 columns) of
+  // every input channel of the chunk into each output channel's row of y
+  const int qr = wp / 4;
+  if (kEpilogue >= 1)
+    for (int i = 0; i < L.chunks; ++i) {
+      if (i + 1 < L.chunks) {
+        stage_x(i + 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const int cn = min(L.cc, s.Cin - i * L.cc);
+      const float* xb = xs + (i & 1) * L.cc * kRows3 * L.xs_s;
+      const float4* pkb = reinterpret_cast<const float4*>(pks + (i & 1) * L.cc * kOut3);
+      for (int q = threadIdx.x; q < rows * qr; q += kThreads3) {
+        const int r = q / qr, w = (q - r * qr) * 4;
+        float4 a[kOut3];
+#pragma unroll
+        for (int j = 0; j < kOut3; ++j)
+          a[j] = j < on ? *reinterpret_cast<const float4*>(ys + (j * kRows3 + r) * L.ys_s + w)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+        for (int c = 0; c < cn; ++c) {
+          const float4 xv = *reinterpret_cast<const float4*>(xb + (c * kRows3 + r) * L.xs_s + w);
+          const float4 u4 = pkb[c];
+          const float u[kOut3] = {u4.x, u4.y, u4.z, u4.w};
+#pragma unroll
+          for (int j = 0; j < kOut3; ++j) {
+            a[j].x = fmaf(xv.x, u[j], a[j].x);
+            a[j].y = fmaf(xv.y, u[j], a[j].y);
+            a[j].z = fmaf(xv.z, u[j], a[j].z);
+            a[j].w = fmaf(xv.w, u[j], a[j].w);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kOut3; ++j)
+          if (j < on) *reinterpret_cast<float4*>(ys + (j * kRows3 + r) * L.ys_s + w) = a[j];
+      }
+      __syncthreads();  // buffer i % 2 is free for chunk i + 2
+    }
+
+  // bias, gelu and the stores, 4 columns a thread (as whole float4 where rows allow)
+  const bool vec_out = s.W % 4 == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  for (int q = threadIdx.x; q < rows * qr; q += kThreads3) {
+    const int r = q / qr, w = (q - r * qr) * 4;
+    if (w >= wn) continue;
+    for (int j = 0; j < on; ++j) {
+      const float4 v4 = *reinterpret_cast<const float4*>(ys + (j * kRows3 + r) * L.ys_s + w);
+      float v[4] = {v4.x, v4.y, v4.z, v4.w};
+      if (kEpilogue >= 1) {
+        const float bias = __ldg(pb + o0 + j);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[e] += bias;
+      }
+      if (kEpilogue == 2)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          v[e] = 0.5f * v[e] * (1.f + erff(v[e] * 0.70710678118654752f));
+      float* op = out + ((size_t(b) * s.Cout + o0 + j) * s.H + h0 + r) * s.W + w0 + w;
+      if (vec_out) {
+        *reinterpret_cast<float4*>(op) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+        for (int e = 0; e < min(4, wn - w); ++e) op[e] = v[e];
+      }
+    }
+  }
+}
+
+template <int kEpilogue>
+cudaError_t launch_inverse_w_grouped(int device, cudaStream_t stream, const float* z,
+                                     const float* gyre, const float* gyim, const float* x,
+                                     const float* pk, int pk_si, int pk_so, const float* pb,
+                                     float* out, const Shape& s, const Group3& L) {
+  static bool raised[kMaxDevices] = {};
+  cudaError_t err = allow_smem(fno2d_inverse_w_grouped<kEpilogue>, L.bytes, device, raised);
+  if (err != cudaSuccess) return err;
+  return launch_clusters(fno2d_inverse_w_grouped<kEpilogue>,
+                         folded(unsigned(s.B) * L.groups, L.tiles), kThreads3, L.bytes, dim3(1),
+                         stream, z, gyre, gyim, x, pk, pk_si, pk_so, pb, out, s, L);
+}
+
 template <int kEpilogue>
 cudaError_t launch_inverse_w(dim3 grid, int csize, int device, cudaStream_t stream,
                              const float* z, const float* gyre, const float* gyim,
@@ -1180,9 +1645,14 @@ cudaError_t launch_layer(const float* x, const float* fyre, const float* fyim,
   s.Hp8 = round_up(H, 8), s.Hp16 = round_up(H, 16), s.Wp8 = round_up(W, 8);
   s.Kp16 = round_up(s.K, 16), s.J = round_up(2 * m2, 8);
   auto aligned16 = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
+  static int sms[kMaxDevices] = {};
+  cudaError_t err;
+  if (sms[device] == 0) {
+    err = cudaDeviceGetAttribute(&sms[device], cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+  }
 
   static bool raised1[kMaxDevices] = {}, raised1t[kMaxDevices] = {};
-  cudaError_t err;
   const Layout1 L1 = layout1(s);
   if (L1.bytes <= kMaxSmem && ceil_div(m2, kCols1) <= kMaxGridYZ) {
     err = allow_smem(fno2d_forward_transform, L1.bytes, device, raised1);
@@ -1190,37 +1660,89 @@ cudaError_t launch_layer(const float* x, const float* fyre, const float* fyim,
     const dim3 grid1(B * Cin, ceil_div(m2, kCols1));
     fno2d_forward_transform<<<grid1, kThreads1, L1.bytes, stream>>>(x, fyre, fyim, fxre, fxim,
                                                                    spec, s, L1);
+    err = cudaGetLastError();
   } else {
-    const Tiled1 T1 = tiled1(s);
-    err = allow_smem(fno2d_forward_transform_tiled, T1.bytes, device, raised1t);
+    Tiled1 T1, wide;
+    err = fit_tiled1(s, 0, sms[device], device, raised1t, T1);
     if (err != cudaSuccess) return err;
-    fno2d_forward_transform_tiled<<<folded(B * Cin, T1.tiles), kThreads1, T1.bytes, stream>>>(
-        x, fyre, fyim, fxre, fxim, spec, s, T1);
+    // where the largest cluster still leaves a block more than one chunk, wider W chunks
+    // that give each block one, if they keep the cluster and fit
+    const int h_chunks = ceil_div(H, T1.hc);
+    if (T1.cs == kCluster1 && T1.chunks > kCluster1 && h_chunks <= kCluster1 &&
+        tiled1(s, round_up(ceil_div(W, kCluster1 / h_chunks), 8)).bytes <= kMaxSmem) {
+      err = fit_tiled1(s, round_up(ceil_div(W, kCluster1 / h_chunks), 8), sms[device], device,
+                       raised1t, wide);
+      if (err != cudaSuccess) return err;
+      if (wide.cs == kCluster1 && wide.chunks <= kCluster1) T1 = wide;
+    }
+    // a programmatic dependent of the kernel before (whose output it reads only after
+    // wait_prerequisites) where its grid takes one block an SM at most: where it takes
+    // more, blocks placed early crowd the SMs that the kernel before left room on, and the
+    // stage ran slower than launched plainly (PERF.md section 6)
+    const bool early = long(B) * Cin * T1.tiles * T1.cs <= sms[device];
+    err = launch_cluster_grid(fno2d_forward_transform_tiled,
+                              folded(unsigned(B) * Cin * T1.cs, T1.tiles), kThreads1, T1.bytes,
+                              dim3(T1.cs), early, stream, x, fyre, fyim, fxre, fxim, spec, s,
+                              T1);
   }
-  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  static bool raised2[kMaxDevices] = {}, raised2t[kMaxDevices] = {};
-  const Layout2 L2 = layout2(s);
+  static bool raised2[kMaxDevices] = {}, raised2s[kMaxDevices] = {}, raised2t[kMaxDevices] = {};
+  const Layout2 L2 = layout2(s, 1);
   const int col_tiles2 = ceil_div(m2, kCols2);
-  if (L2.bytes <= kMaxSmem && Cout <= kMaxGridYZ && ceil_div(B, L2.bt) <= kMaxGridYZ) {
-    err = allow_smem(fno2d_mix_inverse_h, L2.bytes, device, raised2);
+  const bool grid2_fits = Cout <= kMaxGridYZ && ceil_div(B, L2.bt) <= kMaxGridYZ;
+  // past kChansS2 input channels, each slice's channels split among the cluster's blocks
+  // (as many as the cluster has room for, a power of two)
+  int cranks = 1;
+  while (2 * cranks * L2.slices <= kCluster2) cranks *= 2;
+  const Layout2 S2 = layout2(s, cranks);
+  if (Cin > kChansS2 && S2.bytes <= kMaxSmem && grid2_fits) {
+    err = allow_smem(fno2d_mix_inverse_h<true>, S2.bytes, device, raised2s);
+    if (err != cudaSuccess) return err;
+    const int parts = S2.slices * S2.cranks;
+    const dim3 grid2(parts * col_tiles2, Cout, ceil_div(B, S2.bt));
+    err = launch_clusters(fno2d_mix_inverse_h<true>, grid2, kThreads2, S2.bytes, dim3(parts),
+                          stream, spec, wr, wi, gxre, gxim, z, s, S2);
+  } else if (L2.bytes <= kMaxSmem && grid2_fits &&
+             (2 * L2.bytes <= kMaxSmem || 2 * tiled2(s).bytes > kMaxSmem)) {
+    err = allow_smem(fno2d_mix_inverse_h<false>, L2.bytes, device, raised2);
     if (err != cudaSuccess) return err;
     const dim3 grid2(L2.slices * col_tiles2, Cout, ceil_div(B, L2.bt));
-    err = launch_clusters(fno2d_mix_inverse_h, grid2, kThreads2, L2.bytes, dim3(L2.slices),
-                          stream, spec, wr, wi, gxre, gxim, z, s, L2);
+    err = launch_clusters(fno2d_mix_inverse_h<false>, grid2, kThreads2, L2.bytes,
+                          dim3(L2.slices), stream, spec, wr, wi, gxre, gxim, z, s, L2);
   } else {
     const Tiled2 T2 = tiled2(s);
     err = allow_smem(fno2d_mix_inverse_h_tiled, T2.bytes, device, raised2t);
     if (err != cudaSuccess) return err;
-    err = launch_clusters(fno2d_mix_inverse_h_tiled, folded(T2.slices * col_tiles2, T2.tiles),
-                          kThreads2, T2.bytes, dim3(T2.slices), stream, spec, wr, wi, gxre, gxim,
-                          z, s, T2);
+    // launched plainly: as a programmatic dependent of S1 it ran up to a fifth slower
+    // (PERF.md section 6)
+    err = launch_cluster_grid(fno2d_mix_inverse_h_tiled,
+                              folded(T2.slices * col_tiles2, T2.tiles), kThreads2, T2.bytes,
+                              dim3(T2.slices), false, stream, spec, wr, wi, gxre, gxim, z, s, T2);
   }
   if (err != cudaSuccess) return err;
 
   const Layout3 L3 =
       layout3(s, epilogue, aligned16(gyre) && aligned16(gyim) && aligned16(x));
+  // S3 grouped where the layout above would read x's rows from L2 one column a thread or
+  // over more than kChansL2 input channels, would leave three in four SMs idle, or tiles W
+  // (the models' shapes take none of these: the note above)
+  const bool l2_epilogue = epilogue >= 1 && L3.xt_s == 0 &&
+                           (W % 4 != 0 || !aligned16(x) || !aligned16(out) || Cin > kChansL2);
+  if (l2_epilogue || long(B) * Cout * L3.tiles < sms[device] / 4 || L3.wc < W) {
+    const Group3 G3 = group3(s, epilogue, sms[device]);
+    if (G3.bytes > 0) {
+#define FNO2D_LAUNCH(E)                                                                   \
+  launch_inverse_w_grouped<E>(device, stream, z, gyre, gyim, x, pk, pk_si, pk_so, pb, out, s, \
+                              G3)
+      switch (epilogue) {
+        case 0: return FNO2D_LAUNCH(0);
+        case 1: return FNO2D_LAUNCH(1);
+        default: return FNO2D_LAUNCH(2);
+      }
+#undef FNO2D_LAUNCH
+    }
+  }
   const int csize3 = !L3.bulk ? 1 : Cout % 4 == 0 ? 4 : Cout % 2 == 0 ? 2 : 1;
   const dim3 grid3 = folded(B * Cout, L3.tiles);
 #define FNO2D_LAUNCH(E)                                                                      \

@@ -9,7 +9,8 @@ Run from the repository root::
                     'programmaticStreamSerializationAllowed = 0' \\
         --variant old --source old blindno_torch/_build/old/blindno_torch/csrc \\
         [--probe NAME ...] [--design]
-    python3 -m blindno_torch.tools.ab_fno --dim 2 --tiled --variant base
+    python3 -m blindno_torch.tools.ab_fno --dim 2 --tiled --variant new --variant old \
+        --source old blindno_torch/_build/old/blindno_torch/csrc
     python3 -m blindno_torch.tools.ab_fno --dim 1 --host OLD_SPECTRAL_CUDA_PY
 
 Each variant is the kernel sources of ``--csrc`` (default ``blindno_torch/csrc``), or of
@@ -25,11 +26,13 @@ adds, after the variants named, one variant per design element of
 which are tied to that source's text (a variant whose OLD text is gone raises).
 
 The cases: with ``--dim 2`` (the default), ``chip_smoke.py``'s ``MAIN_SHAPE``,
-``NIOFNO2D_INNER`` and ``FIT_SHAPE``, or with ``--tiled`` its ``TILED_SHAPES`` (the 2-D
-kernel's tiled layouts), where each row also carries the plain version's and the
-``torch.fft`` restatement's times from one variant's round and the layer's bound
+``NIOFNO2D_INNER`` and ``FIT_SHAPE``, for the layer with gelu and the spectral conv
+alone; with ``--tiled``, its ``TILED_SHAPES`` (the 2-D kernel's tiled layouts) and then
+the models' shapes (``MODEL_SHAPES_2D``), for the layer with gelu, without it, and the
+spectral conv, where each row also carries the plain version's and the ``torch.fft``
+restatement's times from one variant's round and the layer's bound
 (``chip_smoke.layer_bound``); with ``--dim 1``, its ``HEADS_1D``, ``BRANCH_1D`` and
-``GPE_HEADS_1D``; each for the layer with gelu and for the spectral conv alone. At each case every
+``GPE_HEADS_1D``, for the layer with gelu and the spectral conv. At each case every
 variant's output is held against the plain version (``chip_smoke``'s tolerance of that
 dimension, also after replay from a CUDA graph) and its device time is taken by
 CUDA-graph replay, ``chip_smoke.graph_ms``, in ``--rounds`` rounds that run the variants
@@ -101,6 +104,9 @@ DESIGN_1D = [
                 ("  __syncthreads();  // the table\n",
                  "  stage_weights();\n  __syncthreads();  // the table\n")]),
 ]
+# The models' 2-D shapes, whose layouts and times a change to the tiled layouts must keep.
+MODEL_SHAPES_2D = (chip_smoke.MAIN_SHAPE, chip_smoke.FIT_SHAPE, chip_smoke.NCFPE2D_HEADS,
+                   chip_smoke.NIOFNO2D_INNER, chip_smoke.NCFPE2D_INNER, chip_smoke.TP_SLICE)
 # Variants that return at a stage boundary, to time the stages before it.
 PROBES_1D = [
     ("p_start", [("  if (L.cs > 1) cluster_arrive_relaxed();",
@@ -138,18 +144,23 @@ def cases(dim, wrappers=spectral_cuda, tiled=False):
                  lambda x, wr, wi, pk, pb, dc: fno1d_layer_plain(x, wr, wi, pk, pb, dc))
         spectral = (lambda x, wr, wi, pk, pb, dc: w.spectral_conv1d_cuda(x, wr, wi, dc),
                     lambda x, wr, wi, pk, pb, dc: spectral_conv1d(x, wr, wi, dc))
-        shapes, names = ((chip_smoke.HEADS_1D, chip_smoke.BRANCH_1D, chip_smoke.GPE_HEADS_1D),
-                         ("fno1d_layer gelu", "spectral_conv1d"))
+        shapes = (chip_smoke.HEADS_1D, chip_smoke.BRANCH_1D, chip_smoke.GPE_HEADS_1D)
+        names, calls = ("fno1d_layer gelu", "spectral_conv1d"), (layer, spectral)
     else:
         layer = (lambda x, wr, wi, pk, pb: w.fno2d_layer_cuda(x, wr, wi, pk, pb, True),
                  lambda x, wr, wi, pk, pb: fno2d_layer_plain(x, wr, wi, pk, pb, True))
+        linear = (lambda x, wr, wi, pk, pb: w.fno2d_layer_cuda(x, wr, wi, pk, pb, False),
+                  lambda x, wr, wi, pk, pb: fno2d_layer_plain(x, wr, wi, pk, pb, False))
         spectral = (lambda x, wr, wi, pk, pb: w.spectral_conv2d_cuda(x, wr, wi),
                     lambda x, wr, wi, pk, pb: spectral_conv2d(x, wr, wi))
-        shapes = (chip_smoke.TILED_SHAPES if tiled else
-                  (chip_smoke.MAIN_SHAPE, chip_smoke.NIOFNO2D_INNER, chip_smoke.FIT_SHAPE))
-        names = ("fno2d_layer gelu", "spectral_conv2d")
-    return [(name, shape, *calls) for shape in shapes
-            for name, calls in zip(names, (layer, spectral))]
+        if tiled:  # the tiled layouts' shapes, then the models' shapes that guard their times
+            shapes = (*chip_smoke.TILED_SHAPES, *MODEL_SHAPES_2D)
+            names, calls = (("fno2d_layer gelu", "fno2d_layer none", "spectral_conv2d"),
+                            (layer, linear, spectral))
+        else:
+            shapes = (chip_smoke.MAIN_SHAPE, chip_smoke.NIOFNO2D_INNER, chip_smoke.FIT_SHAPE)
+            names, calls = ("fno2d_layer gelu", "spectral_conv2d"), (layer, spectral)
+    return [(name, shape, *call) for shape in shapes for name, call in zip(names, calls)]
 
 
 def alternating(rounds, names):
@@ -265,7 +276,7 @@ def main():
                             chip_smoke.check_close(f"{v} {shape} replayed", out, want, tol))
                     if r == 0 and args.tiled and i not in yardsticks:
                         name = todo[i][0]
-                        act = True if "gelu" in name else None
+                        act = {"gelu": True, "none": False}.get(name.split()[-1])
                         lib = library[name.split()[0]]
                         yardsticks[i] = dict(
                             plain_ms=chip_smoke.graph_ms(lambda: plain(*xs)),

@@ -14,11 +14,13 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``. It
    (``TP_SLICE``: Cout 6 of 12) and the shapes that take the 2-D kernel's tiled layouts
    (``TILED_SHAPES``: grids of 200 and 232 points a side, a thin 16 x 3600 one, 192
    input channels, the heads padded to 183 x 183),
-   and times, at the main shapes, the NIOFNO2D inner branch and the padded heads,
-   kernel, plain version and a ``torch.fft`` restatement on
+   and, after replaying the main layer for 0.2 s to bring the card to its clocks, times
+   at the main shapes and the NIOFNO2D inner branch kernel, plain version and a
+   ``torch.fft`` restatement on
    the device (each replayed from a CUDA graph, so host launch costs drop out; the
-   kernel's replayed output is held against the plain version too), the wrapper's host
-   cost per call beside that of one ``torch.add`` on the same input, and the 2-D gelu
+   kernel's replayed output is held against the plain version too), at every tiled shape
+   the kernel and the restatement from smaller graphs, at the others the wrapper's
+   host cost per call beside that of one ``torch.add`` on the same input, and the 2-D gelu
    layer's stages at the main shape in a ``torch.profiler`` trace; then each wrapper on
    bfloat16 and float16 operands at the training shapes, against its plain version on
    them raised to float32;
@@ -149,6 +151,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import functools
+import gc
 import io
 import json
 import math
@@ -363,11 +366,19 @@ def graph_ms(fn, calls=20, replays=10, result=False):
     graph.replay()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    end.synchronize()
+    # no garbage collection between the events: collecting an earlier graph frees its
+    # memory pool, and that cudaFree would hold the host while the device ran dry
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        start.record()
+        for _ in range(replays):
+            graph.replay()
+        end.record()
+        end.synchronize()
+    finally:
+        if collecting:
+            gc.enable()
     ms = start.elapsed_time(end) / (calls * replays)
     return (ms, out) if result else ms
 
@@ -464,9 +475,26 @@ def layer_inputs(shape, device):
     return t(b, c, h, w), t(c, o, 2 * m1, m2), t(c, o, 2 * m1, m2), t(c, o), t(o)
 
 
+def warm_up(fn, seconds=0.2):
+    """Replay ``fn`` from a CUDA graph for about ``seconds``, so that the first timed row
+    finds the card at its working clocks (without it, a run's first timing has read up
+    to 40% high: PERF.md section 7)."""
+    ms = graph_ms(fn)
+    graph_ms(fn, replays=max(1, int(1e3 * seconds / (20 * ms))))
+    gc.collect()  # the graphs' memory pools go now, not during a timed row
+    torch.cuda.synchronize()
+
+
+# a case timed from small CUDA graphs alone: the kernel and the library call, for the
+# layer with gelu and the spectral conv (not the layer without gelu, nor the plain version
+# or the host's cost), which keeps the tiled shapes' rows inside the script's budget
+GRAPH_ONLY = "graph"
+
+
 def check_and_time(cases, variants, library, tol, stats):
     """Hold each variant against its plain version at each (shape, timed, main) case;
-    at a timed case also time kernel, plain version and library call. ``stats`` keeps
+    at a timed case also time kernel, plain version and library call, the kernel's eager
+    calls and the wrapper's host cost (a GRAPH_ONLY case: see there). ``stats`` keeps
     each kernel's largest error and the gelu variant's numbers at its main shape."""
     for shape, timed, main in cases:
         args = layer_inputs(shape, "cuda")
@@ -477,7 +505,16 @@ def check_and_time(cases, variants, library, tol, stats):
             want = plain(*args)
             err = check_close(f"{name} act={act} {shape}", got, want, tol)
             row = dict(kernel=name, gelu=act, shape=shape, max_abs_err=err, tol=tol)
-            if timed:
+            if timed == GRAPH_ONLY and act is not False:
+                lib_fn = library[name]
+                check_close(f"{name} fft restatement", lib_fn(*args, act), want, tol)
+                kernel_ms, replayed = graph_ms(lambda: kernel(*args), 5, 4, result=True)
+                row.update(max_abs_err_graph=check_close(f"{name} act={act} {shape} replayed",
+                                                         replayed, want, tol),
+                           kernel_ms=kernel_ms,
+                           library_ms=graph_ms(lambda: lib_fn(*args, act), 5, 4),
+                           **layer_bound(bound_shape, act is not None))
+            elif timed is True:
                 lib_fn = library[name]
                 check_close(f"{name} fft restatement", lib_fn(*args, act), want, tol)
                 eager_ms, host_ms = time_ms(lambda: kernel(*args), 200, host=True)
@@ -546,14 +583,16 @@ def phase_kernels():
                    lambda x, wr, wi, pk, pb, dc: spectral_conv1d(x, wr, wi, dc))
     stats = {}
     with torch.inference_mode():
-        # every shape checked; timed: the main shapes, and in 2-D the NIOFNO2D inner
-        # branch and the padded heads (the kernel's tiled layout on the slice's path);
-        # the other shapes' times are in PERF.md from earlier runs
+        main_args = layer_inputs(MAIN_SHAPE, "cuda")
+        warm_up(lambda: variants_2d[0][2](*main_args))
+        # every shape checked; timed: the main shapes, in 2-D the NIOFNO2D inner branch
+        # and, from graphs alone, every tiled layout's shape (the padded heads' on the
+        # slice's path); the other shapes' times are in PERF.md from earlier runs
         check_and_time([(MAIN_SHAPE, True, True), (RAGGED_SHAPE, False, False),
                         (NCFPE2D_HEADS, False, False), (NIOFNO2D_INNER, True, False),
                         (NCFPE2D_INNER, False, False), (FIT_SHAPE, False, False),
                         (TP_SLICE, False, False),
-                        *((shape, shape == PADDED_HEADS, False) for shape in TILED_SHAPES)],
+                        *((shape, GRAPH_ONLY, False) for shape in TILED_SHAPES)],
                        variants_2d, library, KERNEL_TOL, stats)
         check_and_time([(HEADS_1D, True, True), (RAGGED_1D, False, False)],
                        [layer_1d(True), layer_1d(False), spectral_1d], library,
@@ -574,6 +613,8 @@ def phase_kernels():
                 (TRAIN_HEADS_1D, layer_1d(True), KERNEL_TOL_1D),
                 (TRAIN_HEADS_1D, spectral_1d, KERNEL_TOL_1D)):
             low_precision_operands(name, act, kernel, plain, shape, tol)
+    gc.collect()  # the phase's CUDA graphs and their memory pools go before the next phase
+    torch.cuda.synchronize()
     return stats
 
 

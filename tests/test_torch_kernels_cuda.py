@@ -30,14 +30,19 @@ TP_SHAPES = [s for s in SHAPES if len(s) > 6]
 # shapes past one block's shared memory or the grid's y and z limits, each in a stage's
 # tiled layout: a 200x200 grid at 64x64 modes; the largest grid with every mode kept
 # that the two-stage kernel before this design took; a thin grid; 192 input channels at
-# B=2 (whole) and B=4 (S2 in channel chunks); the fpe2d heads padded by 2x61 to 183; a
-# tall grid (S2 in H chunks); 2*m1 = 300 mode rows (S1 in two mode tiles); 600 of 601
-# W-modes (S3 in two passes over Z's columns); 4100 input channels (pointwise weights
-# past those staged); 140000 batch elements (the grids folded over y and z)
+# B=2 and B=4 (S2's channels split among a cluster's blocks, S3 grouped); the fpe2d
+# heads padded by 2x61 to 183; a tall grid (S2 in H chunks); 2*m1 = 300 mode rows (S1
+# in two mode tiles); 600 of 601 W-modes (S3 in two passes over Z's columns); 4100 input
+# channels (S2 in channel chunks, S3's x chunks); 140000 batch elements (the grids
+# folded over y and z); S1's chunks
+# split among a cluster's blocks in runs that cross H chunks (3 H chunks of 5 W chunks,
+# over 2 or 4 blocks); S3 grouped at an odd W, with 6 output channels in blocks of 4 and
+# 2; and S2's input channels split among a cluster's blocks at 192 channels and B = 1
 TILED_SHAPES = [(1, 1, 200, 200, 64, 64), (1, 2, 232, 232, 116, 117), (2, 3, 16, 3600, 8, 40),
                 (2, 192, 76, 76, 32, 32), (4, 192, 76, 76, 32, 32), (4, 12, 183, 183, 32, 32),
                 (1, 2, 1200, 12, 4, 5), (1, 2, 600, 8, 150, 3), (1, 1, 4, 1200, 1, 600),
-                (1, 4100, 4, 4, 1, 1, 2), (140000, 1, 2, 1, 1, 1)]
+                (1, 4100, 4, 4, 1, 1, 2), (140000, 1, 2, 1, 1, 1), (2, 6, 150, 300, 32, 40),
+                (2, 5, 45, 45, 8, 8, 6), (1, 192, 76, 76, 32, 32, 12)]
 # 1-D (B, C, N, modes, dc_half[, Cout], Cout = C unless given): the fpe1d heads, the
 # FNO-branch model's inner FNO1d, the GPE width, a ragged shape without the DC halving,
 # the gpe1d heads, an even N that keeps its Nyquist mode, one batch row with more output
