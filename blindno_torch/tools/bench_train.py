@@ -16,15 +16,21 @@ training step of :mod:`blindno_torch.train.step` in float32, in bfloat16 under J
 default policy ``all`` and, for the two models with an Encoder2D (``nio``, ``attn``),
 in bfloat16 ``encoder_bn32`` (the policy casts only the batch of the others):
 each mode from fresh weights, 3 warm-up steps and then the timed steps with a
-synchronize before each clock read, every step with a fresh set subsample. TF32 stays
-off, as the reference runs its products at float32 HIGHEST. It prints one JSON line.
+synchronize before each clock read, every step with a fresh set subsample. Beside each
+mode's figure, ``steps_per_sec_scanned_<mode>`` is the same step as
+``TrainConfig(epoch_scan=True)`` runs it, the counterpart of ``bench.py``'s
+``steps_per_sec_scanned`` (its step body scanned over the step keys with no dispatch per
+step, ``bench.py:232-263``): the epoch program of :mod:`blindno_torch.train.scan` over
+the batch, one CUDA graph of the step replayed once a step
+(:func:`scanned_steps_per_sec`). TF32 stays off, as the reference runs its products at
+float32 HIGHEST. It prints one JSON line.
 
 ``--suite fpe1d`` or ``--suite gpe1d`` times the 1-D suite's NIO, FNO-branch NIO and
 UNet (``--model nio|fno|unet`` picks one) in float32 as the suites registry builds them,
 on a batch of the suite's size (:data:`BATCHES_1D`: 32 sets of 100 snapshots of 80
 points, or of 101 of 128; numpy seed 0, the grid on [0, 1]).
-``chip_smoke.py`` calls :func:`steps_per_sec`, :func:`fresh_model` and
-:func:`bench_batch`.
+``chip_smoke.py`` calls :func:`steps_per_sec`, :func:`scanned_steps_per_sec`,
+:func:`fresh_model` and :func:`bench_batch`.
 """
 from __future__ import annotations
 
@@ -96,10 +102,12 @@ def fresh_model(device, model="nio", suite="fpe2d"):
     return cls(**config, generator=g, device=device).train()
 
 
-def steps_per_sec(compute_dtype=None, model="nio", suite="fpe2d", amp_policy="encoder_bn32"):
+def steps_per_sec(compute_dtype=None, model="nio", suite="fpe2d", amp_policy="encoder_bn32",
+                  figures=False):
     """Training steps per second of ``model`` (a key of :data:`MODELS`, or of a 1-D
     suite's models) on the card in one mode, from fresh weights: WARMUP steps, then STEPS
-    timed on the host clock between two synchronizes."""
+    timed on the host clock between two synchronizes. With ``figures``, returns (steps
+    per second, the host's ms to enqueue one step, the step)."""
     from blindno_torch.train.step import make_optimizer, train_step
 
     model = fresh_model("cuda", model, suite)
@@ -114,10 +122,54 @@ def steps_per_sec(compute_dtype=None, model="nio", suite="fpe2d", amp_policy="en
     t0 = time.perf_counter()
     for _ in range(STEPS):
         loss = step()
+    enqueue = time.perf_counter() - t0
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if not torch.isfinite(loss):
         raise RuntimeError(f"bench_train: {compute_dtype or 'float32'} loss is {loss.item()}")
+    if figures:
+        return STEPS / wall, 1e3 * enqueue / STEPS, step
+    return STEPS / wall
+
+
+def scanned_steps_per_sec(compute_dtype=None, model="nio", suite="fpe2d",
+                          amp_policy="encoder_bn32", figures=False):
+    """Training steps per second of the step of :func:`steps_per_sec` as
+    ``TrainConfig(epoch_scan=True)`` runs it on the card: the epoch program
+    (:class:`~blindno_torch.train.scan.EpochProgram`) over the batch alone, each step
+    gathering it whole at the program's counter, a fresh set subsample a step from the
+    graph's registered generator. One epoch of STEPS steps warms up, captures and
+    replays; the next epoch's STEPS replays are timed on the host clock between two
+    synchronizes. With ``figures``, returns (steps per second, the host's ms to enqueue
+    one replayed step, a function that runs one more replayed epoch)."""
+    from blindno_torch.train.scan import EpochProgram
+    from blindno_torch.train.step import make_optimizer
+
+    net = fresh_model("cuda", model, suite)
+    opt = make_optimizer(net)
+    x, y, grid = bench_batch("cuda", suite)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    program = EpochProgram(net, opt, x, y, grid, STEPS, x.shape[0], compute_dtype=compute_dtype,
+                           amp_policy=amp_policy, generator=gen)
+    positions = np.tile(np.arange(x.shape[0]), (STEPS, 1))
+
+    def epoch():
+        program.load(positions, None, None, opt.defaults["lr"])
+        return program.run()
+
+    epoch()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = epoch()
+    enqueue = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not torch.isfinite(loss):
+        raise RuntimeError(f"bench_train: scanned {compute_dtype or 'float32'} loss is {loss.item()}")
+    if program.replays != 2 * STEPS - 1:
+        raise RuntimeError(f"bench_train: {program.replays} replays, want {2 * STEPS - 1}")
+    if figures:
+        return STEPS / wall, 1e3 * enqueue / STEPS, epoch
     return STEPS / wall
 
 
@@ -139,15 +191,21 @@ def main():
     if args.suite in BATCHES_1D:
         models = [args.model] if args.model else list(MODELS_1D)
         result = {m: steps_per_sec(None, m, args.suite) for m in models}
-        print(json.dumps({"steps_per_sec_f32": result, "suite": args.suite,
+        scanned = {m: scanned_steps_per_sec(None, m, args.suite) for m in models}
+        print(json.dumps({"steps_per_sec_f32": result, "steps_per_sec_scanned_f32": scanned,
+                          "suite": args.suite,
                           "batch": BATCHES_1D[args.suite], "timed_steps": STEPS,
                           "device": name, "power_limit": power}), flush=True)
         return
     args.model = args.model or "nio"
     cls_name, config, modes = MODELS[args.model]
-    result = {f"steps_per_sec_{mode}": steps_per_sec(MODES[mode][0], args.model,
-                                                     amp_policy=MODES[mode][1])
-              for mode in modes}
+    result = {}
+    for mode in modes:
+        compute_dtype, policy = MODES[mode]
+        result[f"steps_per_sec_{mode}"] = steps_per_sec(compute_dtype, args.model,
+                                                        amp_policy=policy)
+        result[f"steps_per_sec_scanned_{mode}"] = scanned_steps_per_sec(
+            compute_dtype, args.model, amp_policy=policy)
     print(json.dumps({**result, "model": args.model, "class": cls_name, "config": config,
                       "batch": BATCH, "timed_steps": STEPS, "device": name,
                       "power_limit": power}), flush=True)

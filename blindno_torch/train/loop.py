@@ -11,6 +11,12 @@ start from a CPU generator, the set subsamples from a generator on the device, a
 the step losses are stacked and read once. Each step's body is
 :func:`blindno_torch.train.step.train_step`.
 
+With ``epoch_scan=True`` each epoch is one program over static device buffers instead,
+as JAX's ``lax.scan`` epoch (:mod:`blindno_torch.train.scan`): on a CUDA card, after the
+run's first step, one captured CUDA graph of the step replayed once a step; on the CPU
+(``device="cpu"``) the same program uncaptured. It takes the per-step loop's draws and
+updates, saves the same checkpoints, and runs in one process.
+
 Run as several ranks (torchrun's ``WORLD_SIZE`` > 1, or in a process group already up),
 the loop trains data- and tensor-parallel as JAX's does on a ``(data, model)`` mesh
 (``blindno/train/loop.py:275-295``): the model is sharded and wrapped by
@@ -39,6 +45,7 @@ from blindno_torch.parallel.mesh import (data_model_mesh, data_parallel_size, in
                                          is_distributed, world_size)
 from blindno_torch.parallel.tp import gather_state
 from blindno_torch.train import checkpoint
+from blindno_torch.train.scan import EpochProgram
 from blindno_torch.train.step import (AMP_POLICIES, COMPUTE_DTYPES, check_compute_dtype,
                                       make_optimizer, train_step)
 from blindno_torch.utils.logging import MetricsLogger, trace
@@ -49,11 +56,12 @@ class TrainConfig:
     """The JAX package's fields and defaults (``blindno/train/loop.py:38-139``, where
     each field's note is). ``compute_dtype`` None, ``"float32"``, ``"bfloat16"`` or
     ``"float16"`` trains every model under any of the three ``amp_policy`` values
-    (:mod:`blindno_torch.train.step`). The port refuses ``epoch_scan=True`` (a JAX-only
-    fusion), what JAX refuses too (another ``compute_dtype`` or ``amp_policy``), and the
-    float16 step of a model whose set attention masks its keys, where JAX's step gives
-    NaN (:func:`~blindno_torch.train.step.float16_refusal`); ``tp`` must divide the ranks,
-    and the rest of them (the ``data`` axis) the batch."""
+    (:mod:`blindno_torch.train.step`); ``epoch_scan=True`` runs each epoch as one program
+    (:mod:`blindno_torch.train.scan`), in one process. The port refuses what JAX refuses
+    too (another ``compute_dtype`` or ``amp_policy``), the float16 step of a model whose
+    set attention masks its keys, where JAX's step gives NaN
+    (:func:`~blindno_torch.train.step.float16_refusal`), and ``epoch_scan`` across ranks;
+    ``tp`` must divide the ranks, and the rest of them (the ``data`` axis) the batch."""
 
     epochs: int = 400
     batch_size: int = 32
@@ -159,9 +167,6 @@ def step_lr(lr: float, gamma: float, step_epochs: int, steps_per_epoch: int):
 
 
 def _check_config(cfg: TrainConfig):
-    if cfg.epoch_scan:
-        raise ValueError("epoch_scan=True is a JAX-only fusion (one lax.scan per epoch); "
-                         "the port runs the per-step loop")
     if cfg.compute_dtype is not None and (cfg.compute_dtype not in COMPUTE_DTYPES
                                           or cfg.amp_policy not in AMP_POLICIES):
         raise ValueError(f"compute_dtype={cfg.compute_dtype!r} with amp_policy="
@@ -259,8 +264,13 @@ def train_model(model, data: SetToFieldData, grid, cfg: TrainConfig, *,
     """
     _check_config(cfg)
     check_compute_dtype(model, cfg.compute_dtype, cfg.amp_policy)
-    n_data = _check_world(cfg)
     distributed = is_distributed()
+    if cfg.epoch_scan and distributed:
+        raise ValueError(f"epoch_scan=True runs in one process, not across {world_size()} "
+                         "ranks: DDP's and tensor parallelism's collectives would have to "
+                         "be captured over NCCL, and gloo cannot be (ROADMAP.md A.2, "
+                         "epoch_scan across ranks); train with epoch_scan=False")
+    n_data = _check_world(cfg)
     aug_fns = make_augment(cfg.augment)
     if cfg.augment == "flip1d":
         if data.inputs.ndim != 3:
@@ -356,8 +366,16 @@ def train_model(model, data: SetToFieldData, grid, cfg: TrainConfig, *,
         model.train()
         return sums
 
+    program = None
+    if cfg.epoch_scan:
+        program = EpochProgram(net, opt, x_train, y_train, grid, steps_per_epoch, cfg.batch_size,
+                               aug_fns, compute_dtype=cfg.compute_dtype,
+                               amp_policy=cfg.amp_policy, generator=gen)
+
     def resume_state():
         """(params, batch_stats, optimizer state) as one process holds them."""
+        if program is not None:
+            return (*_state(model), program.optimizer_state())
         if not distributed:
             return (*_state(model), opt.state_dict())
         full, opt_state = gather_state(model, opt)
@@ -382,23 +400,29 @@ def train_model(model, data: SetToFieldData, grid, cfg: TrainConfig, *,
         # one steady-state epoch (after the first two) traced, SURVEY 5.1 hook
         with trace(cfg.profile_dir if epoch == start_epoch + 2 else None):
             batch_idx, elements, subsamples = draws(epoch, steps_per_epoch)
-            batch_idx = torch.as_tensor(batch_idx, dtype=torch.long)[:, rows].to(dev)
-            t0 = time.perf_counter()
-            losses = []
-            for i in range(steps_per_epoch):
-                xb = x_train.index_select(0, batch_idx[i]).float()
-                yb = y_train.index_select(0, batch_idx[i])
-                if aug_fns is not None:
-                    xb, yb = aug_fns[elements[i]](xb, yb)
-                for group in opt.param_groups:
-                    group["lr"] = schedule(global_step)
-                losses.append(train_step(
-                    net, opt, xb, yb, grid, compute_dtype=cfg.compute_dtype,
-                    amp_policy=cfg.amp_policy,
-                    generator=None if subsamples else gen,
-                    subsample=subsamples[i] if subsamples else None))
-                global_step += 1
-            train_loss = torch.stack(losses).mean()
+            if program is not None:
+                program.load(batch_idx, elements, subsamples, schedule(global_step))
+                t0 = time.perf_counter()
+                train_loss = program.run()
+                global_step += steps_per_epoch
+            else:
+                batch_idx = torch.as_tensor(batch_idx, dtype=torch.long)[:, rows].to(dev)
+                t0 = time.perf_counter()
+                losses = []
+                for i in range(steps_per_epoch):
+                    xb = x_train.index_select(0, batch_idx[i]).float()
+                    yb = y_train.index_select(0, batch_idx[i])
+                    if aug_fns is not None:
+                        xb, yb = aug_fns[elements[i]](xb, yb)
+                    for group in opt.param_groups:
+                        group["lr"] = schedule(global_step)
+                    losses.append(train_step(
+                        net, opt, xb, yb, grid, compute_dtype=cfg.compute_dtype,
+                        amp_policy=cfg.amp_policy,
+                        generator=None if subsamples else gen,
+                        subsample=subsamples[i] if subsamples else None))
+                    global_step += 1
+                train_loss = torch.stack(losses).mean()
             if distributed:
                 dist.all_reduce(train_loss, group=data_group)
                 train_loss = _from_rank0([train_loss.item() / n_data], dev)[0]

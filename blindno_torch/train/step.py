@@ -39,6 +39,12 @@ kernels take float32 only, and their wrappers raise their inputs to float32 and 
 the product's dtype (:mod:`blindno_torch.ops.spectral_cuda`). Master weights, gradients,
 Adam state and stored statistics stay float32; there is no loss scaling, as in JAX.
 
+:func:`train_step` is :func:`step_body`, the step's device work, after its checks and
+``zero_grad``. ``TrainConfig(epoch_scan=True)`` captures :func:`step_body` in a CUDA graph
+(:mod:`blindno_torch.train.scan`), with Adam in its capturable form
+(:func:`make_capturable`: step counts and learning rate on the card) and its state saved
+in the host Adam's format (:func:`portable_state`).
+
 One case is refused, because JAX's own step gives NaN there: float16 on a model whose set
 attention masks its keys in train mode (:func:`float16_refusal`). The ``all`` and
 ``encoder`` policies failed their accuracy gates in JAX (``blindno/train/loop.py:105-123``);
@@ -59,6 +65,40 @@ def make_optimizer(model, lr: float = 5e-4) -> torch.optim.Adam:
     """Adam over the trainable parameters; a frozen fusion (``trainable=False``, the
     default) stays out."""
     return torch.optim.Adam([p for p in model.parameters() if p.requires_grad], lr=lr)
+
+
+def make_capturable(optimizer: torch.optim.Adam) -> torch.Tensor:
+    """Turn ``optimizer`` (Adam over parameters on one CUDA card, its state fresh or
+    loaded) into the form a CUDA graph of the step can capture, in place: Adam's
+    ``capturable=True``, its step counts float32 tensors on the card, and its learning
+    rate one 0-d float32 tensor there, shared by every group, which the caller fills
+    between replays. A replay then reads the rate and the counts from the card, where
+    the host's Adam reads them from Python numbers and host tensors: its bias
+    corrections are float32 products on the card instead of float64 ones on the host.
+    Returns the learning-rate tensor."""
+    group = optimizer.param_groups[0]
+    dev = group["params"][0].device
+    if dev.type != "cuda":
+        raise ValueError(f"a capturable optimizer needs its parameters on a CUDA card, got {dev}")
+    lr = torch.tensor(float(group["lr"]), dtype=torch.float32, device=dev)
+    for group in optimizer.param_groups:
+        group["capturable"], group["lr"] = True, lr
+    for state in optimizer.state.values():
+        state["step"] = state["step"].to(device=dev, dtype=torch.float32)
+    return lr
+
+
+def portable_state(optimizer: torch.optim.Adam, lr: float) -> dict:
+    """``optimizer.state_dict()`` as the host's Adam writes it, whatever its form: a
+    capturable one's groups say ``capturable=False`` and carry ``lr`` as a float, and
+    its step counts are float32 tensors on the host, so that either form loads the
+    file. The moments are the optimizer's own tensors, as ``state_dict`` gives them."""
+    state = optimizer.state_dict()
+    if not any(g["capturable"] for g in state["param_groups"]):
+        return state
+    state["param_groups"] = [{**g, "capturable": False, "lr": lr} for g in state["param_groups"]]
+    state["state"] = {i: {**s, "step": s["step"].to("cpu")} for i, s in state["state"].items()}
+    return state
 
 
 def float16_refusal(model) -> str | None:
@@ -133,6 +173,17 @@ def train_step(model, optimizer, x, y, grid, *, generator: torch.Generator | Non
         raise ValueError("train_step: call model.train() first")
     check_compute_dtype(model, compute_dtype, amp_policy)
     optimizer.zero_grad(set_to_none=True)
+    return step_body(model, optimizer, x, y, grid, generator=generator, subsample=subsample,
+                     compute_dtype=compute_dtype, amp_policy=amp_policy)
+
+
+def step_body(model, optimizer, x, y, grid, *, generator=None, subsample=None,
+              compute_dtype=None, amp_policy: str = "encoder_bn32"):
+    """The device work of :func:`train_step`, what a CUDA graph of the step captures:
+    the forward (the policy's casts first), the loss, ``backward()`` and Adam's update,
+    with no check and no host work. The parameters' gradients must be None on entry,
+    so that ``backward()`` writes each one afresh (a replay then writes the same
+    memory again). Returns the loss (a 0-d float32 tensor on the device)."""
     dtype = COMPUTE_DTYPES[compute_dtype]
     kwargs = dict(generator=generator, subsample=subsample)
     if dtype is torch.float32:

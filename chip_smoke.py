@@ -69,10 +69,10 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``. It
    same weights (the UNet in bfloat16 end to end, its heads' kernels inside the cast), 6
    launches counted, its loss and heads' gradients held to the card's float32 step, 10
    timed bfloat16 steps whose loss must fall; the step's split on the device and the
-   host, its top kernels and peak memory; then the fpe2d suite's ``NIOFNO2D`` the same
-   way (phase ``train_fno``, 8 launches a step in float32 and in bfloat16 ``all``, every
-   bfloat16 gradient held, the frozen fusion unchanged), with the FNO2d layer's torch
-   backward timed at the inner shape;
+   host and its peak memory (its top kernels: phase ``epoch_scan``); then the fpe2d
+   suite's ``NIOFNO2D`` the same way (phase ``train_fno``, 8 launches a step in float32
+   and in bfloat16 ``all``, every bfloat16 gradient held, the frozen fusion unchanged),
+   with the FNO2d layer's torch backward timed at the inner shape;
 10. trains and evaluates the fpe2d NIO through the port's suites CLI at the suite's own
    config (phase ``fit``): a synthetic archive of 80 sets of 100 snapshots of 61x61 in
    the JAX datagen's format (numpy seed 0) under a temporary workdir, 2 epochs of
@@ -87,7 +87,15 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``. It
    launches counted exactly, no host synchronization in a step, predictions against the
    CPU; then the ncfpe2d suite at its own config (batch 4, ``c4_vector``) on a
    synthetic archive of 20 sets of 100 snapshots of 80x80, its ``NIOFNO2D`` and its
-   plain-block UNet each for one epoch and the eval stage, checked the same way;
+   plain-block UNet each for one epoch and the eval stage, checked the same way; then
+   (phase ``epoch_scan``) the fpe2d suite's UNet through ``train_model`` with
+   ``epoch_scan=True``, each epoch one CUDA graph of the step replayed once a step
+   (``blindno_torch/train/scan.py``), against ``epoch_scan=False`` on the same archive
+   from the same weights and seed: 2 float32 epochs and one bfloat16 ``all`` epoch,
+   history and final state within bounds, every run's ``fno2d_layer`` executions exact,
+   one replayed epoch under ``torch.cuda.set_sync_debug_mode("error")`` and traced (3
+   stage kernels a layer call); and at ``bench.py``'s batch 10 replayed steps beside 10
+   eager ones (steps/s, the host's ms a step, the device's busy ms);
 11. trains the fpe1d suite's NIOFP1D, NIOFNO1D and BlinDNO UNet at full width on the
    suite's batch of 32 sets of 100 snapshots of 80 points (phase ``train1d``): for each
    one float32 step on the card against the CPU (the FNO1d layer's kernel forward in
@@ -1453,8 +1461,8 @@ def phase_train_unet(smi_line):
     suite's config, seeded weights, randomized LayerNorms) on ``bench.py``'s batch: one
     float32 step on the card against the same step on the CPU, its launches counted;
     ten timed steps whose loss must fall; the bfloat16 ``all`` steps
-    (:func:`low_precision_steps`); the step's split on the device and the host, and its
-    peak memory. Returns its
+    (:func:`low_precision_steps`); the step's split on the device and the host (its
+    top kernels and busy time: phase ``epoch_scan``), and its peak memory. Returns its
     ``fno2d_layer`` launches."""
     from blindno_torch.tools import bench_train
     from blindno_torch.train.step import make_optimizer, train_step
@@ -1500,7 +1508,7 @@ def phase_train_unet(smi_line):
 
     # 3. throughput, and the step's split: CUDA events around its forward, backward and
     # Adam, and around the set encoder's and the heads' forward and backward alone; the
-    # host's time to enqueue a step; the step's kernels by device time in a profiler trace
+    # host's time to enqueue a step (its kernels by device time: phase epoch_scan)
     ev = lambda: torch.cuda.Event(enable_timing=True)
     split = {k: 0.0 for k in ("forward_ms", "backward_ms", "optimizer_ms", "host_enqueue_ms",
                              "features_fwd_bwd_ms", "heads_fwd_bwd_ms")}
@@ -1536,7 +1544,6 @@ def phase_train_unet(smi_line):
                                   "features_fwd_bwd_ms", "heads_fwd_bwd_ms"),
                                  ((e, 0), (e, 1), (e, 2), (p, 0), (p, 2))):
                 split[k] += i[j].elapsed_time(i[j + 1]) / rounds
-    split["top_kernels_ms"] = top_kernels(step)  # "all": the device's busy time in a step
     emit("train_unet", model="PermInvUNetAttn", config=bench_train.UNET_CONFIG,
          batch=bench_train.BATCH, launches=counts, loss_card=card[0], loss_cpu=cpu[0],
          worst_rel_l2_conv_stack=max(conv_stack.items(), key=lambda kv: kv[1]),
@@ -2360,7 +2367,8 @@ def fit_cli(w, spec, model, m, m_test, epochs, per_forward, smi_line, layer="fno
 def phase_fit(smi_line):
     """The main path, training and evaluation through the suites CLI
     (``blindno_torch.suites.run``) at the fpe2d suite's config. Returns its
-    ``fno2d_layer`` launches."""
+    ``fno2d_layer`` launches and the loaded train archive, which phase ``epoch_scan``
+    trains on."""
     from blindno_torch.data.datasets import load_fpe2d
     from blindno_torch.eval.field_eval import predict_fields, predict_fields_tta
     from blindno_torch.suites import registry
@@ -2486,7 +2494,7 @@ def phase_fit(smi_line):
         data = load_fpe2d(arch)
         x = torch.tensor(data.inputs[:cfg.batch_size], device="cuda")
         y = torch.tensor(data.targets[:cfg.batch_size], device="cuda")
-        del data, arch
+        del arch
         g = torch.tensor(spec.grid, device="cuda")
         model = factory(generator=torch.Generator().manual_seed(1), device="cuda").train()
         opt = make_optimizer(model, cfg.lr)
@@ -2521,7 +2529,181 @@ def phase_fit(smi_line):
                                 smi_line)
 
     return (counts1["fno2d_layer"] + counts2["fno2d_layer"] + counts3["fno2d_layer"]
-            + unet_launches + fit_ncfpe2d(build, smi_line))
+            + unet_launches + fit_ncfpe2d(build, smi_line)), data
+
+
+# phase epoch_scan: TrainConfig(epoch_scan=True) against the per-step loop. Its Adam is
+# the host's, whose bias corrections are float64 numbers where the captured Adam's are
+# float32 products on the card: the history is held within SCAN_HIST_TOL relative (or
+# two per-step runs' gap, where cuDNN's atomics make that larger), the final tensors
+# within unet_tol, but in bfloat16 only the heads' (the conv stack's are chaotic in
+# bfloat16: low_precision_steps holds the heads' gradients alone)
+SCAN_EPOCHS, SCAN_BF16_EPOCHS, SCAN_HIST_TOL = 2, 1, 1e-4
+FNO2D_STAGES = "fno2d_"  # in the names of the 2-D layer's three stage kernels, and no other
+
+
+def scan_gaps(scanned, eager):
+    """The gaps of the run ``scanned`` from ``eager``: the worst relative gap of the
+    history's numbers, and each final parameter and floating buffer's relative L2 gap."""
+    def numbers(res):
+        return np.array([v for h in res.history for v in (h["train_loss"], h["test_loss"],
+                                                           *h["field_rel_l2"])], np.float64)
+
+    a, b = numbers(scanned), numbers(eager)
+    if a.shape != b.shape or not np.isfinite(a).all():
+        raise RuntimeError(f"epoch_scan: histories {scanned.history} against {eager.history}")
+    gap = lambda x, y: 0.0 if torch.equal(x, y) else rel_l2(x, y)
+    state = {**{k: gap(scanned.params[k], v) for k, v in eager.params.items()},
+             **{f"state {k}": gap(scanned.batch_stats[k], v)
+                for k, v in eager.batch_stats.items() if v.is_floating_point()}}
+    return float(np.max(np.abs(a - b) / np.abs(b))), state
+
+
+def check_scan_gaps(label, hist, state, hist_tol, held):
+    """Raise unless the history's gap is within ``hist_tol`` and each tensor that
+    ``held(key)`` names within ``unet_tol``; return the worst gaps."""
+    bad = {k: e for k, e in state.items() if held(k) and not e <= unet_tol(k)}
+    if not hist <= hist_tol or bad:
+        raise RuntimeError(f"{label}: epoch_scan=True lies beyond its bounds from the per-step "
+                           f"loop: history {hist:.3g} (bound {hist_tol:.3g}), tensors {bad}")
+    worst = lambda part: max(part.items(), key=lambda kv: kv[1])
+    conv = {k: e for k, e in state.items() if unet_tol(k) == ENCODER_TOL}
+    return dict(history=hist, worst_conv_stack=worst(conv),
+                worst_rest=worst({k: e for k, e in state.items() if k not in conv}))
+
+
+def phase_epoch_scan(smi_line, data):
+    """``TrainConfig(epoch_scan=True)`` (``blindno_torch/train/scan.py``) on the fpe2d
+    suite's UNet at the suite's config, through ``train_model``, on ``data``, ``fit``'s
+    synthetic archive loaded (FIT["m"] sets: 4 steps of 16 an epoch): (a) SCAN_EPOCHS float32 epochs with
+    ``epoch_scan=True`` and with False from the same weights and seed (see SCAN_HIST_TOL
+    for the bounds); (b) the same for SCAN_BF16_EPOCHS in bfloat16 ``all``; (c) the first
+    wholly replayed epoch under ``set_sync_debug_mode("error")``; (d) its ``fno2d_layer``
+    calls (the graph's, per replay) against the stage kernels in a profiler trace of that
+    epoch; every run's
+    kernel executions exact (the wrappers are called eagerly for the run's first step
+    and during the capture, which executes nothing; each replay executes what the
+    capture recorded); (e) at ``bench.py``'s batch, STEPS replays of the captured step
+    beside STEPS eager steps: steps/s, the host's ms a step and the device's busy ms.
+    Returns the executed ``fno2d_layer`` calls of (a) and (b)."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from blindno_torch.suites import registry
+    from blindno_torch.tools import bench_train
+    from blindno_torch.train import loop, scan
+
+    spec = registry.SUITES["fpe2d"]
+    m = FIT["m"]
+    base = dataclasses.replace(spec.train_cfg, save_interval=1)
+    n_train = int(base.train_frac * m)
+    steps, evals = n_train // base.batch_size, -(-(m - n_train) // base.batch_size)
+    programs = []
+
+    class Recorded(scan.EpochProgram):
+        """The loop's program, kept: its capture's wrapper calls counted, and its first
+        wholly replayed epoch run under sync debug mode "error" and traced."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.captured = self.stages = self.kernels = None
+            programs.append(self)
+
+        def _capture(self):
+            before = {k: w.launches for k, w in kernel_wrappers().items()}
+            super()._capture()
+            self.captured = {k: w.launches - before[k] for k, w in kernel_wrappers().items()}
+
+        def run(self):
+            if self.graph is None or self.stages is not None:
+                return super().run()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    out = super().run()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                torch.cuda.synchronize()
+            events = [e for e in prof.key_averages() if e.device_time_total > 0]
+            self.stages = sum(e.count for e in events if FNO2D_STAGES in e.key)
+            self.kernels = sorted(((e.key[:60], e.count) for e in events), key=lambda kv: -kv[1])
+            return out
+
+    def train(epochs, scanned, **fields):
+        cfg = dataclasses.replace(base, epochs=epochs, epoch_scan=scanned, **fields)
+        model = spec.models["unet"](generator=torch.Generator().manual_seed(0), device="cuda")
+        t0 = time.perf_counter()
+        counts, res = counted(lambda: loop.train_model(model, data, spec.grid, cfg))
+        wall = time.perf_counter() - t0
+        want = 6 * (steps + evals) * epochs
+        label = f"epoch_scan: {fields or 'float32'} epoch_scan={scanned}"
+        if not scanned:
+            expect_launches(label, counts, fno2d_layer=want)
+            return res, counts["fno2d_layer"], dict(wall_s=wall)
+        program = programs[-1]
+        cap = program.captured
+        executed = {k: v - cap[k] + cap[k] * program.replays for k, v in counts.items()}
+        if program.replays != steps * epochs - scan.WARMUP_STEPS or cap["fno2d_layer"] != 6:
+            raise RuntimeError(f"{label}: {program.replays} replays of a graph of {cap}")
+        expect_launches(f"{label} (executed)", executed, fno2d_layer=want)
+        return res, want, dict(wall_s=wall, replays=program.replays, graph_calls=cap,
+                               loop_steps_per_sec=[h["steps_per_sec"] for h in res.history])
+
+    fields, launches = {}, 0
+    with patched(loop, "EpochProgram", Recorded):
+        for label, epochs, amp in (("float32", SCAN_EPOCHS, {}),
+                                   ("bfloat16_all", SCAN_BF16_EPOCHS,
+                                    dict(compute_dtype="bfloat16", amp_policy="all"))):
+            eager, n_eager, eager_f = train(epochs, False, **amp)
+            scanned, n_scanned, scan_f = train(epochs, True, **amp)
+            launches += n_eager + n_scanned
+            tol, eager_gap = SCAN_HIST_TOL, None
+            hist, state = scan_gaps(scanned, eager)
+            if hist > tol:
+                # a second per-step run from the same seed: where cuDNN's atomics part two
+                # per-step runs by more than the bound, their gap is the bound
+                again, n_again, _ = train(epochs, False, **amp)
+                launches += n_again
+                eager_gap = scan_gaps(again, eager)[0]
+                tol = max(tol, eager_gap)
+            heads = ("heads.", "state heads.")
+            held = (lambda k: k.startswith(heads)) if amp else (lambda k: True)
+            gaps = check_scan_gaps(f"epoch_scan {label}", hist, state, tol, held)
+            fields[label] = dict(epochs=epochs, steps_per_epoch=steps, gaps=gaps,
+                                 history_bound=tol, per_step_runs_gap=eager_gap,
+                                 eager=eager_f, scanned=scan_f,
+                                 history=[(h["train_loss"], h["test_loss"]) for h in scanned.history])
+    program = programs[0]
+    replayed_calls = program.captured["fno2d_layer"] * steps
+    if program.stages != 3 * replayed_calls:
+        raise RuntimeError(f"epoch_scan: a replayed epoch's trace holds {program.stages} "
+                           f"{FNO2D_STAGES}* kernels, want 3 x {replayed_calls}; its kernels "
+                           f"by count: {program.kernels[:12]}")
+
+    # (e) bench.py's batch: the captured step's replays beside eager steps
+    eager_sps, eager_host_ms, step = bench_train.steps_per_sec(None, "unet", figures=True)
+    eager_kernels = top_kernels(step)  # "all": the device's busy time in a step
+    del step
+    sps, host_ms, epoch = bench_train.scanned_steps_per_sec(None, "unet", figures=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        epoch()
+        torch.cuda.synchronize()
+    busy = sum(e.device_time_total for e in prof.key_averages()) / 1e3 / bench_train.STEPS
+    del epoch
+    emit("epoch_scan", model="PermInvUNetAttn", config=dict(base.__dict__), sets=m,
+         tol=f"history {SCAN_HIST_TOL} relative (or two per-step runs' gap); state "
+             f"{TRAIN_TOL} relative L2 a tensor, {ENCODER_TOL} in the conv stack (bfloat16: "
+             "the heads')",
+         **fields, replayed_epoch=dict(host_syncs=0, fno2d_layer_calls=replayed_calls,
+                                       fno2d_stage_kernels_in_trace=program.stages),
+         bench_batch=dict(batch=bench_train.BATCH, steps=bench_train.STEPS,
+                          eager=dict(steps_per_sec=eager_sps, host_ms=eager_host_ms,
+                                     device_busy_ms=eager_kernels.pop("all"),
+                                     top_kernels_ms=eager_kernels),
+                          replayed=dict(steps_per_sec=sps, host_ms=host_ms, device_busy_ms=busy)),
+         nvidia_smi=smi_line)
+    return launches
 
 
 def fit_ncfpe2d(build, smi_line):
@@ -2990,8 +3172,9 @@ def phase_datagen(smi_line, pool, refs):
 
 
 def earlier_phases(timed, smi_line, ranks):
-    """Phases ``kernels`` to ``parallel``, each timed by ``timed``: their launches of each
-    kernel, and under ``"stats"`` phase ``kernels``' figures."""
+    """Phases ``kernels`` to ``parallel`` (``epoch_scan`` after ``fit``), each timed by
+    ``timed``: their launches of each kernel, and under ``"stats"`` phase ``kernels``'
+    figures."""
     stats = timed("kernels", phase_kernels)
     launches = {**timed("serve", phase_serve), **timed("serve1d", phase_serve1d)}
     for kernel, count in timed("serve_unet", phase_serve_unet).items():
@@ -3002,7 +3185,10 @@ def earlier_phases(timed, smi_line, ranks):
                                      stats["fno2d_layer"]["kernel_ms"], smi_line)
     launches["fno2d_layer"] += timed("train_unet", phase_train_unet, smi_line)
     launches["fno2d_layer"] += timed("train_fno", phase_train_fno, smi_line)
-    launches["fno2d_layer"] += timed("fit", phase_fit, smi_line)
+    fit_launches, fit_data = timed("fit", phase_fit, smi_line)
+    launches["fno2d_layer"] += fit_launches
+    launches["fno2d_layer"] += timed("epoch_scan", phase_epoch_scan, smi_line, fit_data)
+    del fit_data
     launches["fno1d_layer"] += timed("train1d", phase_train1d, smi_line)
     launches["fno1d_layer"] += timed("fit1d", phase_fit1d, smi_line)
     launches["fno2d_layer"] += timed("parallel", phase_parallel, smi_line, ranks)

@@ -12,7 +12,7 @@ subsample) and start from the same weights.
 
 Behaviour, as ``tests/test_train_smoke.py`` checks the JAX loop: resume, warm restart,
 preemption, early stop, the divergence guard, the profile hook, reproducible seeded
-draws, and the refusals of what the port does not implement.
+draws, and the refusals of what JAX refuses too.
 """
 import dataclasses
 import glob
@@ -107,9 +107,11 @@ def _draw_source(seed=3):
     return draw
 
 
-def _jax_loop(jmodel, variables, data, grid, cfg, draws, monkeypatch):
+def _jax_loop(jmodel, variables, data, grid, cfg, draws, monkeypatch, scan=False):
     """train_model's per-step path (``blindno/train/loop.py:288-500``) restated from the
-    package's pieces, on one device, with the draws injected."""
+    package's pieces, on one device, with the draws injected; with ``scan``, its
+    ``epoch_scan`` path (``:396-415,464-468``): each epoch one jitted ``lax.scan`` of the
+    same step over the epoch's draws."""
     train_idx, test_idx = jax_train_test_split(data.inputs.shape[0], cfg.train_frac, cfg.split_seed)
     in_dtype = jnp.bfloat16 if cfg.compress_inputs else jnp.float32
     x_train = jnp.asarray(data.inputs[train_idx], dtype=in_dtype)
@@ -129,8 +131,7 @@ def _jax_loop(jmodel, variables, data, grid, cfg, draws, monkeypatch):
         jnp.take(xx, draw["idx"], axis=1), draw["mask"].astype(xx.dtype)))
     monkeypatch.setattr(flax.linen, "BatchNorm", _TwoPassBatchNorm)
 
-    @jax.jit
-    def step(params, stats, opt_state, idx, element, sidx, smask):
+    def step_fn(params, stats, opt_state, idx, element, sidx, smask):
         draw.update(idx=sidx, mask=smask)
         xb = jnp.take(x_train, idx, axis=0).astype(jnp.float32)
         yb = jnp.take(y_train, idx, axis=0)
@@ -146,6 +147,18 @@ def _jax_loop(jmodel, variables, data, grid, cfg, draws, monkeypatch):
         updates, opt_state = tx.update(grads, opt_state, params)
         return optax.apply_updates(params, updates), new_stats, opt_state, loss
 
+    step = jax.jit(step_fn)
+
+    @jax.jit
+    def train_epoch(params, stats, opt_state, batch_idx, elements, sidx, smask):
+        def body(carry, xs):
+            *carry, loss = step_fn(*carry, *xs)
+            return tuple(carry), loss
+
+        carry, losses = jax.lax.scan(body, (params, stats, opt_state),
+                                     (batch_idx, elements, sidx, smask))
+        return (*carry, losses.mean())
+
     @jax.jit
     def eval_step(params, stats, idx, mask):
         xb = jnp.take(x_test, idx, axis=0).astype(jnp.float32)
@@ -158,15 +171,21 @@ def _jax_loop(jmodel, variables, data, grid, cfg, draws, monkeypatch):
     history = []
     for epoch in range(1, cfg.epochs + 1):
         batch_idx, elements, subs = draws(epoch, spe)
-        losses = []
-        for i in range(spe):
-            params, stats, opt_state, loss = step(params, stats, opt_state, batch_idx[i],
-                                                  elements[i], *subs[i])
-            losses.append(loss)
+        if scan:
+            params, stats, opt_state, train_loss = train_epoch(
+                params, stats, opt_state, np.asarray(batch_idx), np.asarray(elements),
+                *(np.stack(a) for a in zip(*subs)))
+        else:
+            losses = []
+            for i in range(spe):
+                params, stats, opt_state, loss = step(params, stats, opt_state, batch_idx[i],
+                                                      elements[i], *subs[i])
+                losses.append(loss)
+            train_loss = jnp.stack(losses).mean()
         sums = sum(eval_step(params, stats, i, m) for i, m in jax_eval_batches(test_idx.shape[0],
                                                                                 cfg.batch_size))
         means = np.asarray(sums) / test_idx.shape[0]
-        history.append({"epoch": epoch, "train_loss": float(jnp.stack(losses).mean()),
+        history.append({"epoch": epoch, "train_loss": float(train_loss),
                         "test_loss": float(means.sum()), "field_rel_l2": means.tolist()})
     return history, jax.tree.map(np.asarray, params), jax.tree.map(np.asarray, stats)
 
@@ -419,20 +438,22 @@ def test_train_loop_seeded_draws_are_reproducible():
     assert a["train_loss"] != c["train_loss"]
 
 
-@pytest.mark.parametrize("fields", [dict(epoch_scan=True), dict(tp=2),
+@pytest.mark.parametrize("fields", [dict(tp=2),
                                     dict(compute_dtype="bfloat16", amp_policy="bn32"),
                                     dict(compute_dtype="float16", amp_policy="all"),
                                     dict(compute_dtype="float16", amp_policy="encoder_bn32"),
                                     dict(augment="d8")])
 def test_train_loop_refuses_what_is_not_ported(fields, monkeypatch):
-    """What the port does not implement (``epoch_scan``), what JAX refuses too (an
-    unknown amp policy or augment kind), and ``tp=2`` in one process: tensor parallelism
+    """What JAX refuses too (an unknown amp policy or augment kind), and ``tp=2`` in one
+    process: tensor parallelism
     is ported (``tests/test_torch_parallel.py``), but one rank is not divisible by a
     model axis of 2, as JAX's ``data_model_mesh`` asserts on one device.
 
     The two float16 cases were refused until the port took JAX's low-precision steps;
     they now run (:func:`_float16_loop_matches_jax`). Every amp policy with bfloat16 and
-    float16 is held step by step in ``tests/test_torch_amp*.py``."""
+    float16 is held step by step in ``tests/test_torch_amp*.py``. ``epoch_scan`` was
+    refused until the port took it; ``tests/test_torch_epoch_scan.py`` holds it, and its
+    refusal across ranks."""
     if fields.get("compute_dtype") == "float16":
         _float16_loop_matches_jax(fields, monkeypatch)
         return
