@@ -103,21 +103,23 @@ class _SyncedBatchNorm(torch.autograd.Function):
         g_mean = g_mean.float()
         invstd = torch.rsqrt(var + eps)
         xhat = (xf - g_mean.view(shape)) * invstd.view(shape)
-        ctx.save_for_backward(xhat, weight, invstd)
-        ctx.n, ctx.group, ctx.dtype = float(n[0]), group, x.dtype
+        # the count stays on the device: reading it back would synchronize the host in
+        # every step, which a captured step (``TrainConfig(epoch_scan=True)``) cannot do
+        ctx.save_for_backward(xhat, weight, invstd, n[0])
+        ctx.group, ctx.dtype = group, x.dtype
         ctx.mark_non_differentiable(g_mean, var)
         return (xhat * weight.view(shape) + bias.view(shape)).to(x.dtype), g_mean, var
 
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
-        xhat, weight, invstd = ctx.saved_tensors
+        xhat, weight, invstd, n = ctx.saved_tensors
         dims = [0, *range(2, xhat.dim())]
         shape = [1, -1] + [1] * (xhat.dim() - 2)
         dy = dy.float()
         sum_dy, sum_dy_xhat = dy.sum(dims), (dy * xhat).sum(dims)
         total = torch.stack([sum_dy, sum_dy_xhat])
         dist.all_reduce(total, group=ctx.group)
-        g_dy, g_dy_xhat = total / ctx.n
+        g_dy, g_dy_xhat = total / n.float()
         dx = (weight * invstd).view(shape) * (dy - g_dy.view(shape) - xhat * g_dy_xhat.view(shape))
         return dx.to(ctx.dtype), sum_dy_xhat, sum_dy, None, None
 

@@ -7,11 +7,16 @@ and runs one full training step (loss, gradients, Adam update) of a small flagsh
 the single process's. The rank functions take their model as ``(class, kwargs)`` and
 its state and inputs as numpy arrays, and return what they computed as one process
 holds it (gradients and state gathered over ``model``): the CPU tests hold them against
-JAX, and ``chip_smoke.py`` against the single-process step on the card. This module
-imports neither JAX nor anything of the JAX package, so a spawned rank does not either.
+JAX, and ``chip_smoke.py`` against the single-process step on the card.
+:func:`train_model_ranks` runs the training loop on every rank, with its draws injected
+where the caller gives them and, with ``record``, an account of each epoch program
+(:func:`recorded_programs`). This module imports neither JAX nor anything of the JAX
+package, so a spawned rank does not either.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import time
 
 import numpy as np
@@ -25,12 +30,35 @@ from blindno_torch.parallel.tp import gather_grads, gather_state
 DRYRUN_MODEL = dict(input_size=(16, 16), depth=2, base_ch=1, width=4, fno_modes=4,
                     fno_layers=2, head_dims=(1, 1), subsample=True, l_min=2)
 DRYRUN_TOL = 1e-5
+KERNELS = ("fno1d_layer", "spectral_conv1d", "fno2d_layer", "spectral_conv2d")
+
+
+def kernel_wrappers() -> dict:
+    """Each kernel's wrapper by name; each counts its launches in ``launches``."""
+    from blindno_torch.ops import spectral_cuda
+
+    return {name: getattr(spectral_cuda, f"{name}_cuda") for name in KERNELS}
+
+
+def full_precision():
+    """A ``RankPool`` initializer for ranks on the card: TF32 off for matmuls and cuDNN,
+    and cuDNN's deterministic algorithms, so that the ranks compute as a reference
+    process held to them does."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
 
 
 def built(factory, state, device):
-    """``cls(**kwargs)`` with ``state`` (numpy arrays by name) loaded, on ``device``."""
-    cls, kwargs = factory
-    model = cls(**kwargs).to(device)
+    """``cls(**kwargs)`` of ``factory = (cls, kwargs)`` or ``(cls, kwargs, parts)``, each
+    submodule that ``parts`` names (``{"deeponet.branch": (cls, kwargs)}``) replaced by a
+    new one, with ``state`` (numpy arrays by name) loaded, on ``device``."""
+    cls, kwargs, *parts = factory
+    model = cls(**kwargs)
+    for path, (part_cls, part_kwargs) in (parts[0] if parts else {}).items():
+        parent, _, name = path.rpartition(".")
+        setattr(model.get_submodule(parent), name, part_cls(**part_kwargs))
+    model.to(device)
     if state is not None:
         model.load_state_dict({k: torch.from_numpy(np.asarray(v)) for k, v in state.items()})
     return model
@@ -104,8 +132,7 @@ def train_step_ranks(factory, state, x, y, grid, draw, n_model, device="cpu", se
     xs, ys = (shard_batch(torch.from_numpy(a), mesh).to(dev) for a in (x, y))
     g = torch.from_numpy(grid).to(dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    wrappers = {name: getattr(spectral_cuda, f"{name}_cuda") for name in
-                ("fno1d_layer", "spectral_conv1d", "fno2d_layer", "spectral_conv2d")}
+    wrappers = kernel_wrappers()
     shapes, launch2d = [], spectral_cuda._launch2d
     if record_shapes:
         spectral_cuda._launch2d = lambda name, x, wr, *a: (
@@ -138,14 +165,103 @@ def train_step_ranks(factory, state, x, y, grid, draw, n_model, device="cpu", se
     return result
 
 
-def train_model_ranks(factory, state, data, grid, cfg, device="cpu"):
+def train_model_ranks(factory, state, data, grid, cfg, device="cpu", draws=None,
+                      record=False):
     """Rank function: :func:`blindno_torch.train.loop.train_model` of the model on every
-    rank (the loop finds the process group up and trains distributed). Returns the
-    ``TrainResult``."""
+    rank (the loop finds the process group up and trains distributed). ``draws``, a table
+    ``{epoch: (batch_idx, elements, subsamples)}`` as the loop's ``draws`` hook returns
+    them, replaces the seeded draws. Returns the ``TrainResult``; with ``record``, a dict
+    of it (``result``), each kernel's launches in the run (``launches``), the account
+    of its epoch programs (``programs``, :func:`recorded_programs`) and the seconds
+    ``train_model`` took (``train_s``)."""
     from blindno_torch.train.loop import train_model
 
     dev = init_distributed(device=device)
-    return train_model(built(factory, state, "cpu"), data, grid, cfg, device=dev)
+    hook = None if draws is None else lambda epoch, steps: draws[epoch]
+    run = lambda: train_model(built(factory, state, "cpu"), data, grid, cfg, device=dev,
+                              draws=hook)
+    if not record:
+        return run()
+    wrappers = kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    with recorded_programs() as programs:
+        result = run()
+    return dict(result=result, launches={k: w.launches for k, w in wrappers.items()},
+                programs=programs, train_s=time.perf_counter() - t0)
+
+
+COLLECTIVES = ("allreduce", "allgather", "all_reduce", "all_gather")
+
+
+@contextlib.contextmanager
+def recorded_programs():
+    """Within the block, each epoch program that ``train_model`` builds keeps an account
+    of its run, one dict a program in the list that the block gets:
+
+    - ``eager_steps`` and ``replays``;
+    - ``captured``: each kernel wrapper's calls while the step was captured (they execute
+      nothing; each replay executes them);
+    - ``collectives_captured``: the collective operations that ``torch.profiler`` saw
+      issued while a distributed step was captured, by name, so run inside every replay
+      (None for a step of one process, whose capture is not traced);
+    - ``replayed``: for each wholly replayed epoch, run under
+      ``torch.cuda.set_sync_debug_mode("error")`` (so with no host synchronization), its
+      host ms a step (to enqueue the replays) and its steps/s (to the card's end of the
+      epoch).
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    from blindno_torch.train import loop, scan
+
+    records = []
+
+    class Recorded(scan.EpochProgram):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.record = dict(eager_steps=0, replays=0, captured=None,
+                               collectives_captured=None, replayed=[])
+            records.append(self.record)
+
+        def _capture(self):
+            before = {k: w.launches for k, w in kernel_wrappers().items()}
+            if dist.is_initialized():
+                with profile(activities=[ProfilerActivity.CPU]) as prof:
+                    super()._capture()
+                self.record["collectives_captured"] = dict(collections.Counter(
+                    name for name in (e.name() for e in prof.profiler.kineto_results.events())
+                    if name.startswith("c10d::") and any(c in name for c in COLLECTIVES)))
+            else:
+                super()._capture()
+            self.record["captured"] = {k: w.launches - before[k]
+                                       for k, w in kernel_wrappers().items()}
+
+        def run(self):
+            if self.graph is None:
+                out = super().run()
+            else:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    out = super().run()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                host = time.perf_counter() - t0
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                self.record["replayed"].append(dict(host_ms_a_step=1e3 * host / self.steps,
+                                                    steps_per_sec=self.steps / wall))
+            self.record.update(eager_steps=self.eager_steps, replays=self.replays)
+            return out
+
+    saved = loop.EpochProgram
+    loop.EpochProgram = Recorded
+    try:
+        yield records
+    finally:
+        loop.EpochProgram = saved
 
 
 def dryrun_multigpu(n_ranks: int, device="cpu", timeout: float = 300.0) -> dict:

@@ -115,17 +115,18 @@ def _unwrapped(model):
     return getattr(model, "module", model)  # DistributedDataParallel holds the model
 
 
-def gather_state(model, optimizer=None):
+def gather_state(model, optimizer=None, opt_state=None):
     """The full ``state_dict`` of a model whose FNO layers may be sharded, and with
-    ``optimizer``, also its full ``state_dict`` (Adam's moments gathered); both as a
-    single process would have them. A collective: every rank of the group calls it."""
+    ``optimizer``, also its full ``state_dict`` (Adam's moments gathered), or that of
+    ``opt_state``, the state dict the caller saves for it; both as a single process would
+    have them. A collective: every rank of the group calls it."""
     model = _unwrapped(model)
     params = dict(model.named_parameters())
     state = {k: _gathered(v, params[k]) if k in params else v
              for k, v in model.state_dict().items()}
     if optimizer is None:
         return state
-    opt = optimizer.state_dict()
+    opt = optimizer.state_dict() if opt_state is None else opt_state
     ordered = [p for g in optimizer.param_groups for p in g["params"]]
     opt["state"] = {i: {k: _gathered(v, ordered[i]) if k in ("exp_avg", "exp_avg_sq") else v
                         for k, v in s.items()} for i, s in opt["state"].items()}

@@ -13,9 +13,10 @@ the step losses are stacked and read once. Each step's body is
 
 With ``epoch_scan=True`` each epoch is one program over static device buffers instead,
 as JAX's ``lax.scan`` epoch (:mod:`blindno_torch.train.scan`): on a CUDA card, after the
-run's first step, one captured CUDA graph of the step replayed once a step; on the CPU
-(``device="cpu"``) the same program uncaptured. It takes the per-step loop's draws and
-updates, saves the same checkpoints, and runs in one process.
+run's first step (its first eleven across ranks), one captured CUDA graph of the step
+replayed once a step; on the CPU (``device="cpu"``) the same program uncaptured. It
+takes the per-step loop's draws and updates and saves the same checkpoints, in one
+process or across ranks (on the card over NCCL, whose collectives the graph captures).
 
 Run as several ranks (torchrun's ``WORLD_SIZE`` > 1, or in a process group already up),
 the loop trains data- and tensor-parallel as JAX's does on a ``(data, model)`` mesh
@@ -45,7 +46,7 @@ from blindno_torch.parallel.mesh import (data_model_mesh, data_parallel_size, in
                                          is_distributed, world_size)
 from blindno_torch.parallel.tp import gather_state
 from blindno_torch.train import checkpoint
-from blindno_torch.train.scan import EpochProgram
+from blindno_torch.train.scan import EpochProgram, on_stream
 from blindno_torch.train.step import (AMP_POLICIES, COMPUTE_DTYPES, check_compute_dtype,
                                       make_optimizer, train_step)
 from blindno_torch.utils.logging import MetricsLogger, trace
@@ -57,11 +58,12 @@ class TrainConfig:
     each field's note is). ``compute_dtype`` None, ``"float32"``, ``"bfloat16"`` or
     ``"float16"`` trains every model under any of the three ``amp_policy`` values
     (:mod:`blindno_torch.train.step`); ``epoch_scan=True`` runs each epoch as one program
-    (:mod:`blindno_torch.train.scan`), in one process. The port refuses what JAX refuses
-    too (another ``compute_dtype`` or ``amp_policy``), the float16 step of a model whose
-    set attention masks its keys, where JAX's step gives NaN
-    (:func:`~blindno_torch.train.step.float16_refusal`), and ``epoch_scan`` across ranks;
-    ``tp`` must divide the ranks, and the rest of them (the ``data`` axis) the batch."""
+    (:mod:`blindno_torch.train.scan`). The port refuses what JAX refuses too (another
+    ``compute_dtype`` or ``amp_policy``), the float16 step of a model whose set attention
+    masks its keys, where JAX's step gives NaN
+    (:func:`~blindno_torch.train.step.float16_refusal`), and ``epoch_scan`` in a process
+    group whose collectives a CUDA graph cannot capture (gloo's, on a card); ``tp`` must
+    divide the ranks, and the rest of them (the ``data`` axis) the batch."""
 
     epochs: int = 400
     batch_size: int = 32
@@ -213,6 +215,19 @@ def _check_world(cfg: TrainConfig) -> int:
     return n_data
 
 
+def _check_scan_backend(device):
+    """Raise ``ValueError`` where ``epoch_scan`` cannot run in the process group: on a
+    CUDA card the program captures the step in a CUDA graph, the step's collectives
+    with it, and only NCCL's collectives can be captured."""
+    backend = dist.get_backend()
+    if device.type == "cuda" and "nccl" not in backend:
+        raise ValueError(
+            f"epoch_scan=True on a CUDA card captures the training step, its collectives "
+            f"included, in a CUDA graph; the process group's {backend!r} collectives cannot "
+            "be captured (gloo runs them on the host). Run the ranks over NCCL, one card "
+            "a rank, or train with epoch_scan=False")
+
+
 def _from_rank0(values, device) -> np.ndarray:
     """``values`` as rank 0 holds them, on every rank: what rank 0 found decides for all
     (a rank that decided alone would leave the others waiting in a collective)."""
@@ -265,11 +280,6 @@ def train_model(model, data: SetToFieldData, grid, cfg: TrainConfig, *,
     _check_config(cfg)
     check_compute_dtype(model, cfg.compute_dtype, cfg.amp_policy)
     distributed = is_distributed()
-    if cfg.epoch_scan and distributed:
-        raise ValueError(f"epoch_scan=True runs in one process, not across {world_size()} "
-                         "ranks: DDP's and tensor parallelism's collectives would have to "
-                         "be captured over NCCL, and gloo cannot be (ROADMAP.md A.2, "
-                         "epoch_scan across ranks); train with epoch_scan=False")
     n_data = _check_world(cfg)
     aug_fns = make_augment(cfg.augment)
     if cfg.augment == "flip1d":
@@ -283,6 +293,8 @@ def train_model(model, data: SetToFieldData, grid, cfg: TrainConfig, *,
             f"augment={cfg.augment!r} needs square (B, L, H, W) inputs, "
             f"got {data.inputs.shape}")
     dev = init_distributed(device=device) if distributed else default_device(device)
+    if cfg.epoch_scan and distributed:
+        _check_scan_backend(dev)
     model.to(dev)
     n = data.inputs.shape[0]
     train_idx, test_idx = train_test_split(n, cfg.train_frac, cfg.split_seed)
@@ -334,10 +346,14 @@ def train_model(model, data: SetToFieldData, grid, cfg: TrainConfig, *,
                       f"epoch {best['epoch']} (best {best_loss:.6f}; Adam moments "
                       f"reset, lr schedule advanced to step {done_steps})")
 
-    net, rows = model, slice(None)
+    # on the card the epoch program runs on a stream of its own, and DDP is built on it
+    stream = torch.cuda.Stream(dev) if cfg.epoch_scan and dev.type == "cuda" else None
+    net, rows, share = model, slice(None), cfg.batch_size
     if distributed:
         mesh = data_model_mesh(cfg.tp, dev.type)
-        net, data_group = distribute(model, mesh, opt), mesh.get_group("data")
+        with on_stream(stream):
+            net = distribute(model, mesh, opt)
+        data_group = mesh.get_group("data")
         share = cfg.batch_size // n_data
         rows = slice(mesh.get_local_rank("data") * share, (mesh.get_local_rank("data") + 1) * share)
 
@@ -360,7 +376,8 @@ def train_model(model, data: SetToFieldData, grid, cfg: TrainConfig, *,
                 sums = sums + (errs * mask[:, None]).sum(0)
             if distributed:
                 dist.all_reduce(sums, group=data_group)
-                sums = _from_rank0(sums.tolist(), dev)
+                # float32, the dtype one process divides and sums them in
+                sums = _from_rank0(sums.tolist(), dev).astype(np.float32)
             else:
                 sums = sums.cpu().numpy()
         model.train()
@@ -368,17 +385,17 @@ def train_model(model, data: SetToFieldData, grid, cfg: TrainConfig, *,
 
     program = None
     if cfg.epoch_scan:
-        program = EpochProgram(net, opt, x_train, y_train, grid, steps_per_epoch, cfg.batch_size,
+        program = EpochProgram(net, opt, x_train, y_train, grid, steps_per_epoch, share,
                                aug_fns, compute_dtype=cfg.compute_dtype,
-                               amp_policy=cfg.amp_policy, generator=gen)
+                               amp_policy=cfg.amp_policy, generator=gen, stream=stream)
 
     def resume_state():
-        """(params, batch_stats, optimizer state) as one process holds them."""
-        if program is not None:
-            return (*_state(model), program.optimizer_state())
+        """(params, batch_stats, optimizer state) as one process holds them, the
+        optimizer's in the per-step loop's format."""
+        opt_state = program.optimizer_state() if program is not None else opt.state_dict()
         if not distributed:
-            return (*_state(model), opt.state_dict())
-        full, opt_state = gather_state(model, opt)
+            return (*_state(model), opt_state)
+        full, opt_state = gather_state(model, opt, opt_state)
         return (*_split(model, full), opt_state)
 
     def stop_requested():
@@ -400,13 +417,14 @@ def train_model(model, data: SetToFieldData, grid, cfg: TrainConfig, *,
         # one steady-state epoch (after the first two) traced, SURVEY 5.1 hook
         with trace(cfg.profile_dir if epoch == start_epoch + 2 else None):
             batch_idx, elements, subsamples = draws(epoch, steps_per_epoch)
+            batch_idx = torch.as_tensor(batch_idx, dtype=torch.long)[:, rows]
             if program is not None:
                 program.load(batch_idx, elements, subsamples, schedule(global_step))
                 t0 = time.perf_counter()
                 train_loss = program.run()
                 global_step += steps_per_epoch
             else:
-                batch_idx = torch.as_tensor(batch_idx, dtype=torch.long)[:, rows].to(dev)
+                batch_idx = batch_idx.to(dev)
                 t0 = time.perf_counter()
                 losses = []
                 for i in range(steps_per_epoch):

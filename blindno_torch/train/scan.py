@@ -21,6 +21,17 @@ eager step does, and draws what an eager step would draw. A capture or a replay 
 fails raises; nothing falls back to the per-step loop. On the CPU every step runs the
 same body eagerly, with no graph.
 
+Across ranks the program runs each rank's rows of every batch, and its step is the
+distributed one: DDP's gradient all-reduce over ``data``, the synced BatchNorm's
+all-gather and all-reduce, and at ``tp > 1`` the column-parallel FNO layers'
+collectives. On the card they are captured with the step, over NCCL (one card a rank),
+and run inside each replay. A DDP step is captured after :data:`DDP_WARMUP_STEPS`
+eager ones, on the stream that DDP was built on (:func:`on_stream`), as PyTorch's notes
+on CUDA graphs ask of DDP; the capture then falls in a later epoch than the first, and
+:meth:`EpochProgram.load` refills in place every buffer that the graph reads. (On the
+H100 with torch 2.11, a one-rank DDP step captured after 10 eager steps, or with DDP
+built on another stream than the capture's, invalidated the capture; after 11 it held.)
+
 The group element is a device index into tables of the group's spatial permutations
 and, for ``c4_vector``, of its component permutations and signs (:class:`GroupTables`),
 as ``lax.switch`` picks JAX's branch on the device. A permutation moves values and
@@ -29,15 +40,35 @@ for bit.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
 import torch
+from torch.nn.parallel import DistributedDataParallel
 
 from blindno_torch.train.step import make_capturable, portable_state, step_body
 
 # eager steps that a run's program takes before it captures its step
 WARMUP_STEPS = 1
+# ... where the step is DDP's: its reducer rebuilds its buckets in its second iteration
+# and times its first ten, which its next forward reads back; PyTorch's notes on CUDA
+# graphs ask for 11 eager iterations before a DDP step is captured
+DDP_WARMUP_STEPS = 11
+
+
+@contextlib.contextmanager
+def on_stream(stream):
+    """The block on the CUDA ``stream``, ordered after the work already queued on the
+    current stream and before the work queued on it after the block; a no-op where
+    ``stream`` is None."""
+    if stream is None:
+        yield
+        return
+    stream.wait_stream(torch.cuda.current_stream(stream.device))
+    with torch.cuda.stream(stream):
+        yield
+    torch.cuda.current_stream(stream.device).wait_stream(stream)
 
 
 class GroupTables:
@@ -86,19 +117,22 @@ class GroupTables:
 
 class EpochProgram:
     """The epoch program of ``train_model(..., TrainConfig(epoch_scan=True))`` for one
-    process: ``model`` (in train mode) and ``optimizer`` train on the device-resident
-    split ``x_all`` (N, L, *spatial) and ``y_all`` (N, *spatial, F), ``steps`` steps of
-    ``batch_size`` an epoch, under the ``make_augment`` branches ``augment_fns`` (or
-    None), in ``compute_dtype`` under ``amp_policy``, the set subsamples drawn from
-    ``generator`` unless injected. On a CUDA card it turns ``optimizer`` into its
-    capturable form (:func:`~blindno_torch.train.step.make_capturable`).
+    process or one rank: ``model`` (in train mode; across ranks the distributed model)
+    and ``optimizer`` train on the device-resident split ``x_all`` (N, L, *spatial) and
+    ``y_all`` (N, *spatial, F), ``steps`` steps of ``batch_size`` rows (this rank's) an
+    epoch, under the ``make_augment`` branches ``augment_fns`` (or None), in
+    ``compute_dtype`` under ``amp_policy``, the set subsamples drawn from ``generator``
+    unless injected. On a CUDA card it turns ``optimizer`` into its capturable form
+    (:func:`~blindno_torch.train.step.make_capturable`) and runs on ``stream`` (a new
+    one if None).
 
     Per epoch: :meth:`load` its draws and learning rate, :meth:`run` it, read
     :attr:`losses`. :meth:`optimizer_state` is the optimizer's state as the per-step
     loop saves it."""
 
     def __init__(self, model, optimizer, x_all, y_all, grid, steps: int, batch_size: int,
-                 augment_fns=None, *, compute_dtype=None, amp_policy="all", generator=None):
+                 augment_fns=None, *, compute_dtype=None, amp_policy="all", generator=None,
+                 stream=None):
         dev = x_all.device
         self.model, self.optimizer, self.x_all, self.y_all, self.grid = (
             model, optimizer, x_all, y_all, grid)
@@ -115,13 +149,16 @@ class EpochProgram:
         self.lr_value = float(optimizer.param_groups[0]["lr"])
         if self.captures:
             self.lr = make_capturable(optimizer)
-            self.stream = torch.cuda.Stream(dev)
+            self.stream = stream or torch.cuda.Stream(dev)
+        self.warmup = (DDP_WARMUP_STEPS if isinstance(model, DistributedDataParallel)
+                       else WARMUP_STEPS)
         self.graph = None
         self.eager_steps = self.replays = 0
 
     def load(self, batch_idx, elements, subsamples, lr: float):
         """Fill the buffers with one epoch's draws (as ``train_model``'s ``draws`` gives
-        them) and set Adam's learning rate to ``lr``; the counter restarts at 0."""
+        them, the batches cut to this rank's rows) and set Adam's learning rate to
+        ``lr``; the counter restarts at 0."""
         self.positions.copy_(torch.as_tensor(batch_idx, dtype=torch.long))
         if self.tables is not None:
             self.elements.copy_(torch.as_tensor(elements, dtype=torch.long))
@@ -187,11 +224,9 @@ class EpochProgram:
                 self._eager()
             return self.losses.mean()
         for _ in range(self.steps):
-            if self.graph is None and self.eager_steps < WARMUP_STEPS:
-                self.stream.wait_stream(torch.cuda.current_stream())
-                with torch.cuda.stream(self.stream):
+            if self.graph is None and self.eager_steps < self.warmup:
+                with on_stream(self.stream):
                     self._eager()
-                torch.cuda.current_stream().wait_stream(self.stream)
                 continue
             if self.graph is None:
                 self._capture()

@@ -119,7 +119,13 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``. It
    and four over gloo (a 2 x 2 mesh, tp=2: each rank's ``fno2d_layer`` launches 6 a
    step at the sliced shape, Cout 6 of 12) within phase 8's tolerances, and two ranks
    over NCCL on two cards where the host has them; each case's steps per second and
-   wall time; the sliced layer is timed in phase 3;
+   wall time; the sliced layer is timed in phase 3; then the fpe2d suite's UNet through
+   ``train_model(epoch_scan=True)`` on ``fit``'s archive in one NCCL rank (case ``e``):
+   DDP's step captured in a CUDA graph with its all-reduce, 4 epochs, the last replayed
+   whole under ``torch.cuda.set_sync_debug_mode("error")``, bit for bit a one-process
+   ``epoch_scan`` run, its ``fno2d_layer`` executions exact, its replayed steps/s and
+   host ms a step beside the one-process run's; and (case ``f``) DP 2 over NCCL on two
+   cards where the host has them;
 14. serves and trains ``NIOFP2D`` at the ``bench.py`` config with ``padding_frac=2.0``
    on its FNO2d heads (phase ``padded``: each layer at (4, 12, 183, 183), past what one
    block holds, so the kernel's first stage takes its tiled layout): served through
@@ -149,10 +155,11 @@ just after. Any failed check raises, and the script exits non-zero without the l
 line. TF32 is off for matmul and cuDNN throughout, so every comparison is in full
 float32, except around the datagen stage, where the solver must turn it off itself.
 
-The CPU references of phases 14 to 16 run in CPU_WORKERS worker processes, started
-before the build on the cores it leaves idle and stopped (SIGSTOP) from the build's end
-until after phase 13: phases 3 to 13 run with no other process of this script running
-but phase 13's ranks.
+The CPU references of phases 14 to 16, and phase 8's CPU step (queued first, and waited
+for at the build's end), run in CPU_WORKERS worker processes, started before the build
+on the cores it leaves idle and stopped (SIGSTOP) from the build's end until after phase
+13: phases 3 to 13 run with no other process of this script running but phase 13's
+ranks.
 """
 from __future__ import annotations
 
@@ -299,17 +306,12 @@ DATAGEN = {"fpe1d": (48, 8), "gpe1d": (64, 16), "fpe2d": (8, 2), "ncfpe2d": (2, 
 DATAGEN_TOL, DATAGEN_MASS_TOL, TIME_ERROR_TOL = 1e-3, 1e-3, 1e-3
 
 
-def kernel_wrappers():
-    from blindno_torch.ops import spectral_cuda as sc
-
-    return {"fno1d_layer": sc.fno1d_layer_cuda, "spectral_conv1d": sc.spectral_conv1d_cuda,
-            "fno2d_layer": sc.fno2d_layer_cuda, "spectral_conv2d": sc.spectral_conv2d_cuda}
-
-
 def counted(fn):
     """Run ``fn`` with every kernel's launch count set to 0 just before; return the
     counts just after, and ``fn``'s result."""
-    wrappers = kernel_wrappers()
+    from blindno_torch.parallel import dryrun
+
+    wrappers = dryrun.kernel_wrappers()
     for w in wrappers.values():
         w.launches = 0
     result = fn()
@@ -1310,10 +1312,25 @@ def low_precision_steps(label, model, initial, batch, draw, card, per_step, held
     return fields, total
 
 
-def phase_train(kernel_ms, smi_line):
+def train_step_reference():
+    """On the CPU: phase ``train``'s float32 step (:func:`one_step` of NIOFP2D at
+    ``bench.py``'s config from seed 0 on its batch and draw), as numpy, and its seconds."""
+    from blindno_torch.tools import bench_train
+
+    x, y, grid = bench_train.bench_batch("cpu")
+    t0 = time.perf_counter()
+    loss, grads, state = one_step(bench_train.fresh_model("cpu"), x, y, grid,
+                                  trans_draw(bench_train.BATCH["l"]))
+    as_numpy = lambda d: {k: v.numpy() for k, v in d.items()}
+    return (loss, as_numpy(grads), as_numpy(state)), time.perf_counter() - t0
+
+
+def phase_train(kernel_ms, smi_line, cpu_reference):
     """The main path, training: ``train_step`` on NIOFP2D at the ``bench.py`` config.
     ``kernel_ms`` is the forward kernel's time from phase ``kernels``, printed beside
-    the layer's backward; ``smi_line`` the card's name and power limit."""
+    the layer's backward; ``smi_line`` the card's name and power limit;
+    ``cpu_reference`` :func:`train_step_reference`'s result, made in a CPU worker while
+    the kernels built."""
     from blindno_torch.nn.torch_layers import BatchNorm2d
     from blindno_torch.ops.fno_layer import fno2d_layer_backward_plain
     from blindno_torch.tools import bench_train
@@ -1332,9 +1349,9 @@ def phase_train(kernel_ms, smi_line):
     counts, card = counted(lambda: one_step(model, x, y, grid, draw))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     expect_launches("training step", counts, fno2d_layer=6)
-    t0 = time.perf_counter()
-    cpu = one_step(cpu_model, x.cpu(), y.cpu(), grid.cpu(), draw)
-    cpu_s = time.perf_counter() - t0
+    (loss_cpu, grads_cpu, state_cpu), cpu_s = cpu_reference
+    as_torch = lambda d: {k: torch.from_numpy(v) for k, v in d.items()}
+    cpu = (loss_cpu, as_torch(grads_cpu), as_torch(state_cpu))
     errs = train_errors(card, cpu)
     encoder = {k: e for k, e in errs.items() if train_tol(k) == ENCODER_TOL}
     rest = {k: e for k, e in errs.items() if k not in encoder}
@@ -1817,11 +1834,12 @@ def phase_padded(smi_line, refs):
 
 
 def submit_cpu_references(pool):
-    """Queue the CPU references of phases ``padded``, ``trans`` and ``datagen`` on
-    ``pool``'s workers, in that order: the padded NIOFP2D's served output and training
-    step, each Transolver NIO's served output and training step, each suite's generator
-    run."""
-    return {"padded": {"serve": pool.submit(padded_serve_reference),
+    """Queue the CPU references of phases ``train``, ``padded``, ``trans`` and ``datagen``
+    on ``pool``'s workers, in that order: NIOFP2D's training step, the padded NIOFP2D's
+    served output and training step, each Transolver NIO's served output and training
+    step, each suite's generator run."""
+    return {"train": pool.submit(train_step_reference),
+            "padded": {"serve": pool.submit(padded_serve_reference),
                        "step": pool.submit(padded_step_reference)},
             "serve": {name: pool.submit(trans_serve_reference, name) for name in TRANS_MODELS},
             "step": {name: pool.submit(trans_step_reference, name) for name in TRANS_MODELS},
@@ -2590,6 +2608,7 @@ def phase_epoch_scan(smi_line, data):
 
     from torch.profiler import ProfilerActivity, profile
 
+    from blindno_torch.parallel import dryrun
     from blindno_torch.suites import registry
     from blindno_torch.tools import bench_train
     from blindno_torch.train import loop, scan
@@ -2611,9 +2630,10 @@ def phase_epoch_scan(smi_line, data):
             programs.append(self)
 
         def _capture(self):
-            before = {k: w.launches for k, w in kernel_wrappers().items()}
+            before = {k: w.launches for k, w in dryrun.kernel_wrappers().items()}
             super()._capture()
-            self.captured = {k: w.launches - before[k] for k, w in kernel_wrappers().items()}
+            self.captured = {k: w.launches - before[k]
+                             for k, w in dryrun.kernel_wrappers().items()}
 
         def run(self):
             if self.graph is None or self.stages is not None:
@@ -2821,9 +2841,14 @@ PARALLEL_CASES = [("a_nccl_1rank", 1, 1, "nccl"), ("b_gloo_dp2", 2, 1, "gloo"),
 PARALLEL_TWO_CARDS = ("d_nccl_dp2_two_cards", 2, 1, "nccl")
 PARALLEL_STEPS = 1  # timed steps a case, after the checked one and a warm-up
 PARALLEL_RANKS = 4
+# the epoch program across ranks: (case, ranks), over NCCL. At 4 steps an epoch DDP's 11
+# eager steps end in epoch 3, whose last step is captured: epoch 4 replays whole
+PARALLEL_SCAN = ("e_nccl_1rank_epoch_scan", 1)
+PARALLEL_SCAN_TWO_CARDS = ("f_nccl_dp2_epoch_scan_two_cards", 2)
+PARALLEL_SCAN_EPOCHS = 4
 
 
-def phase_parallel(smi_line, ranks):
+def phase_parallel(smi_line, ranks, data):
     """The train stage's data- and tensor-parallel path (``blindno_torch.parallel``):
     one f32 ``train_step`` of NIOFP2D at the ``bench.py`` config (phase ``train``'s
     weights, batch and injected draw) in ranks spawned on the card
@@ -2832,9 +2857,11 @@ def phase_parallel(smi_line, ranks):
     over gloo on a 2 x 2 mesh with tp=2, within :func:`train_tol` on the loss, the
     gradients, the updated parameters (gathered) and the running statistics, each rank's
     ``fno2d_layer`` launches counted (in (c) 6 a step at ``TP_SLICE``); (d) two ranks
-    over NCCL on two cards where there are two. Each case's steps/s and wall time.
-    ``ranks`` is the ``RankPool`` of PARALLEL_RANKS workers that main() started before
-    the build. Returns the launches of every rank's checked step."""
+    over NCCL on two cards where there are two. Each case's steps/s and wall time. Then
+    the epoch program across ranks on ``data``, ``fit``'s archive loaded
+    (:func:`parallel_epoch_scan`). ``ranks`` is the ``RankPool`` of PARALLEL_RANKS
+    workers that main() started before the build. Returns the launches of every rank's
+    checked step and the executed ``fno2d_layer`` calls of the epoch-program runs."""
     from blindno_torch.models.nio2d import NIOFP2D
     from blindno_torch.parallel.dryrun import train_step_ranks
     from blindno_torch.tools import bench_train
@@ -2883,13 +2910,121 @@ def phase_parallel(smi_line, ranks):
     if len(cases) == len(PARALLEL_CASES):
         print(f"parallel: case (d) did not run: it needs two CUDA devices, and "
               f"torch.cuda.device_count() is {torch.cuda.device_count()}", flush=True)
+    scan_launches, scan = parallel_epoch_scan(ranks, data)
     emit("parallel", model="NIOFP2D", config=bench_train.CONFIG, batch=bench_train.BATCH,
          loss_single=single[0][0], cases=results,
          bit_for_bit="a_nccl_1rank", tp_slice=TP_SLICE, tp_slice_launches=tp_launches,
          timed_steps=PARALLEL_STEPS,
          tol=f"relative L2: {TRAIN_TOL}, encoder gradients and parameters {ENCODER_TOL}",
-         nvidia_smi=smi_line)
-    return launches
+         epoch_scan=scan, nvidia_smi=smi_line)
+    return launches + scan_launches
+
+
+def check_program(label, record, launches, steps, executed, ranked):
+    """Raise unless the epoch program that ``record`` accounts for (a
+    ``recorded_programs`` entry) took its eager steps (DDP's where ``ranked``, else
+    one), replayed the rest of the run's ``steps`` and its last epoch whole, captured
+    the step's 6 ``fno2d_layer`` calls and, where ``ranked``, DDP's all-reduce, and
+    executed ``executed`` layer calls: its wrappers counted ``launches``, the eager
+    steps' and evals' calls and the capture's (which execute nothing), and each replay
+    executes the capture's. Returns ``executed``."""
+    from blindno_torch.train import scan
+
+    warmup = scan.DDP_WARMUP_STEPS if ranked else scan.WARMUP_STEPS
+    cap = record["captured"]["fno2d_layer"]
+    got = launches["fno2d_layer"] - cap + cap * record["replays"]
+    reduced = any("allreduce" in k for k in record["collectives_captured"] or ())
+    if not (record["eager_steps"] == warmup and record["replays"] == steps - warmup
+            and record["replayed"] and cap == 6 and reduced == ranked and got == executed):
+        raise RuntimeError(f"{label}: the program took {record} and {launches} wrapper calls: "
+                           f"want {warmup} eager steps of {steps}, 6 layer calls captured, "
+                           f"DDP's all-reduce captured: {ranked}, {executed} executed")
+    return executed
+
+
+def same_run(a, b):
+    """Whether two ``TrainResult`` are equal bit for bit: history and final state."""
+    numbers = lambda res: [(h["train_loss"], h["test_loss"], h["field_rel_l2"])
+                           for h in res.history]
+    same = lambda x, y: all(torch.equal(x[k], v.to(x[k].device)) for k, v in y.items())
+    return (numbers(a) == numbers(b) and same(a.params, b.params)
+            and same(a.batch_stats, b.batch_stats))
+
+
+def parallel_epoch_scan(ranks, data):
+    """Phase parallel's epoch-program cases: the fpe2d suite's UNet through
+    ``train_model(..., TrainConfig(epoch_scan=True))`` at the suite's config on ``data``
+    for PARALLEL_SCAN_EPOCHS epochs, from seeded weights, in ``ranks`` over NCCL. (e) one
+    rank: DDP's step (its all-reduce inside) captured after DDP_WARMUP_STEPS eager steps,
+    its last epoch replayed whole under sync debug mode "error"; bit for bit a
+    one-process ``epoch_scan`` run on the card (its first step eager) with the same
+    weights, seed and epochs, deterministic cuDNN in both; both runs' ``fno2d_layer``
+    executions exact (the eager steps' and evals' calls, plus the capture's calls times
+    the replays); each wholly replayed epoch's steps/s and host ms a step. (f) two ranks
+    on two cards (DP 2) where there are two, within :func:`unet_tol` of the one-process
+    run. Returns the executed calls of the runs, and the figures."""
+    import dataclasses
+
+    from blindno_torch.models.blindno_unet import PermInvUNetAttn
+    from blindno_torch.parallel.dryrun import recorded_programs, train_model_ranks
+    from blindno_torch.suites import registry
+    from blindno_torch.tools import bench_train
+    from blindno_torch.train import loop
+
+    spec = registry.SUITES["fpe2d"]
+    cfg = dataclasses.replace(spec.train_cfg, epochs=PARALLEL_SCAN_EPOCHS, save_interval=1,
+                              epoch_scan=True)
+    m = data.inputs.shape[0]
+    n_train = int(cfg.train_frac * m)
+    steps, evals = n_train // cfg.batch_size, -(-(m - n_train) // cfg.batch_size)
+    executed = 6 * (steps + evals) * cfg.epochs
+    model = spec.models["unet"](generator=torch.Generator().manual_seed(0), device="cpu")
+    state = {k: v.numpy().copy() for k, v in model.state_dict().items()}
+    factory = (PermInvUNetAttn, dict(bench_train.UNET_CONFIG, device="cpu"))
+    t0 = time.perf_counter()
+    with deterministic_convolutions(), recorded_programs() as programs:
+        counts, single = counted(lambda: loop.train_model(model, data, spec.grid, cfg))
+    (one,) = programs
+    one_wall = time.perf_counter() - t0
+    launches = check_program("parallel epoch_scan, one process", one, counts,
+                             steps * cfg.epochs, executed, False)
+    cases = [PARALLEL_SCAN] + ([PARALLEL_SCAN_TWO_CARDS] if torch.cuda.device_count() >= 2 else [])
+    figures = {}
+    for name, world in cases:
+        t0 = time.perf_counter()
+        out = ranks.run(train_model_ranks, world, factory, state, data, spec.grid, cfg, "cuda",
+                        None, True, device="cuda", backend="nccl", timeout=300)
+        wall = time.perf_counter() - t0
+        gaps = None
+        for rank, r in enumerate(out):
+            (record,) = r["programs"]
+            launches += check_program(f"parallel {name} rank {rank}", record, r["launches"],
+                                      steps * cfg.epochs, executed, True)
+            if world == 1 and not (r["result"].finished and same_run(r["result"], single)):
+                raise RuntimeError(f"parallel {name}: the program in one NCCL rank differs "
+                                   f"from the one-process program: {r['result'].history} "
+                                   f"against {single.history}")
+            if world > 1:
+                gaps = check_scan_gaps(f"parallel {name} rank {rank}",
+                                       *scan_gaps(r["result"], single), TRAIN_TOL, lambda k: True)
+        figures[name] = dict(
+            ranks=world, wall_s=wall, history=[(h["train_loss"], h["test_loss"])
+                                               for h in out[0]["result"].history],
+            eager_steps=record["eager_steps"], replays=record["replays"],
+            collectives_captured=record["collectives_captured"], gaps_from_one_process=gaps,
+            train_model_s=[r["train_s"] for r in out],
+            replayed_epochs=[r["programs"][0]["replayed"] for r in out])
+    if len(cases) == 1:
+        print(f"parallel: case {PARALLEL_SCAN_TWO_CARDS[0]} did not run: it needs two CUDA "
+              f"devices, and torch.cuda.device_count() is {torch.cuda.device_count()}",
+              flush=True)
+    figures.update(one_process=dict(wall_s=one_wall, eager_steps=one["eager_steps"],
+                                    replays=one["replays"], replayed_epochs=one["replayed"]),
+                   epochs=cfg.epochs, steps_per_epoch=steps, sets=m,
+                   executed_fno2d_layer_calls_a_run=executed,
+                   bit_for_bit=PARALLEL_SCAN[0], tol_two_cards=f"history {TRAIN_TOL} relative; "
+                   f"state {TRAIN_TOL} relative L2 a tensor, {ENCODER_TOL} in the conv stack")
+    return launches, figures
 
 
 @contextlib.contextmanager
@@ -2907,23 +3042,24 @@ def rank_setup():
     """Phase parallel's ranks compute as the script does: TF32 off (torch's default
     leaves it on for cuDNN), and deterministic cuDNN convolutions as the single-process
     step they are held to. Each worker then pays its first-use costs here, while the
-    kernels build: its CUDA context, cuDNN and cuBLAS, Adam, the port's modules, and a
-    first gloo and NCCL collective (each in a group of its own, torn down). Left to the
-    phase, they took 9-10 s of each case's setup. At the lowest priority, so that the
-    build's nvcc processes come first; nothing else runs beside the phase."""
+    kernels build: its CUDA context, cuDNN and cuBLAS, Adam, the port's modules, the
+    profiler's start-up, and a first gloo and NCCL collective (each in a group of its
+    own, torn down). Left to the phase, they took 9-10 s of each case's setup. At the
+    lowest priority, so that the build's nvcc processes come first; nothing else runs
+    beside the phase."""
     import torch.distributed as dist
 
     os.nice(19)
 
-    from blindno_torch.parallel import dryrun  # noqa: F401  (the ranks' functions)
+    from blindno_torch.parallel import dryrun  # the ranks' functions
     from blindno_torch.train.step import make_optimizer
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cudnn.deterministic = True
+    dryrun.full_precision()
     conv = torch.nn.Conv2d(1, 2, 3).to("cuda")
     (conv(torch.ones(1, 1, 4, 4, device="cuda")) @ torch.ones(2, 2, device="cuda")).sum().backward()
     make_optimizer(conv).step()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        pass  # the profiler's start-up, which phase parallel's case e pays otherwise
     for backend in ("gloo", "nccl"):
         with tempfile.TemporaryDirectory() as d:
             dist.init_process_group(backend, init_method=f"file://{d}/store", rank=0,
@@ -3171,10 +3307,10 @@ def phase_datagen(smi_line, pool, refs):
     return launches
 
 
-def earlier_phases(timed, smi_line, ranks):
+def earlier_phases(timed, smi_line, ranks, train_reference):
     """Phases ``kernels`` to ``parallel`` (``epoch_scan`` after ``fit``), each timed by
     ``timed``: their launches of each kernel, and under ``"stats"`` phase ``kernels``'
-    figures."""
+    figures. ``train_reference`` is phase ``train``'s CPU step."""
     stats = timed("kernels", phase_kernels)
     launches = {**timed("serve", phase_serve), **timed("serve1d", phase_serve1d)}
     for kernel, count in timed("serve_unet", phase_serve_unet).items():
@@ -3182,16 +3318,15 @@ def earlier_phases(timed, smi_line, ranks):
     launches["fno2d_layer"] += timed("serve_nio2d", phase_serve_nio2d)
     launches["fno1d_layer"] += timed("serve3d", phase_serve3d, smi_line)
     launches["fno2d_layer"] += timed("train", phase_train,
-                                     stats["fno2d_layer"]["kernel_ms"], smi_line)
+                                     stats["fno2d_layer"]["kernel_ms"], smi_line, train_reference)
     launches["fno2d_layer"] += timed("train_unet", phase_train_unet, smi_line)
     launches["fno2d_layer"] += timed("train_fno", phase_train_fno, smi_line)
     fit_launches, fit_data = timed("fit", phase_fit, smi_line)
     launches["fno2d_layer"] += fit_launches
     launches["fno2d_layer"] += timed("epoch_scan", phase_epoch_scan, smi_line, fit_data)
-    del fit_data
     launches["fno1d_layer"] += timed("train1d", phase_train1d, smi_line)
     launches["fno1d_layer"] += timed("fit1d", phase_fit1d, smi_line)
-    launches["fno2d_layer"] += timed("parallel", phase_parallel, smi_line, ranks)
+    launches["fno2d_layer"] += timed("parallel", phase_parallel, smi_line, ranks, fit_data)
     return {**launches, "stats": stats}
 
 
@@ -3237,8 +3372,9 @@ def main():
         emit("build", seconds=time.perf_counter() - t0, cached=cached,
              cpu_references_beside=True,
              ptxas=[ln.strip() for ln in log if "registers" in ln or "spill" in ln])
+        train_reference = refs["train"].result()  # queued first: done while the kernels built
         with stopped(workers):
-            launches = earlier_phases(timed, smi_line, ranks)
+            launches = earlier_phases(timed, smi_line, ranks, train_reference)
         stats = launches.pop("stats")
         launches["fno2d_layer"] += timed("padded", phase_padded, smi_line, refs["padded"])
         launches["fno2d_layer"] += timed("trans", phase_trans, smi_line, refs)

@@ -10,7 +10,8 @@
   by a device index into tables of the branches' permutations, where the loop calls the
   branch (``torch.rot90``, ``torch.flip``, the vector mix): both move the same values.
 - A run checkpointed under one mode and resumed under the other equals an unbroken run.
-- The refusal across ranks, and the optimizer state a capturable Adam saves.
+- What stays refused across ranks (a gloo group on a card), and the optimizer state a
+  capturable Adam saves. The program across ranks: ``tests/test_torch_epoch_scan_parallel.py``.
 
 The encoders are narrowed (``ENC_DIMS``, ``ENC_DIMS_1D``) on both sides, as the float16
 loop test narrows them, so that the file runs in well under a minute on one thread.
@@ -31,6 +32,7 @@ from blindno_torch.models.blindno_unet import PermInvUNetAttn
 from blindno_torch.models.nio1d import NIOFP1D
 from blindno_torch.models.nio2d import NIOFP2D
 from blindno_torch.nn.cnn import Encoder1D, Encoder2D
+from blindno_torch.train import loop
 from blindno_torch.train.checkpoint import RESUME
 from blindno_torch.train.loop import TrainConfig, make_augment, train_model
 from blindno_torch.train.scan import GroupTables
@@ -204,13 +206,21 @@ def test_a_checkpoint_resumes_across_modes(first, then, tmp_path):
 
 
 def test_epoch_scan_is_refused_across_ranks(monkeypatch):
-    """Across ranks the collectives of DDP and tensor parallelism would have to be
-    captured over NCCL (gloo's cannot be): refused, naming the ROADMAP item."""
+    """What stays refused across ranks: a gloo group whose ranks train on a CUDA card,
+    since the program captures the step's collectives in a CUDA graph and gloo's run on
+    the host. Driven on the CPU: two ranks by ``WORLD_SIZE``, the group's join returning
+    a CUDA device and the group's backend gloo; the check raises before anything moves
+    to the device, naming the reason and NCCL. The same group on the CPU passes it."""
     monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setattr(loop, "init_distributed", lambda device=None: torch.device("cuda"))
+    monkeypatch.setattr(loop.dist, "get_backend", lambda group=None: "gloo")
     data, grid = _data_2d()
-    with pytest.raises(ValueError, match="A.2"):
-        train_model(_nio2d(), data, grid, TrainConfig(epochs=1, batch_size=4, epoch_scan=True),
-                    device="cpu")
+    cfg = TrainConfig(epochs=1, batch_size=4, epoch_scan=True)
+    with pytest.raises(ValueError, match="'gloo' collectives cannot be captured.*NCCL"):
+        train_model(_nio2d(), data, grid, cfg, device="cpu")
+    loop._check_scan_backend(torch.device("cpu"))
+    monkeypatch.setattr(loop.dist, "get_backend", lambda group=None: "nccl")
+    loop._check_scan_backend(torch.device("cuda"))
 
 
 @pytest.mark.parametrize("kind,spatial,fields", [("d4_scalar", (5, 5), 2), ("c4_vector", (4, 4), 2),

@@ -11,6 +11,11 @@ per-step twin within bounds, not bit for bit: the history within HIST_TOL relati
 final tensor within STATE_TOL relative L2 (CONV_TOL in the conv stack, where the
 ConvNeXt blocks' max pools pass a gradient to either of two entries within rounding of
 each other, as ``chip_smoke.py``'s ``unet_tol`` holds the UNet).
+
+Across ranks (over NCCL, one card a rank): a one-rank group runs the DDP step captured
+with its all-reduce and equals the one-process program bit for bit (the same Adam,
+deterministic cuDNN, TF32 off); two ranks on two cards, where the host has them, land
+within the bounds of the one-process program.
 """
 import dataclasses
 
@@ -22,6 +27,8 @@ from blindno_torch.data.datasets import SetToFieldData
 from blindno_torch.models.blindno_unet import PermInvUNetAttn
 from blindno_torch.nn.setops import subsample_set
 from blindno_torch.ops.spectral_cuda import fno1d_layer_cuda
+from blindno_torch.parallel import dryrun
+from blindno_torch.parallel.mesh import RankPool
 from blindno_torch.suites.registry import SUITES
 from blindno_torch.train import loop, scan
 from blindno_torch.train.checkpoint import RESUME
@@ -50,6 +57,7 @@ def _data_1d(m, l=100, n=80, seed=0):
 
 
 def _rel(a, b):
+    a = a.to(b.device)  # a rank's result lies on that rank's card
     if torch.equal(a, b):
         return 0.0
     return float((a.double() - b.double()).norm() / b.double().norm())
@@ -172,3 +180,86 @@ def test_fpe1d_unet_epoch_scan_matches_its_per_step_loop(cuda_device, monkeypatc
     executed = runs[True, "calls"] - program.captured + program.captured * program.replays
     assert executed == runs[False, "calls"] == 6 * (2 + 1) * 2
     _assert_close_runs(runs[True], runs[False], conv=lambda k: not k.startswith("heads."))
+
+
+# epochs of 4 steps: DDP's 11 eager steps end in epoch 3, whose last step is captured, so
+# epoch 4 replays whole
+RANKS_EPOCHS = 4
+RANKS_CFG = TrainConfig(epochs=RANKS_EPOCHS, batch_size=8, lr=1e-3, save_interval=1,
+                        augment="flip1d", seed=4)
+
+
+@pytest.fixture
+def deterministic_card(cuda_device):
+    torch.backends.cudnn.deterministic = True
+    yield cuda_device
+    torch.backends.cudnn.deterministic = False
+
+
+def _one_process_program(device, init, data, grid):
+    """``train_model(epoch_scan=True)`` of the narrow 1-D UNet from ``init`` in this
+    process (a rank, where a process group is up), its program recorded."""
+    model = _small_unet1d(device)
+    model.load_state_dict(init)
+    with dryrun.recorded_programs() as programs:
+        result = train_model(model, data, grid, dataclasses.replace(RANKS_CFG, epoch_scan=True))
+    return result, programs
+
+
+def _same_run(a, b):
+    keys = ("epoch", "train_loss", "test_loss", "field_rel_l2")
+    return ([{k: h[k] for k in keys} for h in a.history] == [{k: h[k] for k in keys}
+                                                            for h in b.history]
+            and all(torch.equal(a.params[k], v) for k, v in b.params.items())
+            and all(torch.equal(a.batch_stats[k], v) for k, v in b.batch_stats.items()))
+
+
+def test_one_nccl_rank_captures_the_ddp_step_bit_for_bit(deterministic_card, tmp_path):
+    """A one-rank NCCL group (a file store) trains the narrow 1-D UNet through
+    ``train_model(epoch_scan=True)``: DDP's 11 eager steps, then its step captured with
+    the all-reduce inside (the profiler sees it issued during the capture) and replayed;
+    epoch 4 replays whole under sync debug mode "error". The history and final state
+    equal the one-process program's (1 eager step, then replays) bit for bit: the same
+    capturable Adam in both, and an all-reduce of one rank is the identity."""
+    data, grid = _data_1d(40)
+    init = _small_unet1d("cpu").state_dict()
+    single, (one,) = _one_process_program(deterministic_card, init, data, grid)
+    torch.distributed.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                                         rank=0, world_size=1)
+    try:
+        ranked, (program,) = _one_process_program(deterministic_card, init, data, grid)
+    finally:
+        torch.distributed.destroy_process_group()
+    steps = RANKS_EPOCHS * 4
+    assert (one["eager_steps"], one["replays"]) == (1, steps - 1)
+    assert (program["eager_steps"], program["replays"]) == (11, steps - 11)
+    assert len(program["replayed"]) == 1 and program["captured"]["fno1d_layer"] == 4
+    assert any("allreduce" in k for k in program["collectives_captured"]), program
+    assert one["collectives_captured"] is None
+    assert ranked.finished and _same_run(ranked, single)
+
+
+@pytest.mark.skipif(not torch.cuda.is_available() or torch.cuda.device_count() < 2,
+                    reason="needs two CUDA devices: NCCL takes one card a rank")
+def test_two_nccl_ranks_capture_the_dp2_step(deterministic_card):
+    """Two NCCL ranks on two cards (DP 2: the batch's rows split, BatchNorm synced over
+    both, DDP's all-reduce) run the program, each rank's step captured with its
+    collectives; every rank's history and final state lie within the bounds of the
+    one-process program's (the synced statistics and the all-reduce sum in another
+    order)."""
+    data, grid = _data_1d(40)
+    factory = (PermInvUNetAttn, dict(input_size=(80,), depth=3, width=8, fno_modes=8,
+                                     fno_layers=2, head_dims=(1, 1), subsample=True, l_min=50,
+                                     device="cpu"))
+    init = _small_unet1d("cpu").state_dict()
+    single, _ = _one_process_program(deterministic_card, init, data, grid)
+    state = {k: v.numpy() for k, v in init.items()}
+    with RankPool(2, dryrun.full_precision) as pool:
+        out = pool.run(dryrun.train_model_ranks, 2, factory, state, data, grid,
+                       dataclasses.replace(RANKS_CFG, epoch_scan=True), "cuda", None, True,
+                       device="cuda", backend="nccl", timeout=600)
+    for r in out:
+        (program,) = r["programs"]
+        assert program["eager_steps"] == 11 and len(program["replayed"]) == 1
+        assert any("allreduce" in k for k in program["collectives_captured"]), program
+        _assert_close_runs(r["result"], single, conv=lambda k: not k.startswith("heads."))

@@ -145,6 +145,18 @@ def test_tp_shards_gather_back_and_an_odd_width_stays_replicated(ranks):
             np.testing.assert_array_equal(v.numpy(), 2 * state[k])
 
 
+def test_a_large_array_reaches_the_ranks_through_a_file(ranks, monkeypatch):
+    """An argument array of ``FILE_ARRAY_BYTES`` or more reaches each rank as a file that
+    the rank maps, with the same values; a smaller one comes through the pipe."""
+    from blindno_torch.parallel import mesh
+
+    monkeypatch.setattr(mesh, "FILE_ARRAY_BYTES", 4096)
+    big, small = np.arange(1024, dtype=np.float64).reshape(32, 32), np.arange(4.0)
+    assert ranks(type, 2, big) == [np.memmap] * 2
+    assert ranks(np.sum, 2, big) == [big.sum()] * 2
+    assert ranks(type, 1, small) == [np.ndarray]
+
+
 # ------------------------------------------------------------------ the synced BatchNorm
 
 
