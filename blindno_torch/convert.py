@@ -33,6 +33,10 @@ its tensors: a left-over or missing key raises ``KeyError``. A tree with no stat
 all, such as a gradient tree, goes in with ``batch_stats=None``: its BatchNorm modules
 then give weight and bias only.
 
+:func:`from_flax_checkpoint` turns a whole restored ``best_*`` tree into the port's
+checkpoint dict, and :func:`adam_from_optax` JAX's Adam state (``resume.msgpack``'s
+``opt_state``) into torch's ``Adam.state_dict()``.
+
 The way back reads the names torch does not keep from the tensors: the encoder's class
 from its first conv's window rank and its number of blocks (``EncoderODE`` has 5, an
 ``Encoder1D`` 6 or 7), each FNO head's rank from its spectral planes, and the fusion's
@@ -271,3 +275,44 @@ def to_flax(state_dict) -> tuple[dict, dict]:
             else:
                 _set(params, path + [leaf], a)
     return params, batch_stats
+
+
+_BUFFERS = ("running_mean", "running_var", "num_batches_tracked")
+
+
+def from_flax_checkpoint(raw: dict) -> dict:
+    """A restored ``best_*`` tree of the JAX package (``{"params", "batch_stats",
+    "epoch", "test_loss"}``, as orbax restores it or
+    :func:`blindno_torch.train.jax_checkpoint.read_orbax` reads it) -> the port's
+    checkpoint: ``params`` the model's named parameters, ``batch_stats`` its named buffers
+    (the BatchNorm running statistics), as the port's own ``best_*`` files hold them."""
+    state = from_flax(raw["params"], raw.get("batch_stats") or {})
+    params = {k: v for k, v in state.items() if not k.endswith(_BUFFERS)}
+    stats = {k: v for k, v in state.items() if k.endswith(_BUFFERS)}
+    return {"params": params, "batch_stats": stats, "epoch": int(raw["epoch"]),
+            "test_loss": float(raw["test_loss"])}
+
+
+def adam_from_optax(opt_state: dict, names: list[str], param_groups: list[dict]) -> dict:
+    """JAX's ``optax.adam(schedule)`` state, as ``resume.msgpack`` holds it (``{"0":
+    {"count", "mu", "nu"}, "1": {"count"}}``: Adam's, then the schedule's) -> torch's
+    ``Adam.state_dict()`` over the parameters ``names``, in the optimizer's order, with
+    its ``param_groups``. ``mu`` and ``nu`` take the parameters' layouts
+    (:func:`from_flax` with ``batch_stats=None``); ``step`` is Adam's ``count``, which
+    must equal the schedule's."""
+    adam, schedule = opt_state["0"], opt_state["1"]
+    count = int(np.asarray(adam["count"]))
+    if count != int(np.asarray(schedule["count"])):
+        raise ValueError(f"optax state: Adam's count {count} differs from the schedule's "
+                         f"{int(np.asarray(schedule['count']))}")
+    mu, nu = from_flax(adam["mu"], None), from_flax(adam["nu"], None)
+    missing = set(names) - mu.keys()
+    if missing:
+        raise KeyError(f"optax state: no moments for {sorted(missing)[:4]}")
+    state = {i: {"step": torch.tensor(float(count)), "exp_avg": mu[name],
+                 "exp_avg_sq": nu[name]} for i, name in enumerate(names)}
+    groups = [dict(g) for g in param_groups]
+    if sum(len(g["params"]) for g in groups) != len(names):
+        raise ValueError(f"optax state: {len(names)} parameters for param groups of "
+                         f"{sum(len(g['params']) for g in groups)}")
+    return {"state": state, "param_groups": groups}

@@ -6,8 +6,15 @@ A checkpoint is one ``torch.save`` file of state dicts, read back with
 batch statistics of the best eval so far, ``resume.pt`` the params, batch statistics,
 the optimizer's ``state_dict()``, the epoch and the best loss. ``params`` are the
 model's named parameters and ``batch_stats`` its named buffers (the BatchNorm running
-statistics). The JAX package's orbax and msgpack files are not read; the committed
-flax checkpoints go through :func:`blindno_torch.convert.from_flax`.
+statistics).
+
+The JAX package's files are read too, without JAX
+(:mod:`blindno_torch.train.jax_checkpoint`), so the port's stages take over a workdir
+that a JAX run left, the committed ``runs/ckpt`` among them: a ``best_*`` directory that
+orbax wrote goes through :func:`blindno_torch.convert.from_flax_checkpoint`, and
+``resume.msgpack`` is resumed from where it is newer than ``resume.pt``. Among the
+``best_*`` entries of both formats the smallest loss wins, and :func:`save_best` removes
+the others, files or directories, as JAX's does.
 
 Among several ranks, only rank 0 writes, and every rank waits for it at a barrier: the
 state it is handed is the whole, unsharded one (``blindno_torch.parallel.tp.gather_state``),
@@ -16,15 +23,20 @@ run resumes at any ``tp``.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import glob
 import os
+import shutil
 
 import torch
 
+from blindno_torch.convert import from_flax_checkpoint
 from blindno_torch.parallel.mesh import barrier, is_main_process
+from blindno_torch.train import jax_checkpoint
 
 RESUME = "resume.pt"
+JAX_RESUME = "resume.msgpack"
 
 
 def _best_loss_of(path: str) -> float:
@@ -41,6 +53,16 @@ def _save_atomic(obj, path: str):
     tmp = os.path.join(os.path.dirname(path), f".{os.path.basename(path)}.tmp")
     torch.save(obj, tmp)
     os.replace(tmp, path)
+
+
+def _remove(path: str):
+    """Remove a ``best_*`` entry, a file or (JAX's) a directory, never raising, as JAX's
+    ``save_best`` removes its old ones (``shutil.rmtree(..., ignore_errors=True)``)."""
+    if os.path.isdir(path):
+        shutil.rmtree(path, ignore_errors=True)
+    else:
+        with contextlib.suppress(OSError):
+            os.remove(path)
 
 
 def _detached(tree: dict) -> dict:
@@ -65,34 +87,49 @@ def save_best(ckpt_dir: str, params: dict, batch_stats: dict, epoch: int, test_l
     """Save best params/batch_stats to ``{dir}/best_{loss:.6f}_e{epoch}``.
 
     The epoch suffix keeps names unique when two improvements round to the same
-    6-decimal loss. The new checkpoint is written BEFORE older ``best_*`` files are
+    6-decimal loss. The new checkpoint is written BEFORE older ``best_*`` entries are
     deleted, so a crash mid-save never leaves the directory without one (and
-    :func:`load_best` picks the numerically best if more than one survives)."""
+    :func:`load_best` picks the numerically best if more than one survives). The older
+    entries go whatever their format: JAX's directories too, as JAX's ``save_best``
+    removes them (``blindno/train/checkpoint.py:62-64``)."""
     os.makedirs(ckpt_dir, exist_ok=True)
     olds = glob.glob(os.path.join(ckpt_dir, "best_*"))
     path = os.path.abspath(os.path.join(ckpt_dir, f"best_{test_loss:.6f}_e{epoch}"))
     if os.path.exists(path):
-        # same loss AND epoch: a resume replay. Move the old file ASIDE (it still parses
+        # same loss AND epoch: a resume replay. Move the old entry ASIDE (it still parses
         # as a valid fallback for load_best) and delete it only after the new save lands
         aside = path + ".old"
+        _remove(aside)
         os.replace(path, aside)
         olds = [aside if os.path.abspath(o) == path else o for o in olds]
     _save_atomic({"params": _detached(params), "batch_stats": _detached(batch_stats),
                   "epoch": int(epoch), "test_loss": float(test_loss)}, path)
     for old in olds:
-        if os.path.abspath(old) != path and os.path.exists(old):
-            os.remove(old)
+        if os.path.abspath(old) != path:
+            _remove(old)
     return path
 
 
 def load_best(ckpt_dir: str, map_location="cpu"):
     """Load the numerically-best checkpoint in ``ckpt_dir`` (smallest parsed loss:
-    lexicographic order would pick the WORST if several ``best_*`` survive a crash)."""
+    lexicographic order would pick the WORST if several ``best_*`` survive a crash),
+    the port's file or JAX's orbax directory alike, as ``{"params", "batch_stats",
+    "epoch", "test_loss"}`` with its tensors on ``map_location``. A directory that orbax
+    did not write raises :class:`~blindno_torch.train.jax_checkpoint.JaxCheckpointError`."""
     matches = glob.glob(os.path.join(os.path.abspath(ckpt_dir), "best_*"))
     if not matches:
         raise FileNotFoundError(f"no best_* checkpoint under {ckpt_dir}")
-    return torch.load(min(matches, key=_best_loss_of), map_location=map_location,
-                      weights_only=True)
+    best = min(matches, key=_best_loss_of)
+    if not os.path.isdir(best):
+        return torch.load(best, map_location=map_location, weights_only=True)
+    if not jax_checkpoint.is_orbax(best):
+        raise jax_checkpoint.JaxCheckpointError(
+            f"{best}: a directory, but not a checkpoint that orbax wrote with OCDBT (it has "
+            f"no {' and '.join(jax_checkpoint.ORBAX_FILES)})")
+    raw = from_flax_checkpoint(jax_checkpoint.read_orbax(best))
+    for key in ("params", "batch_stats"):
+        raw[key] = {k: v.to(map_location) for k, v in raw[key].items()}
+    return raw
 
 
 def _finite(tree: dict) -> bool:
@@ -139,19 +176,36 @@ def save_resume(ckpt_dir: str, params: dict, batch_stats: dict, opt_state: dict,
     return path
 
 
+def _read_resume(path: str) -> dict:
+    """The resume state in ``path``, ``resume.pt`` or JAX's ``resume.msgpack``; the
+    latter's ``opt_state`` is optax's tree, which
+    :func:`blindno_torch.convert.adam_from_optax` maps onto an optimizer."""
+    if os.path.basename(path) == RESUME:
+        return torch.load(path, map_location="cpu", weights_only=True)
+    raw = jax_checkpoint.read_msgpack(path)
+    state = from_flax_checkpoint({**raw, "test_loss": raw["best_loss"]})
+    return {"params": state["params"], "batch_stats": state["batch_stats"],
+            "opt_state": raw["opt_state"], "epoch": int(raw["epoch"]),
+            "best_loss": float(raw["best_loss"])}
+
+
 def load_resume(ckpt_dir: str):
-    """The state :func:`save_resume` wrote, read to the host, or ``None`` when there is
-    none.
+    """The state :func:`save_resume` wrote, read to the host, with its ``"path"``, or
+    ``None`` when there is none. Where JAX's ``save_resume`` left a ``resume.msgpack``
+    of a later epoch than ``resume.pt``'s (or there is no ``resume.pt``), that is read
+    instead (see :func:`_read_resume`).
 
     Rejects non-finite restored params: the file is moved aside as
-    ``resume.pt.poisoned`` so that a diverged run does not silently seed the next."""
-    path = os.path.join(ckpt_dir, RESUME)
-    if not os.path.exists(path):
-        return None
-    state = torch.load(path, map_location="cpu", weights_only=True)
-    if not _finite(state["params"]):
-        quarantine = path + ".poisoned"
-        os.replace(path, quarantine)
+    ``<name>.poisoned`` so that a diverged run does not silently seed the next, and the
+    other file, if any, is tried."""
+    found = [_read_resume(p) | {"path": p}
+             for p in (os.path.join(ckpt_dir, RESUME), os.path.join(ckpt_dir, JAX_RESUME))
+             if os.path.exists(p)]
+    # the later epoch first; resume.pt first on a tie (a stable sort keeps the order)
+    for state in sorted(found, key=lambda s: -s["epoch"]):
+        if _finite(state["params"]):
+            return state
+        quarantine = state["path"] + ".poisoned"
+        os.replace(state["path"], quarantine)
         print(f"[checkpoint] resume state has non-finite params; quarantined -> {quarantine}")
-        return None
-    return state
+    return None

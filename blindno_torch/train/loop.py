@@ -39,6 +39,7 @@ import torch
 import torch.distributed as dist
 
 from blindno_torch import default_device
+from blindno_torch.convert import adam_from_optax
 from blindno_torch.data.datasets import SetToFieldData, eval_batches, train_test_split
 from blindno_torch.eval.metrics import relative_l2_per_field
 from blindno_torch.parallel import distribute, undistribute
@@ -78,7 +79,8 @@ class TrainConfig:
     log_path: str | None = None
     ckpt_dir: str | None = None
     epoch_scan: bool = False
-    # resume from {ckpt_dir}/resume.pt when present, else warm-restart from best_*
+    # resume from {ckpt_dir}/resume.pt (or JAX's resume.msgpack, the newer) when present,
+    # else warm-restart from best_* (the port's or JAX's)
     resume: bool = True
     # graceful preemption: if this file appears, finish the epoch, save resume state
     # and return
@@ -320,17 +322,25 @@ def train_model(model, data: SetToFieldData, grid, cfg: TrainConfig, *,
         # read to the host: ``load_state_dict`` copies the params and moves Adam's
         # moments to the parameters' device, and leaves each ``step`` where it is read,
         # on the host as Adam keeps it (on the card, Adam would read it back with a
-        # synchronization per parameter and step); ``step`` carries the schedule on
+        # synchronization per parameter and step); ``step`` carries the schedule on.
+        # JAX's resume.msgpack comes with optax's Adam state, mapped onto this optimizer
         restored = checkpoint.load_resume(cfg.ckpt_dir)
         if restored is not None:
             model.load_state_dict({**restored["params"], **restored["batch_stats"]})
-            opt.load_state_dict(restored["opt_state"])
+            opt_state = restored["opt_state"]
+            if os.path.basename(restored["path"]) == checkpoint.JAX_RESUME:
+                names = [k for k, p in model.named_parameters() if p.requires_grad]
+                opt_state = adam_from_optax(opt_state, names, opt.state_dict()["param_groups"])
+            opt.load_state_dict(opt_state)
             start_epoch = int(restored["epoch"]) + 1
             best_loss = float(restored["best_loss"])
+            print(f"[train] resumed from {restored['path']} at epoch {start_epoch} "
+                  f"(best {best_loss:.6f})")
         else:
-            # resume.pt lost (only best_* survives): warm restart from the best
-            # checkpoint with zero Adam moments and the step count advanced, so the
-            # StepLR schedule and Adam's bias correction continue where the run was
+            # no resume file (only best_* survives, the port's or JAX's): warm restart
+            # from the best checkpoint with zero Adam moments and the step count
+            # advanced, so the StepLR schedule and Adam's bias correction continue where
+            # the run was
             best = checkpoint.load_best_as_warm_restart(cfg.ckpt_dir, *_state(model))
             if best is not None and best["epoch"] >= 1:
                 model.load_state_dict({**best["params"], **best["batch_stats"]})
@@ -342,7 +352,8 @@ def train_model(model, data: SetToFieldData, grid, cfg: TrainConfig, *,
                         opt.state[p] = {"step": torch.tensor(float(done_steps)),
                                         "exp_avg": torch.zeros_like(p),
                                         "exp_avg_sq": torch.zeros_like(p)}
-                print(f"[train] {checkpoint.RESUME} absent; warm restart from best_* at "
+                print(f"[train] no {checkpoint.RESUME} or {checkpoint.JAX_RESUME}; warm "
+                      f"restart from best_* at "
                       f"epoch {best['epoch']} (best {best_loss:.6f}; Adam moments "
                       f"reset, lr schedule advanced to step {done_steps})")
 

@@ -139,15 +139,26 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``. It
    peak memory; one float32 step of each on the first set of
    ``bench.py``'s batch against the CPU's step, 6 ``fno2d_layer`` launches a forward or
    step counted exactly, and ten timed steps on the whole batch whose loss must fall;
-16. generates every FPE and GPE suite's archives through the CLI (phase ``datagen``) at
+16. reads every committed JAX checkpoint (``runs/ckpt/*/best_*``, orbax's OCDBT
+   directories) with the port's own reader, without JAX (phase ``jax_ckpt``): arrays, MB
+   and seconds, the CPU workers stopped while it reads (``libzstd.so.1`` loaded first);
+   then loads each strictly into its port model on the card and serves one seeded batch
+   through ``predict_fields`` (2 sets of 100 snapshots on the 2-D grids, 16 on the 1-D
+   ones), its ``fno2d_layer`` or ``fno1d_layer`` launches counted exactly,
+   each field within 2e-3 of its scale from the same weights on the CPU;
+17. generates every FPE and GPE suite's archives through the CLI (phase ``datagen``) at
    each suite's full grid and time axis and a few sets (48 fpe1d, 64 gpe1d, 8 fpe2d, 2
    ncfpe2d), with TF32 on for matrix products, timed per set: the parameters equal to a
    CPU run's bit for bit, the trajectories within 1e-3 of the CPU's on the first set (of
    a float64 run on the card for ncfpe2d, every set), the FPE masses at 1; then the
-   time-error stage through the CLI on an fpe1d NIO and a gpe1d FNO-branch NIO trained
-   for one epoch on those archives, and on one fpe2d sample of an untrained
-   ``NIOTrans2D``, each against the CPU's errors;
-17. prints one JSON line per phase, the nvidia-smi line, the kernels line, and last
+   eval and time-error stages through the CLI on copies of the committed fpe1d NIO and
+   gpe1d FNO-branch NIO directories (JAX's) on those archives, the time-error stage on
+   one fpe2d sample of an untrained ``NIOTrans2D``, each against the CPU's predictions
+   and errors; and one ``--stage train`` epoch of each of the two warm-restarted from its
+   committed directory (the fpe1d NIO's epoch 401 from JAX's 400, the gpe1d FNO's 391
+   from 390, with JAX's best loss, Adam's step advanced, the directory kept or replaced
+   by ``save_best``'s rule);
+18. prints one JSON line per phase, the nvidia-smi line, the kernels line, and last
    ``{"ok": true, "device": {...}}``.
 
 Every path runs with all four kernels' launch counts set to 0 just before it and read
@@ -155,11 +166,14 @@ just after. Any failed check raises, and the script exits non-zero without the l
 line. TF32 is off for matmul and cuDNN throughout, so every comparison is in full
 float32, except around the datagen stage, where the solver must turn it off itself.
 
-The CPU references of phases 14 to 16, and phase 8's CPU step (queued first, and waited
+The script reads ``runs/`` and writes nothing there: phase ``datagen`` works on copies
+in a temporary workdir.
+
+The CPU references of phases 14 to 17, and phase 8's CPU step (queued first, and waited
 for at the build's end), run in CPU_WORKERS worker processes, started before the build
 on the cores it leaves idle and stopped (SIGSTOP) from the build's end until after phase
-13: phases 3 to 13 run with no other process of this script running but phase 13's
-ranks.
+13, and again while phase 16 reads the checkpoints: phases 3 to 13 and that read run
+with no other process of this script running but phase 13's ranks.
 """
 from __future__ import annotations
 
@@ -304,6 +318,24 @@ FIT_1D_BF16 = dict(epochs=2)
 # time-error stage's errors within TIME_ERROR_TOL of the CPU's, relative
 DATAGEN = {"fpe1d": (48, 8), "gpe1d": (64, 16), "fpe2d": (8, 2), "ncfpe2d": (2, 1)}
 DATAGEN_TOL, DATAGEN_MASS_TOL, TIME_ERROR_TOL = 1e-3, 1e-3, 1e-3
+# phase datagen's committed checkpoints (JAX's orbax directories, copied): the eval and
+# time-error stages on the fpe1d NIO and the gpe1d FNO-branch NIO, and a warm restart of
+# each for one epoch past its own
+DATAGEN_CKPTS = (("fpe1d", "nio"), ("gpe1d", "fno"))
+# phase jax_ckpt: every committed runs/ckpt/{name}/best_* served on one seeded batch of sets
+# of its suite's grid, (sets, snapshots) by the rank of the grid, against the CPU
+CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "runs", "ckpt")
+JAX_CKPT_SETS = {2: (2, 100), 1: (16, 100)}
+# the committed directories: the registry's {suite}_{model} ones, and the fpe1d NIO and
+# the fpe2d UNet variants at the registry's widths
+JAX_CKPT_MODELS = ("fpe1d_fno", "fpe1d_nio", "fpe1d_unet", "fpe2d_nio", "fpe2d_unet",
+                   "gpe1d_fno", "gpe1d_nio", "gpe1d_unet", "gpe1d_vgk_nio", "ncfpe2d_fno",
+                   "ncfpe2d_unet", "schrodinger1d_fno", "schrodinger1d_nio",
+                   "schrodinger1d_unet")
+JAX_CKPT_VARIANTS = {"fpe1d_nio_bf16val": ("fpe1d", "nio"),
+                     "fpe1d_nio_bf16val_bn32": ("fpe1d", "nio"),
+                     "fpe1d_nio_bf16val_enc": ("fpe1d", "nio"),
+                     "fpe2d_unet_leakdemo": ("fpe2d", "unet")}
 
 
 def counted(fn):
@@ -1834,15 +1866,18 @@ def phase_padded(smi_line, refs):
 
 
 def submit_cpu_references(pool):
-    """Queue the CPU references of phases ``train``, ``padded``, ``trans`` and ``datagen``
-    on ``pool``'s workers, in that order: NIOFP2D's training step, the padded NIOFP2D's
-    served output and training step, each Transolver NIO's served output and training
-    step, each suite's generator run."""
+    """Queue the CPU references of phases ``train``, ``padded``, ``trans``, ``jax_ckpt``
+    and ``datagen`` on ``pool``'s workers, in that order: NIOFP2D's training step, the
+    padded NIOFP2D's served output and training step, each Transolver NIO's served output
+    and training step, each committed checkpoint's served batch, each suite's generator
+    run."""
     return {"train": pool.submit(train_step_reference),
             "padded": {"serve": pool.submit(padded_serve_reference),
                        "step": pool.submit(padded_step_reference)},
             "serve": {name: pool.submit(trans_serve_reference, name) for name in TRANS_MODELS},
             "step": {name: pool.submit(trans_step_reference, name) for name in TRANS_MODELS},
+            "jax_ckpt": {name: pool.submit(jax_ckpt_reference, name)
+                         for name in jax_ckpt_names()},
             "datagen": {suite: pool.submit(datagen_reference, suite, m, 0)
                         for suite, (m, _) in DATAGEN.items()}}
 
@@ -1924,12 +1959,16 @@ def phase_trans(smi_line, refs):
     return launches
 
 
-def fno1d_layer_calls(model):
-    """The FNO1d layer calls in one forward of ``model``: one per spectral layer of each
-    of its FNO1d modules (the heads, and NIOFNO1D's inner branch)."""
-    from blindno_torch.nn.fno import FNO1d
+def fno_layer_calls(model):
+    """The FNO-layer calls of one forward of ``model``, by kernel: one per spectral layer
+    of each FNO1d and FNO2d module (the heads, and an FNO-branch NIO's inner branch)."""
+    from blindno_torch.nn.fno import FNO1d, FNO2d
 
-    return sum(len(m.spectral) for m in model.modules() if isinstance(m, FNO1d))
+    calls = {"fno1d_layer": 0, "fno2d_layer": 0}
+    for m in model.modules():
+        if isinstance(m, (FNO1d, FNO2d)):
+            calls["fno1d_layer" if isinstance(m, FNO1d) else "fno2d_layer"] += len(m.spectral)
+    return calls
 
 
 def masked_train_errors(label, card, cpu, tol, grads64):
@@ -2088,7 +2127,7 @@ def phase_train1d(smi_line):
         cpu_model = bench_train.fresh_model("cpu", name, suite)
         randomize_layernorms(cpu_model, np.random.default_rng(8))
         initial = copy.deepcopy(cpu_model.state_dict())
-        calls = fno1d_layer_calls(cpu_model)
+        calls = fno_layer_calls(cpu_model)["fno1d_layer"]
         if calls != want_calls:
             raise RuntimeError(f"train1d {name}: {calls} FNO1d layer calls a forward, "
                                f"want {want_calls}")
@@ -2790,7 +2829,7 @@ def phase_fit1d(smi_line):
             rng = np.random.default_rng(0)
             np.savez(os.path.join(w, "data", spec.train_file), **make(FIT_1D["m"], l, n, rng))
             np.savez(os.path.join(w, "data", spec.test_file), **make(FIT_1D["m_test"], l, n, rng))
-            per_forward = fno1d_layer_calls(spec.models[model](device="cpu"))
+            per_forward = fno_layer_calls(spec.models[model](device="cpu"))["fno1d_layer"]
             launches += fit_cli(w, spec, model, FIT_1D["m"], FIT_1D["m_test"], FIT_1D["epochs"],
                                 per_forward, smi_line, layer="fno1d_layer", resumed=resumed,
                                 tta=True)
@@ -2813,7 +2852,7 @@ def fit1d_bf16(smi_line):
     cfg = dataclasses.replace(spec.train_cfg, epochs=epochs, save_interval=1,
                               compute_dtype="bfloat16", amp_policy="all")
     model = spec.models["unet"](generator=torch.Generator().manual_seed(0), device="cuda")
-    per_forward = fno1d_layer_calls(model)
+    per_forward = fno_layer_calls(model)["fno1d_layer"]
     n_train = int(cfg.train_frac * m)
     steps, eval_forwards = n_train // cfg.batch_size, -(-(m - n_train) // cfg.batch_size)
     torch.cuda.reset_peak_memory_stats()
@@ -3208,11 +3247,14 @@ def phase_datagen(smi_line, pool, refs):
     suite's default train archive; its parameters against a CPU run of the same generator
     bit for bit, its trajectories against the CPU's on the first set (1-D suites and
     fpe2d) or against a float64 run on the card (ncfpe2d, every set), masses at 1. Then
-    the time-error stage through the CLI on an fpe1d NIO and a gpe1d FNO-branch NIO
-    trained for one epoch on those archives, and on one fpe2d sample of an untrained
-    Transolver NIO, each error against the CPU's. The CPU's generator runs are ``refs``'
-    futures (:func:`submit_cpu_references`), its time errors come from ``pool``'s worker
-    while the card works. Returns the launches of both layers."""
+    the eval and time-error stages through the CLI on those archives with copies of the
+    committed JAX checkpoints of DATAGEN_CKPTS (the port reads the orbax directories
+    itself), the predictions and errors against the CPU's, and the time-error stage on
+    one fpe2d sample of an untrained Transolver NIO; then a warm restart of each of
+    DATAGEN_CKPTS from its committed directory for one epoch (:func:`warm_restart_epoch`). The CPU's
+    generator runs are ``refs``' futures (:func:`submit_cpu_references`), its
+    predictions and time errors come from ``pool``'s workers while the card works.
+    Returns the launches of both layers."""
     from blindno_torch.data import generate
     from blindno_torch.suites import registry
     from blindno_torch.train import checkpoint
@@ -3220,7 +3262,7 @@ def phase_datagen(smi_line, pool, refs):
     build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "blindno_torch", "_build")
     os.makedirs(build, exist_ok=True)
     launches = {"fno1d_layer": 0, "fno2d_layer": 0}
-    suites, walls, runs = {}, {}, {}
+    suites, walls, runs, evals = {}, {}, {}, {}
     on_cpu = refs["datagen"]
     with tempfile.TemporaryDirectory(dir=build) as w:
         # TF32 on: the trajectory checks below then hold the solver's own guard
@@ -3230,20 +3272,24 @@ def phase_datagen(smi_line, pool, refs):
                                                   str(m), "--m-test", str(m_test),
                                                   "--device", "cuda")
 
-        def time_error_run(suite, name, m_te, train):
-            """The time-error stage on the card (after an epoch of training where
-            ``train``), its CPU reference queued on ``pool`` first."""
-            if train:
-                counts = cli_stage(w, suite, name, "--stage", "train", "--epochs", "1",
-                                   "--device", "cuda")[0]
+        def time_error_run(suite, name, m_te, committed):
+            """The time-error stage on the card (where ``committed``, on a copy of the
+            committed JAX directory, after the eval stage), each CPU reference queued on
+            ``pool`` once what it reads is in place."""
+            if committed:
+                copy_committed(w, suite, name)
+                counts, report, eval_s, _ = cli_stage(w, suite, name, "--stage", "eval",
+                                                      "--device", "cuda")
                 for k in launches:
                     launches[k] += counts[k]
+                evals[(suite, name)] = (report, eval_s,
+                                        pool.submit(eval_reference, suite, name, w))
             on_cpu_te = pool.submit(time_error_reference, suite, name, w, m_te)
             counts, card, card_s, _ = cli_stage(w, suite, name, "--stage", "time-error",
                                                 "--m", str(m_te), "--device", "cuda")
             for k in launches:
                 launches[k] += counts[k]
-            runs[(suite, name)] = (card, card_s, train, on_cpu_te)
+            runs[(suite, name)] = (card, card_s, committed, on_cpu_te)
 
         # fpe2d's time error first (an untrained Transolver NIO on one sample): its CPU
         # reference is the longest and runs while the card goes on
@@ -3286,11 +3332,29 @@ def phase_datagen(smi_line, pool, refs):
                                  default_train_archive_s_extrapolated=per_set * spec.m_train,
                                  default_m_train=spec.m_train, cpu_run_s=cpu_s, **fields)
 
-        # checkpoints trained for an epoch on the archives just made
-        time_error_run("fpe1d", "nio", DATAGEN["fpe1d"][1], True)
-        time_error_run("gpe1d", "fno", DATAGEN["gpe1d"][1], True)
+        # the committed checkpoints on the archives just made
+        for suite, name in DATAGEN_CKPTS:
+            time_error_run(suite, name, DATAGEN[suite][1], True)
+        restart = {}
+        for suite, name in DATAGEN_CKPTS:
+            restart[f"{suite} {name}"], restart_launches = warm_restart_epoch(w, suite, name)
+            for k in launches:
+                launches[k] += restart_launches[k]
+        evaluated = {}
+        for (suite, name), (report, eval_s, on_cpu_eval) in evals.items():
+            want, cpu_s = on_cpu_eval.result()
+            got = np.load(os.path.join(w, "eval", f"{suite}_{name}", "predictions.npy"))
+            errs = [check_close(f"datagen: {suite} {name} eval predictions, field {f}, vs the "
+                                f"CPU", torch.from_numpy(got[..., f]),
+                                torch.from_numpy(want[..., f]), SERVE_TOL,
+                                float(np.abs(want[..., f]).max()))
+                    / float(np.abs(want[..., f]).max()) for f in range(want.shape[-1])]
+            evaluated[f"{suite} {name}"] = dict(
+                ckpt_epoch=report["ckpt_epoch"], ckpt_test_loss=report["ckpt_test_loss"],
+                mean_rel_l2_sum=report["mean_rel_l2_sum"], test_sets=len(got),
+                max_rel_err_vs_cpu=max(errs), stage_s=eval_s, cpu_s=cpu_s)
         terr = {}
-        for (suite, name), (card, card_s, train, on_cpu_te) in runs.items():
+        for (suite, name), (card, card_s, committed, on_cpu_te) in runs.items():
             cpu, cpu_s = on_cpu_te.result()
             err = {k: abs(card[k] - cpu[k]) / abs(cpu[k]) for k in ("mean_err_l2", "std_err_l2")
                    if cpu[k]}
@@ -3300,10 +3364,231 @@ def phase_datagen(smi_line, pool, refs):
                                    f"relative {err} (want <= {TIME_ERROR_TOL})")
             terr[f"{suite} {name}"] = dict(card=card, cpu=cpu, rel_err_vs_cpu=err,
                                            stage_s=card_s, cpu_s=cpu_s,
-                                           trained_one_epoch=train)
-    emit("datagen", suites=suites, time_error=terr, launches=launches,
+                                           committed_jax_checkpoint=committed)
+    emit("datagen", suites=suites, eval=evaluated, time_error=terr, warm_restart=restart,
+         launches=launches,
          tol=f"trajectories {DATAGEN_TOL} relative L2, masses {DATAGEN_MASS_TOL}, "
-             f"time errors {TIME_ERROR_TOL} relative", nvidia_smi=smi_line)
+             f"time errors {TIME_ERROR_TOL} relative, predictions {SERVE_TOL} of each "
+             f"field's scale", nvidia_smi=smi_line)
+    return launches
+
+
+def copy_committed(workdir, suite, model):
+    """A copy of the committed JAX checkpoint of ``model`` of ``suite`` in ``workdir``'s
+    ``ckpt``: the path of its ``best_*`` directory."""
+    import shutil
+
+    src = committed_best(f"{suite}_{model}")
+    dst = os.path.join(workdir, "ckpt", f"{suite}_{model}", os.path.basename(src))
+    shutil.copytree(src, dst)
+    return dst
+
+
+def eval_reference(suite, model, workdir):
+    """On the CPU: the eval stage's denormalized predictions of every test set of
+    ``workdir`` for ``model`` of ``suite`` (the train statistics' sidecar, which the
+    card's eval stage wrote, read back), from the same ``best_*``, and its seconds."""
+    from blindno_torch.eval.field_eval import (cached_train_stats, denormalize_predictions,
+                                               normalized_test_inputs, predict_fields)
+    from blindno_torch.suites import registry
+    from blindno_torch.train import checkpoint
+
+    t0 = time.perf_counter()
+    spec = registry.SUITES[suite]
+    stats = cached_train_stats(spec, workdir)
+    with np.load(os.path.join(workdir, "data", spec.test_file)) as z:
+        inputs = normalized_test_inputs(stats, z)
+    best = checkpoint.load_best(os.path.join(workdir, "ckpt", f"{suite}_{model}"))
+    cpu_model = spec.models[model](device="cpu")
+    cpu_model.load_state_dict({**best["params"], **best["batch_stats"]})
+    cpu_model.eval()
+    out = denormalize_predictions(spec, stats, predict_fields(cpu_model, inputs, spec.grid,
+                                                              batch=eval_batch(), device="cpu"))
+    return out, time.perf_counter() - t0
+
+
+def warm_restart_epoch(workdir, suite, model):
+    """``--stage train`` of ``model`` of ``suite`` on the card in a workdir of its own
+    beside ``workdir`` (its archives, a copy of the committed JAX directory, no resume
+    file) for one epoch past the directory's: the port warm-restarts from JAX's
+    ``best_*`` as JAX's loop does. It must start at that epoch + 1 with the directory's
+    test loss as its best, Adam's step advanced to the schedule's, and leave the JAX
+    directory or a new ``best_*`` by ``save_best``'s rule. Returns its phase fields and
+    launches."""
+    import shutil
+
+    from blindno_torch.data.datasets import train_test_split
+    from blindno_torch.suites import registry
+    from blindno_torch.train import checkpoint
+
+    spec = registry.SUITES[suite]
+    w = os.path.join(workdir, f"warm_restart_{suite}_{model}")
+    os.makedirs(os.path.join(w, "data"))
+    for f in (spec.train_file, spec.test_file):
+        shutil.copy(os.path.join(workdir, "data", f), os.path.join(w, "data", f))
+    jax_dir = copy_committed(w, suite, model)
+    jax_best = checkpoint.load_best(os.path.dirname(jax_dir))
+    epoch = jax_best["epoch"] + 1
+    counts, res, train_s, _ = cli_stage(w, suite, model, "--stage", "train", "--epochs",
+                                        str(epoch), "--device", "cuda")
+    ckpt = os.path.dirname(jax_dir)
+    resume = torch.load(os.path.join(ckpt, checkpoint.RESUME), weights_only=True)
+    with np.load(os.path.join(w, "data", spec.train_file)) as z:
+        m = len(z[next(iter(z.files))])
+    cfg = spec.train_cfg
+    steps = epoch * (len(train_test_split(m, cfg.train_frac, cfg.split_seed)[0]) // cfg.batch_size)
+    (record,) = res.history
+    loss = record["test_loss"]
+    improved = loss < jax_best["test_loss"]
+    bests = sorted(f for f in os.listdir(ckpt) if f.startswith("best_"))
+    want_bests = [f"best_{loss:.6f}_e{epoch}"] if improved else [os.path.basename(jax_dir)]
+    adam_steps = {float(s["step"]) for s in resume["opt_state"]["state"].values()}
+    if (record["epoch"] != epoch or resume["epoch"] != epoch
+            or resume["best_loss"] != min(loss, jax_best["test_loss"])
+            or adam_steps != {float(steps)} or bests != want_bests or not np.isfinite(loss)):
+        raise RuntimeError(
+            f"warm restart of {suite} {model} from {jax_dir}: epoch {record['epoch']} "
+            f"(want {epoch}), resume epoch {resume['epoch']}, best {resume['best_loss']} "
+            f"(JAX's {jax_best['test_loss']}, the epoch's {loss}), Adam steps {adam_steps} "
+            f"(want {steps}), best_* {bests} (want {want_bests})")
+    return dict(jax_epoch=jax_best["epoch"], jax_test_loss=jax_best["test_loss"],
+                epoch=epoch, test_loss=loss, train_loss=record["train_loss"],
+                adam_step=steps, jax_dir_kept=not improved, stage_s=train_s), counts
+
+
+def jax_ckpt_names():
+    """The committed ``runs/ckpt/{name}`` directories, each holding one JAX ``best_*``."""
+    return sorted(JAX_CKPT_MODELS + tuple(JAX_CKPT_VARIANTS))
+
+
+def committed_best(name):
+    """The ``best_*`` directory of committed checkpoint ``name``, which must be the one
+    entry of ``runs/ckpt/{name}``: a ``--stage train`` on the default workdir leaves a
+    resume file or a port ``best_*`` there, or replaces the directory."""
+    d = os.path.join(CKPT_DIR, name)
+    entries = sorted(os.listdir(d)) if os.path.isdir(d) else []
+    if len(entries) != 1 or not entries[0].startswith("best_") \
+            or not os.path.isdir(os.path.join(d, entries[0])):
+        raise RuntimeError(f"committed checkpoint {d}: want one best_* directory, found "
+                           f"{entries or 'nothing'}")
+    return os.path.join(d, entries[0])
+
+
+def jax_ckpt_case(name):
+    """Committed checkpoint ``name``'s suite, model name, ``best_*`` directory, and its
+    seeded batch of normalized sets (JAX_CKPT_SETS by the grid's rank) with the grid."""
+    from blindno_torch.suites import registry
+
+    suite, model = JAX_CKPT_VARIANTS.get(name) or name.rsplit("_", 1)
+    path = committed_best(name)
+    grid = registry.SUITES[suite].grid
+    sets, snapshots = JAX_CKPT_SETS[grid.shape[-1]]
+    rng = np.random.default_rng(list(name.encode()))
+    x = rng.standard_normal((sets, snapshots, *grid.shape[:-1])).astype(np.float32)
+    return suite, model, path, x, grid
+
+
+def jax_ckpt_reference(name):
+    """On the CPU: committed checkpoint ``name``, read by the port's reader, served on its
+    batch (:func:`jax_ckpt_case`), and the seconds it took."""
+    from blindno_torch.convert import from_flax_checkpoint
+    from blindno_torch.eval.field_eval import predict_fields
+    from blindno_torch.suites import registry
+    from blindno_torch.train.jax_checkpoint import read_orbax
+
+    t0 = time.perf_counter()
+    suite, model_name, path, x, grid = jax_ckpt_case(name)
+    state = from_flax_checkpoint(read_orbax(path))
+    model = registry.SUITES[suite].models[model_name](device="cpu")
+    model.load_state_dict({**state["params"], **state["batch_stats"]})
+    model.eval()
+    out = predict_fields(model, x, grid, batch=len(x), device="cpu")
+    return out, time.perf_counter() - t0
+
+
+def read_committed(paths):
+    """Each orbax directory of ``paths`` read by the port's reader (``read_orbax``), and
+    what it took: directories, zarr arrays (scalars among them), MB on disk and decoded,
+    seconds and MB/s, and the seconds within them of the manifests' and nodes' CRC-32C
+    checks and of the zstd calls (each frame decoded into its buffer); the rest is
+    Python's parsing and file reads. ``python3 -c 'import chip_smoke as c; print(c.read_committed([c.committed_best(n)
+    for n in c.jax_ckpt_names()])[1])'`` gives the figures on any host."""
+    from blindno_torch.train import jax_checkpoint
+
+    disk = sum(os.path.getsize(os.path.join(r, f)) for d in paths for r, _, fs in os.walk(d)
+               for f in fs)
+    crc, zstd = [], []
+    with patched(jax_checkpoint, "crc32c", timed_calls(crc)(jax_checkpoint.crc32c)), \
+            patched(jax_checkpoint, "zstd_decompress",
+                    timed_calls(zstd)(jax_checkpoint.zstd_decompress)):
+        t0 = time.perf_counter()
+        trees = [jax_checkpoint.read_orbax(d) for d in paths]
+        seconds = time.perf_counter() - t0
+
+    def leaves(t):
+        return [v for x in t.values() for v in (leaves(x) if isinstance(x, dict) else [x])]
+
+    zarr = [v for t in trees for v in leaves(t)]
+    decoded = sum(v.nbytes for v in zarr if isinstance(v, np.ndarray))
+    return trees, {"directories": len(paths), "zarr_arrays": len(zarr), "disk_mb": disk / 1e6,
+                   "decoded_mb": decoded / 1e6, "read_s": seconds,
+                   "read_mb_per_s": disk / 1e6 / seconds, "crc32c_s": sum(crc),
+                   "crc32c_share": sum(crc) / seconds, "zstd_s": sum(zstd),
+                   "zstd_share": sum(zstd) / seconds}
+
+
+def phase_jax_ckpt(smi_line, workers, refs):
+    """Every committed ``runs/ckpt/*/best_*`` (JAX's orbax directories) read by the port's
+    own reader, without JAX (``blindno_torch/train/jax_checkpoint.py``), timed with the CPU
+    workers ``workers`` stopped (:func:`read_committed`). Then each loaded strictly into
+    its port model on the card and served on one seeded batch through ``predict_fields``,
+    its ``fno2d_layer`` or ``fno1d_layer`` launches counted exactly, each field within
+    SERVE_TOL of its scale from the same weights on the CPU (``refs``' futures, run in the
+    CPU workers). Reads ``runs/`` and writes nothing there. Returns the launches of both
+    layers."""
+    from blindno_torch.convert import from_flax_checkpoint
+    from blindno_torch.eval.field_eval import predict_fields
+    from blindno_torch.suites import registry
+    from blindno_torch.train import jax_checkpoint
+
+    names = jax_ckpt_names()
+    cases = {name: jax_ckpt_case(name) for name in names}
+    # before the workers stop: ctypes.util.find_library runs /sbin/ldconfig, and on the
+    # H100 host (Ubuntu 24.04, where it is a shell script) that child hung up the whole
+    # process group while members of it were stopped
+    jax_checkpoint.zstd_library()
+    with stopped(workers):
+        trees, read = read_committed([cases[name][2] for name in names])
+    raws = dict(zip(names, trees))
+    launches = {"fno1d_layer": 0, "fno2d_layer": 0}
+    served = {}
+    t0 = time.perf_counter()
+    for name in names:
+        suite, model_name, _, x, grid = cases[name]
+        state = from_flax_checkpoint(raws[name])
+        model = registry.SUITES[suite].models[model_name](device="cuda")
+        model.load_state_dict({**state["params"], **state["batch_stats"]})
+        model.eval()
+        counts, out = counted(lambda: predict_fields(model, x, grid, batch=len(x)))
+        expect_launches(f"jax_ckpt: {name}", counts, **fno_layer_calls(model))
+        for k in launches:
+            launches[k] += counts[k]
+        want, cpu_s = refs[name].result()
+        if out.shape != want.shape:
+            raise RuntimeError(f"jax_ckpt: {name} served {out.shape}, the CPU {want.shape}")
+        errs = []
+        for f in range(want.shape[-1]):
+            scale = float(np.abs(want[..., f]).max())
+            errs.append(check_close(f"jax_ckpt: {name} field {f} vs the CPU",
+                                    torch.from_numpy(out[..., f]), torch.from_numpy(want[..., f]),
+                                    SERVE_TOL, scale) / scale)
+        served[name] = dict(suite=suite, model=model_name, epoch=raws[name]["epoch"],
+                            test_loss=raws[name]["test_loss"], sets=list(x.shape),
+                            launches=counts, max_rel_err_vs_cpu=max(errs), cpu_s=cpu_s)
+        del model
+    serve_s = time.perf_counter() - t0
+    emit("jax_ckpt", **read, serve_s=serve_s, served=served,
+         launches=launches, tol=f"{SERVE_TOL} of each field's scale", nvidia_smi=smi_line)
     return launches
 
 
@@ -3378,8 +3663,10 @@ def main():
         stats = launches.pop("stats")
         launches["fno2d_layer"] += timed("padded", phase_padded, smi_line, refs["padded"])
         launches["fno2d_layer"] += timed("trans", phase_trans, smi_line, refs)
-        for kernel, count in timed("datagen", phase_datagen, smi_line, pool, refs).items():
-            launches[kernel] += count
+        for phase, fn, args in (("jax_ckpt", phase_jax_ckpt, (workers, refs["jax_ckpt"])),
+                                ("datagen", phase_datagen, (pool, refs))):
+            for kernel, count in timed(phase, fn, smi_line, *args).items():
+                launches[kernel] += count
 
     csrc, replaces = "blindno_torch/csrc", "blindno/ops/spectral_pallas.py"
     kernels = [

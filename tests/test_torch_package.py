@@ -20,7 +20,9 @@ from blindno_torch.ops.spectral_cuda import (fno1d_layer_cuda, fno2d_layer_cuda,
                                              spectral_conv1d_cuda, spectral_conv2d_cuda)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "blindno"}
+# the JAX package's checkpoint formats are read by the port itself
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "blindno", "tensorstore", "msgpack",
+             "zstandard"}
 
 
 def _imported_roots(path):
