@@ -35,7 +35,7 @@ then give weight and bias only.
 
 :func:`from_flax_checkpoint` turns a whole restored ``best_*`` tree into the port's
 checkpoint dict, and :func:`adam_from_optax` JAX's Adam state (``resume.msgpack``'s
-``opt_state``) into torch's ``Adam.state_dict()``.
+``opt_state``) into torch's ``Adam.state_dict()``; :func:`adam_to_optax` is its inverse.
 
 The way back reads the names torch does not keep from the tensors: the encoder's class
 from its first conv's window rank and its number of blocks (``EncoderODE`` has 5, an
@@ -316,3 +316,30 @@ def adam_from_optax(opt_state: dict, names: list[str], param_groups: list[dict])
         raise ValueError(f"optax state: {len(names)} parameters for param groups of "
                          f"{sum(len(g['params']) for g in groups)}")
     return {"state": state, "param_groups": groups}
+
+
+def adam_to_optax(opt_state: dict, params: dict, names: list[str]) -> dict:
+    """torch's ``Adam.state_dict()`` over the parameters ``names``, in the optimizer's
+    order -> JAX's ``optax.adam(schedule)`` state as ``resume.msgpack`` holds it,
+    :func:`adam_from_optax` undone: ``{"0": {"count", "mu", "nu"}, "1": {"count"}}``.
+    Both counts are Adam's ``step`` as 0-d int32 arrays (the schedule counts the same
+    updates); ``mu`` and ``nu`` take flax's layout (:func:`to_flax`). ``params`` holds
+    every named parameter of the model: one outside ``names`` (a frozen fusion) gets
+    zero moments, as optax's are behind JAX's ``stop_gradient``, and so does one that
+    Adam has not stepped yet."""
+    state, groups = opt_state["state"], opt_state["param_groups"]
+    if sum(len(g["params"]) for g in groups) != len(names):
+        raise ValueError(f"Adam state: param groups of {sum(len(g['params']) for g in groups)} "
+                         f"parameters for {len(names)} names")
+    steps = {float(s["step"]) for s in state.values()}
+    if len(steps) > 1:
+        raise ValueError(f"Adam state: parameters at different steps {sorted(steps)}")
+    count = np.asarray(int(steps.pop()) if steps else 0, np.int32)
+    index = {name: i for i, name in enumerate(names)}
+    moments = {}
+    for key in ("exp_avg", "exp_avg_sq"):
+        tree = {name: state[index[name]][key] if index.get(name) in state
+                else torch.zeros(p.shape) for name, p in params.items()}
+        moments[key] = to_flax(tree)[0]
+    return {"0": {"count": count, "mu": moments["exp_avg"], "nu": moments["exp_avg_sq"]},
+            "1": {"count": count.copy()}}

@@ -1,5 +1,5 @@
-"""The JAX package's checkpoint files, read with numpy, the standard library and ``ctypes``
-alone: no JAX, flax, orbax, tensorstore, msgpack or zstandard.
+"""The JAX package's checkpoint files, read and written with numpy, the standard library
+and ``ctypes`` alone: no JAX, flax, orbax, tensorstore, msgpack or zstandard.
 
 Two formats (``blindno/train/checkpoint.py``):
 
@@ -9,18 +9,30 @@ Two formats (``blindno/train/checkpoint.py``):
   in the data files under ``ocdbt.process_0/d/``). :func:`read_orbax` returns what
   ``StandardCheckpointer().restore`` returns: ``{"params", "batch_stats"}`` as nested
   dicts of numpy arrays, ``"epoch"`` an int and ``"test_loss"`` a float.
+  :func:`write_orbax` writes such a directory.
 - ``resume.msgpack``, ``flax.serialization.to_bytes`` of ``{"params", "batch_stats",
   "opt_state", "epoch", "best_loss"}``. :func:`read_msgpack` returns that state dict,
-  numpy arrays for flax's array and scalar extension types. JAX's optimizer is
-  ``optax.adam(schedule)`` (``blindno/train/loop.py:316``), so ``opt_state`` is
-  ``{"0": {"count", "mu", "nu"}, "1": {"count"}}``: Adam's and the schedule's.
+  numpy arrays for flax's array and scalar extension types, and :func:`write_msgpack`
+  writes one. JAX's optimizer is ``optax.adam(schedule)``
+  (``blindno/train/loop.py:316``), so ``opt_state`` is ``{"0": {"count", "mu", "nu"},
+  "1": {"count"}}``: Adam's and the schedule's.
 
-zstd frames (the OCDBT manifests and nodes, and every zarr chunk) are decompressed by
-the system's ``libzstd.so.1`` through ``ctypes``. Only what these files use is read: a
-manifest of kind "single" whose version tree is inline, B-tree nodes of height 0, zarr
-v2 arrays of one chunk compressed by zstd, in C order with no filters. Anything else, a
-failed check of a magic, a length or a CRC-32C, or a missing library raises
-:class:`JaxCheckpointError`, which names the file.
+zstd frames (the OCDBT manifests and nodes, and every zarr chunk) are compressed and
+decompressed by the system's ``libzstd.so.1`` through ``ctypes``. Only what these files
+use is read: a manifest of kind "single" whose version tree is inline, B-tree nodes of
+height 0, zarr v2 arrays of one chunk compressed by zstd, in C order with no filters.
+Anything else, a failed check of a magic, a length or a CRC-32C, or a missing library
+raises :class:`JaxCheckpointError`, which names the file.
+
+What :func:`write_orbax` writes differs from orbax's own output in its store's layout
+only, and both orbax (``StandardCheckpointer().restore``) and :func:`read_orbax` read
+it: orbax writes each process's arrays into a store of its own under
+``ocdbt.process_0/`` and then a root store whose node points into it; the writer
+writes the root store alone, one data file ``d/<hex>`` holding every value longer than
+the inline limit and, after them, the one leaf node. Its zstd frames state their
+content size, which tensorstore's leave out. The metadata files (``_METADATA``,
+``_sharding`` with a one-device ``NamedSharding``, ``array_metadatas/process_0``,
+``_CHECKPOINT_METADATA``) and each array's ``.zarray`` are orbax's, field for field.
 """
 from __future__ import annotations
 
@@ -28,8 +40,11 @@ import ctypes
 import ctypes.util
 import functools
 import json
+import base64
 import os
 import struct
+import time
+import uuid
 
 import numpy as np
 
@@ -45,7 +60,7 @@ class JaxCheckpointError(ValueError):
 
 @functools.cache
 def zstd_library():
-    """The system's zstd library, its three functions typed."""
+    """The system's zstd library, its five functions typed."""
     name = ctypes.util.find_library("zstd")
     if name is None:
         raise JaxCheckpointError(
@@ -60,6 +75,11 @@ def zstd_library():
     lib.ZSTD_getFrameContentSize.restype = ctypes.c_ulonglong
     lib.ZSTD_isError.argtypes = [ctypes.c_size_t]
     lib.ZSTD_isError.restype = ctypes.c_uint
+    lib.ZSTD_compressBound.argtypes = [ctypes.c_size_t]
+    lib.ZSTD_compressBound.restype = ctypes.c_size_t
+    lib.ZSTD_compress.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p,
+                                  ctypes.c_size_t, ctypes.c_int]
+    lib.ZSTD_compress.restype = ctypes.c_size_t
     return lib
 
 
@@ -81,6 +101,19 @@ def zstd_decompress(frame: bytes, size: int | None, what: str, limit: int = 0) -
             f"{what}: zstd gave {'an error' if lib.ZSTD_isError(got) else got} where "
             f"{size if exact else f'at most {limit}'} bytes were expected")
     return out if got == size else out[:got].copy()
+
+
+def zstd_compress(data, level: int, what: str) -> bytes:
+    """``data`` (bytes, or a C-contiguous array's buffer) as one zstd frame at ``level``
+    (0: zstd's default), its content size in the header."""
+    lib = zstd_library()
+    src = np.frombuffer(data, np.uint8) if not isinstance(data, np.ndarray) \
+        else data.reshape(-1).view(np.uint8)
+    out = np.empty(lib.ZSTD_compressBound(src.size), np.uint8)
+    got = lib.ZSTD_compress(out.ctypes.data, out.size, src.ctypes.data, src.size, level)
+    if lib.ZSTD_isError(got):
+        raise JaxCheckpointError(f"{what}: zstd could not compress {src.size} bytes")
+    return out[:got].tobytes()
 
 
 def _crc32c_table():
@@ -319,6 +352,179 @@ def read_orbax(directory: str) -> dict:
     return out
 
 
+
+# ---- writing orbax's directories ------------------------------------------------------
+
+ORBAX_HANDLER = ("orbax.checkpoint._src.handlers.standard_checkpoint_handler."
+                 "StandardCheckpointHandler")
+# orbax's OCDBT configuration, as its manifests state it: values up to MAX_INLINE_BYTES
+# sit in their B-tree node, and a decoded node may hold MAX_NODE_BYTES
+MAX_INLINE_BYTES, MAX_NODE_BYTES = 1024, 100_000_000
+ZARR_ZSTD_LEVEL = 1  # the level orbax's .zarray files state
+ONE_DEVICE = json.dumps({"sharding_type": "NamedSharding", "shape": [1], "axis_names": ["data"],
+                         "axis_types": ["AxisType.Auto"], "partition_spec": [],
+                         "device_mesh": {"mesh": [{"id": 0}]}})
+
+
+def _varint(n: int) -> bytes:
+    out = bytearray()
+    while n > 0x7F:
+        out.append(n & 0x7F | 0x80)
+        n >>= 7
+    out.append(n)
+    return bytes(out)
+
+
+def _varints(values) -> bytes:
+    return b"".join(_varint(v) for v in values)
+
+
+def _prefix_coded(strings: list[bytes]) -> tuple[bytes, bytes, bytes]:
+    """OCDBT's coding of sorted byte strings, as :meth:`_Cursor.prefixed` reads it: the
+    length each shares with the one before (from the second on), the suffixes' lengths,
+    and the suffixes."""
+    shared, suffixes, prev = [], [], b""
+    for s in strings:
+        n, limit = 0, min(len(s), len(prev))
+        while n < limit and s[n] == prev[n]:
+            n += 1
+        shared.append(n)
+        suffixes.append(s[n:])
+        prev = s
+    return _varints(shared[1:]), _varints(len(s) for s in suffixes), b"".join(suffixes)
+
+
+def _data_file_table(paths: list[bytes]) -> bytes:
+    """OCDBT's data-file table of ``paths``, each relative to the store's root (base
+    path length 0)."""
+    shared, suffix, text = _prefix_coded(paths)
+    return _varint(len(paths)) + shared + suffix + _varints([0] * len(paths)) + text
+
+
+def _encoded_block(magic: int, body: bytes, what: str) -> bytes:
+    """An OCDBT manifest or node: magic, length, version 0, zstd, the compressed body
+    and the CRC-32C of all before it (what :func:`_block` checks)."""
+    payload = _varint(0) + _varint(1) + zstd_compress(body, 0, what)
+    raw = struct.pack(">I", magic) + struct.pack("<Q", 12 + len(payload) + 4) + payload
+    return raw + struct.pack("<I", crc32c(raw))
+
+
+def write_ocdbt(directory: str, store: dict[str, bytes]):
+    """An OCDBT store in ``directory`` (which must exist) holding ``store``'s keys and
+    values, as :func:`read_ocdbt` and tensorstore read it: ``manifest.ocdbt`` and one data
+    file under ``d/`` holding the values longer than MAX_INLINE_BYTES, then the one leaf
+    node of the B-tree, which holds every key and the shorter values."""
+    keys = sorted(k.encode() for k in store)
+    values = [store[k.decode()] for k in keys]
+    indirect = [len(v) > MAX_INLINE_BYTES for v in values]
+    offsets = np.cumsum([0] + [len(v) for v, i in zip(values, indirect) if i]).tolist()
+    data_path = f"d/{uuid.uuid4().hex}".encode()
+    path = os.path.join(directory, data_path.decode())
+    shared, suffix, text = _prefix_coded(keys)
+    node = _encoded_block(NODE_MAGIC, b"".join((
+        b"\0",  # height 0: a leaf
+        _data_file_table([data_path] if any(indirect) else []),
+        _varint(len(keys)), shared, suffix, text,
+        _varints(len(v) for v in values), bytes(indirect),
+        _varints([0] * (len(offsets) - 1)), _varints(offsets[:-1]),
+        *(v for v, i in zip(values, indirect) if not i))), path)
+    os.makedirs(os.path.dirname(path))
+    with open(path, "wb") as f:
+        f.writelines(v for v, i in zip(values, indirect) if i)
+        f.write(node)
+    manifest = b"".join((
+        uuid.uuid4().bytes, _varint(0),  # the store's uuid; manifest kind "single"
+        _varint(MAX_INLINE_BYTES), _varint(MAX_NODE_BYTES),
+        b"\4", _varint(1), struct.pack("<i", 0),  # version tree arity 16; zstd, its default
+        _data_file_table([data_path]),
+        _varint(1), _varint(1), b"\0",  # one version: generation 1, a root of height 0
+        _varint(0), _varint(offsets[-1]), _varint(len(node)),  # the root: file, offset, length
+        _varint(len(keys)), _varint(len(node)), _varint(offsets[-1]),
+        struct.pack("<Q", time.time_ns()),  # the commit time
+        _varint(0)))  # no version tree node outside the manifest
+    what = os.path.join(directory, "manifest.ocdbt")
+    with open(what, "wb") as f:
+        f.write(_encoded_block(MANIFEST_MAGIC, manifest, what))
+
+
+def _leaves(tree: dict, path=()):
+    """(path, value) of every leaf of ``tree`` in JAX's order (dict keys sorted), an
+    empty dict among them."""
+    for key in sorted(tree):
+        value = tree[key]
+        if isinstance(value, dict) and value:
+            yield from _leaves(value, path + (key,))
+        else:
+            yield path + (key,), value
+
+
+def _zarr_entries(name: str, value: np.ndarray, what: str) -> dict[str, bytes]:
+    """The ``.zarray`` and the one zstd chunk of ``value`` as orbax writes array
+    ``name``."""
+    dtype = value.dtype.newbyteorder("<")
+    if dtype.str not in ZARR_DTYPES:
+        raise JaxCheckpointError(f"{what}: leaf {name!r} of dtype {value.dtype} (the JAX "
+                                 f"package writes {ZARR_DTYPES})")
+    shape = list(value.shape)
+    meta = {"chunks": shape, "compressor": {"id": "zstd", "level": ZARR_ZSTD_LEVEL},
+            "dimension_separator": ".", "dtype": dtype.str, "fill_value": None,
+            "filters": None, "order": "C", "shape": shape, "zarr_format": 2}
+    chunk = f"{name}/" + (".".join("0" * len(shape)) if shape else "0")
+    data = np.ascontiguousarray(value, dtype)
+    return {f"{name}/.zarray": json.dumps(meta, separators=(",", ":")).encode(),
+            chunk: zstd_compress(data, ZARR_ZSTD_LEVEL, f"{what}: {chunk}")}
+
+
+def write_orbax(directory: str, tree: dict):
+    """What ``orbax.checkpoint.StandardCheckpointer().save(directory, tree)`` writes for a
+    ``best_*`` tree of the JAX package (``{"params", "batch_stats"}`` nested dicts of
+    numpy arrays, ``"epoch"`` an int, ``"test_loss"`` a float), which it restores as
+    :func:`read_orbax` reads it (see the module note for the store's layout).
+    ``directory`` must not exist, as orbax refuses to overwrite one."""
+    started = time.time_ns()
+    os.makedirs(directory)
+    tree_meta, store, shardings, arrays = {}, {}, {}, []
+    for path, value in _leaves(tree):
+        name = ".".join(path)
+        if isinstance(value, dict):  # an empty dict
+            meta = {"value_type": "Dict", "skip_deserialize": True}
+        elif isinstance(value, np.ndarray):
+            meta = {"value_type": "jax.Array", "skip_deserialize": False,
+                    "write_shape": list(value.shape)}
+            store.update(_zarr_entries(name, value, directory))
+            shardings[base64.b64encode(name.encode()).decode()] = ONE_DEVICE
+            arrays.append({"array_metadata": {"param_name": name, "write_shape": list(value.shape),
+                                              "chunk_shape": list(value.shape),
+                                              "ext_metadata": None}})
+        elif isinstance(value, (int, float)) and not isinstance(value, bool):
+            meta = {"value_type": "scalar", "skip_deserialize": False}
+            dtype = np.int64 if isinstance(value, int) else np.float64
+            store.update(_zarr_entries(name, np.asarray(value, dtype), directory))
+        else:
+            raise JaxCheckpointError(f"{directory}: leaf {name!r} of type "
+                                     f"{type(value).__name__}")
+        tree_meta[str(path)] = {"key_metadata": [{"key": k, "key_type": 2} for k in path],
+                                "value_metadata": meta}
+    write_ocdbt(directory, store)
+    os.makedirs(os.path.join(directory, "array_metadatas"))
+    files = {
+        "_METADATA": json.dumps({"tree_metadata": tree_meta, "use_ocdbt": True,
+                                 "use_zarr3": False,
+                                 "store_array_data_equal_to_fill_value": True,
+                                 "custom_metadata": None}),
+        "_sharding": json.dumps(shardings, separators=(",", ":")),
+        os.path.join("array_metadatas", "process_0"): json.dumps({"array_metadatas": arrays}),
+    }
+    for name, text in files.items():
+        with open(os.path.join(directory, name), "w") as f:
+            f.write(text)
+    # last, as orbax commits a save with it
+    with open(os.path.join(directory, "_CHECKPOINT_METADATA"), "w") as f:
+        json.dump({"item_handlers": ORBAX_HANDLER, "metrics": {}, "performance_metrics": {},
+                   "init_timestamp_nsecs": started, "commit_timestamp_nsecs": time.time_ns(),
+                   "custom_metadata": {}}, f)
+
+
 # ---- flax msgpack ---------------------------------------------------------------------
 
 _FLAX_NDARRAY, _FLAX_NPSCALAR = 1, 3
@@ -413,3 +619,89 @@ def _refuse_chunked(tree, path):
             raise JaxCheckpointError(f"{path}: a chunked array (over 1 GiB)")
         for v in tree.values():
             _refuse_chunked(v, path)
+
+
+
+# msgpack's headers: (the one-byte form's code and the counts it takes, the codes of the
+# 8-, 16- and 32-bit forms, None where there is none)
+_MAP, _ARRAY = (0x80, 16, (None, 0xDE, 0xDF)), (0x90, 16, (None, 0xDC, 0xDD))
+_STR, _BIN = (0xA0, 32, (0xD9, 0xDA, 0xDB)), (0, 0, (0xC4, 0xC5, 0xC6))
+_EXT = (0, 0, (0xC7, 0xC8, 0xC9))
+
+
+def _header(n: int, kind: tuple) -> bytes:
+    """msgpack's header of a map, array, string, binary or extension of ``n`` entries or
+    bytes: the shortest form that holds ``n``."""
+    fix, fix_limit, codes = kind
+    if n < fix_limit:
+        return bytes([fix | n])
+    for limit, fmt, code in zip((0x100, 0x10000, 0x100000000), (">B", ">H", ">I"), codes):
+        if code is not None and n < limit:
+            return bytes([code]) + struct.pack(fmt, n)
+    raise JaxCheckpointError(f"msgpack: {n} entries or bytes in one value")
+
+
+# msgpack's integer forms past the fixints, shortest first: unsigned, then signed
+_INTS = (((0xCC, ">B"), (0xCD, ">H"), (0xCE, ">I"), (0xCF, ">Q")),
+         ((0xD0, ">b"), (0xD1, ">h"), (0xD2, ">i"), (0xD3, ">q")))
+
+
+def _packed_int(n: int) -> bytes:
+    """``n`` as msgpack packs a Python int: the shortest form, unsigned where ``n >= 0``."""
+    if -32 <= n < 128:
+        return struct.pack(">b", n)  # a positive or negative fixint
+    for code, fmt in _INTS[n < 0]:
+        try:
+            return bytes([code]) + struct.pack(fmt, n)
+        except struct.error:  # past this form's range
+            continue
+    raise JaxCheckpointError(f"msgpack: the integer {n} does not fit in 64 bits")
+
+
+def _packed_array(arr: np.ndarray) -> list:
+    """flax's ``_ndarray_to_bytes``: ``(shape, dtype name, C-order bytes)`` packed."""
+    data = memoryview(np.ascontiguousarray(arr)).cast("B")
+    name = arr.dtype.name.encode()
+    return [_header(3, _ARRAY), _header(arr.ndim, _ARRAY),
+            *(_packed_int(int(d)) for d in arr.shape), _header(len(name), _STR), name,
+            _header(len(data), _BIN), data]
+
+
+def _packed(value, out: list):
+    """``value`` appended to ``out`` as pieces of ``flax.serialization.msgpack_serialize``'s
+    output, for what the JAX package's resume state holds: dicts (in their order, string
+    keys), numpy arrays as flax's ndarray extension type, and Python ints and floats (as
+    doubles)."""
+    if isinstance(value, dict):
+        out.append(_header(len(value), _MAP))
+        for key, v in value.items():
+            raw = str(key).encode()
+            out.extend((_header(len(raw), _STR), raw))
+            _packed(v, out)
+    elif isinstance(value, np.ndarray):
+        if value.dtype.hasobject or value.dtype.fields is not None or value.nbytes >= 2 ** 30:
+            raise JaxCheckpointError(f"msgpack: an array of {value.dtype} and {value.nbytes} "
+                                     "bytes (flax chunks one past 1 GiB)")
+        payload = _packed_array(value)
+        n = sum(len(p) for p in payload)
+        fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        out.append(bytes([fixed[n], _FLAX_NDARRAY]) if n in fixed
+                   else _header(n, _EXT) + bytes([_FLAX_NDARRAY]))
+        out.extend(payload)
+    elif isinstance(value, int) and not isinstance(value, bool):
+        out.append(_packed_int(value))
+    elif isinstance(value, float):
+        out.append(b"\xcb" + struct.pack(">d", value))
+    else:
+        raise JaxCheckpointError(f"msgpack: a value of type {type(value).__name__}")
+
+
+def write_msgpack(path: str, state: dict):
+    """``state`` written to ``path`` as ``flax.serialization.to_bytes(state)`` writes it,
+    byte for byte, where ``state`` is the state dict flax makes of its target (dicts in
+    their order, so JAX's ``jax.device_get`` trees have their keys sorted): what
+    :func:`read_msgpack` reads back."""
+    pieces = []
+    _packed(state, pieces)
+    with open(path, "wb") as f:
+        f.writelines(pieces)

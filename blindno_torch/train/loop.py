@@ -39,7 +39,7 @@ import torch
 import torch.distributed as dist
 
 from blindno_torch import default_device
-from blindno_torch.convert import adam_from_optax
+from blindno_torch.convert import adam_from_optax, adam_to_optax
 from blindno_torch.data.datasets import SetToFieldData, eval_batches, train_test_split
 from blindno_torch.eval.metrics import relative_l2_per_field
 from blindno_torch.parallel import distribute, undistribute
@@ -79,8 +79,8 @@ class TrainConfig:
     log_path: str | None = None
     ckpt_dir: str | None = None
     epoch_scan: bool = False
-    # resume from {ckpt_dir}/resume.pt (or JAX's resume.msgpack, the newer) when present,
-    # else warm-restart from best_* (the port's or JAX's)
+    # resume from {ckpt_dir}/resume.msgpack (or an earlier port version's resume.pt, the
+    # newer) when present, else warm-restart from best_*
     resume: bool = True
     # graceful preemption: if this file appears, finish the epoch, save resume state
     # and return
@@ -315,6 +315,7 @@ def train_model(model, data: SetToFieldData, grid, cfg: TrainConfig, *,
         )
     schedule = step_lr(cfg.lr, cfg.lr_gamma, cfg.lr_step_epochs, steps_per_epoch)
     opt = make_optimizer(model, cfg.lr)
+    trainable = [k for k, p in model.named_parameters() if p.requires_grad]  # opt's order
 
     start_epoch = 1
     best_loss = float("inf")
@@ -323,14 +324,13 @@ def train_model(model, data: SetToFieldData, grid, cfg: TrainConfig, *,
         # moments to the parameters' device, and leaves each ``step`` where it is read,
         # on the host as Adam keeps it (on the card, Adam would read it back with a
         # synchronization per parameter and step); ``step`` carries the schedule on.
-        # JAX's resume.msgpack comes with optax's Adam state, mapped onto this optimizer
+        # resume.msgpack comes with optax's Adam state, mapped onto this optimizer
         restored = checkpoint.load_resume(cfg.ckpt_dir)
         if restored is not None:
             model.load_state_dict({**restored["params"], **restored["batch_stats"]})
             opt_state = restored["opt_state"]
-            if os.path.basename(restored["path"]) == checkpoint.JAX_RESUME:
-                names = [k for k, p in model.named_parameters() if p.requires_grad]
-                opt_state = adam_from_optax(opt_state, names, opt.state_dict()["param_groups"])
+            if os.path.basename(restored["path"]) == checkpoint.RESUME:
+                opt_state = adam_from_optax(opt_state, trainable, opt.state_dict()["param_groups"])
             opt.load_state_dict(opt_state)
             start_epoch = int(restored["epoch"]) + 1
             best_loss = float(restored["best_loss"])
@@ -352,7 +352,7 @@ def train_model(model, data: SetToFieldData, grid, cfg: TrainConfig, *,
                         opt.state[p] = {"step": torch.tensor(float(done_steps)),
                                         "exp_avg": torch.zeros_like(p),
                                         "exp_avg_sq": torch.zeros_like(p)}
-                print(f"[train] no {checkpoint.RESUME} or {checkpoint.JAX_RESUME}; warm "
+                print(f"[train] no {checkpoint.RESUME} or {checkpoint.OLD_RESUME}; warm "
                       f"restart from best_* at "
                       f"epoch {best['epoch']} (best {best_loss:.6f}; Adam moments "
                       f"reset, lr schedule advanced to step {done_steps})")
@@ -401,13 +401,15 @@ def train_model(model, data: SetToFieldData, grid, cfg: TrainConfig, *,
                                amp_policy=cfg.amp_policy, generator=gen, stream=stream)
 
     def resume_state():
-        """(params, batch_stats, optimizer state) as one process holds them, the
-        optimizer's in the per-step loop's format."""
-        opt_state = program.optimizer_state() if program is not None else opt.state_dict()
-        if not distributed:
-            return (*_state(model), opt_state)
-        full, opt_state = gather_state(model, opt, opt_state)
-        return (*_split(model, full), opt_state)
+        """(params, batch_stats, optax's Adam state) as one process holds them; optax's
+        state from either form of Adam, the program's capturable one too."""
+        opt_state = opt.state_dict()
+        if distributed:
+            full, opt_state = gather_state(model, opt, opt_state)
+            params, stats = _split(model, full)
+        else:
+            params, stats = _state(model)
+        return params, stats, adam_to_optax(opt_state, params, trainable)
 
     def stop_requested():
         found = os.path.exists(cfg.stop_file)

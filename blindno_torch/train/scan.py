@@ -47,7 +47,7 @@ import numpy as np
 import torch
 from torch.nn.parallel import DistributedDataParallel
 
-from blindno_torch.train.step import make_capturable, portable_state, step_body
+from blindno_torch.train.step import make_capturable, step_body
 
 # eager steps that a run's program takes before it captures its step
 WARMUP_STEPS = 1
@@ -127,8 +127,7 @@ class EpochProgram:
     one if None).
 
     Per epoch: :meth:`load` its draws and learning rate, :meth:`run` it, read
-    :attr:`losses`. :meth:`optimizer_state` is the optimizer's state as the per-step
-    loop saves it."""
+    :attr:`losses`."""
 
     def __init__(self, model, optimizer, x_all, y_all, grid, steps: int, batch_size: int,
                  augment_fns=None, *, compute_dtype=None, amp_policy="all", generator=None,
@@ -146,7 +145,6 @@ class EpochProgram:
                        GroupTables(augment_fns, x_all.shape[2:], y_all.shape[-1], dev))
         self.sub_indices = self.sub_masks = None
         self.captures = dev.type == "cuda"
-        self.lr_value = float(optimizer.param_groups[0]["lr"])
         if self.captures:
             self.lr = make_capturable(optimizer)
             self.stream = stream or torch.cuda.Stream(dev)
@@ -176,7 +174,6 @@ class EpochProgram:
             else:  # the captured step reads these buffers: refill them in place
                 self.sub_indices.copy_(idx)
                 self.sub_masks.copy_(mask)
-        self.lr_value = lr
         if self.captures:
             self.lr.fill_(lr)
         else:
@@ -233,7 +230,3 @@ class EpochProgram:
             self.graph.replay()
             self.replays += 1
         return self.losses.mean()
-
-    def optimizer_state(self) -> dict:
-        """The optimizer's state dict in the per-step loop's format."""
-        return portable_state(self.optimizer, self.lr_value)

@@ -42,8 +42,8 @@ Adam state and stored statistics stay float32; there is no loss scaling, as in J
 :func:`train_step` is :func:`step_body`, the step's device work, after its checks and
 ``zero_grad``. ``TrainConfig(epoch_scan=True)`` captures :func:`step_body` in a CUDA graph
 (:mod:`blindno_torch.train.scan`), with Adam in its capturable form
-(:func:`make_capturable`: step counts and learning rate on the card) and its state saved
-in the host Adam's format (:func:`portable_state`).
+(:func:`make_capturable`: step counts and learning rate on the card); its state is saved
+as optax's, which either form of Adam maps to (:func:`blindno_torch.convert.adam_to_optax`).
 
 One case is refused, because JAX's own step gives NaN there: float16 on a model whose set
 attention masks its keys in train mode (:func:`float16_refusal`). The ``all`` and
@@ -86,19 +86,6 @@ def make_capturable(optimizer: torch.optim.Adam) -> torch.Tensor:
     for state in optimizer.state.values():
         state["step"] = state["step"].to(device=dev, dtype=torch.float32)
     return lr
-
-
-def portable_state(optimizer: torch.optim.Adam, lr: float) -> dict:
-    """``optimizer.state_dict()`` as the host's Adam writes it, whatever its form: a
-    capturable one's groups say ``capturable=False`` and carry ``lr`` as a float, and
-    its step counts are float32 tensors on the host, so that either form loads the
-    file. The moments are the optimizer's own tensors, as ``state_dict`` gives them."""
-    state = optimizer.state_dict()
-    if not any(g["capturable"] for g in state["param_groups"]):
-        return state
-    state["param_groups"] = [{**g, "capturable": False, "lr": lr} for g in state["param_groups"]]
-    state["state"] = {i: {**s, "step": s["step"].to("cpu")} for i, s in state["state"].items()}
-    return state
 
 
 def float16_refusal(model) -> str | None:

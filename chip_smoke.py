@@ -79,10 +79,13 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``. It
    ``--stage train`` (64 train sets, 4 steps of batch 16 an epoch, d4 augmentation,
    bfloat16 input storage), a resumed third epoch whose restored state must equal the
    saved one bit for bit, and ``--stage eval`` with its symmetry test-time average; the
-   launches counted exactly, every loss finite, a ``best_*`` checkpoint written, 4 test
+   launches counted exactly, every loss finite, after each training stage its checkpoints
+   in the JAX package's formats (an orbax ``best_*`` directory and ``resume.msgpack``)
+   read back by the port's reader bit for bit against the trained state, 4 test
    predictions held against the CPU plain path on the same checkpoint; the loop's
    steps per second beside bare ``train_step``'s on one batch of 16, the epoch wall
-   time, the eval with and without the average, the checkpoint saves and peak memory;
+   time, the eval with and without the average, the checkpoint saves, each writer's
+   seconds beside ``torch.save`` of the same state, and peak memory;
    then the same for the suite's UNet (``--model unet``): one epoch and the eval stage,
    launches counted exactly, no host synchronization in a step, predictions against the
    CPU; then the ncfpe2d suite at its own config (batch 4, ``c4_vector``) on a
@@ -142,7 +145,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``. It
 16. reads every committed JAX checkpoint (``runs/ckpt/*/best_*``, orbax's OCDBT
    directories) with the port's own reader, without JAX (phase ``jax_ckpt``): arrays, MB
    and seconds, the CPU workers stopped while it reads (``libzstd.so.1`` loaded first);
-   then loads each strictly into its port model on the card and serves one seeded batch
+   writes each tree with the port's writer and reads it back, bit for bit the tree read,
+   timed with the workers still stopped; then loads each strictly into its port model on the card and serves one seeded batch
    through ``predict_fields`` (2 sets of 100 snapshots on the 2-D grids, 16 on the 1-D
    ones), its ``fno2d_layer`` or ``fno1d_layer`` launches counted exactly,
    each field within 2e-3 of its scale from the same weights on the CPU;
@@ -157,7 +161,9 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``. It
    and errors; and one ``--stage train`` epoch of each of the two warm-restarted from its
    committed directory (the fpe1d NIO's epoch 401 from JAX's 400, the gpe1d FNO's 391
    from 390, with JAX's best loss, Adam's step advanced, the directory kept or replaced
-   by ``save_best``'s rule);
+   by ``save_best``'s rule), its ``best_*`` and ``resume.msgpack`` read back bit for bit
+   against the trained state and the state read back served on the card against the
+   CPU;
 18. prints one JSON line per phase, the nvidia-smi line, the kernels line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -2355,6 +2361,79 @@ def eval_batch():
     return inspect.signature(evaluate_suite_model).parameters["batch"].default
 
 
+def trees_equal(got, want) -> bool:
+    """Whether two flax trees (nested dicts of numpy arrays, ints and floats) are equal
+    bit for bit: keys, types, dtypes, shapes and bytes."""
+    if isinstance(want, dict):
+        return isinstance(got, dict) and got.keys() == want.keys() and all(
+            trees_equal(got[k], want[k]) for k in want)
+    if isinstance(want, (int, float)):
+        return type(got) is type(want) and got == want
+    bits = lambda a: a.reshape(-1).view(f"u{a.dtype.itemsize}")  # NaN equal to itself
+    return (isinstance(got, np.ndarray) and got.dtype == want.dtype and got.shape == want.shape
+            and np.array_equal(bits(got), bits(want)))
+
+
+@contextlib.contextmanager
+def recorded_optimizers():
+    """(model, optimizer) of each optimizer that ``train_model`` makes while the context
+    is open, in order."""
+    from blindno_torch.train import loop
+
+    made, make = [], loop.make_optimizer
+
+    def record(model, *args, **kwargs):
+        made.append((model, make(model, *args, **kwargs)))
+        return made[-1][1]
+
+    with patched(loop, "make_optimizer", record):
+        yield made
+
+
+def check_written(label, ckpt_dir, res, trained):
+    """The checkpoints that a run of ``train_model`` (its ``TrainResult`` ``res``, and
+    ``trained``, its model and Adam as :func:`recorded_optimizers` gives them) left in
+    ``ckpt_dir``, read back by the port's own reader
+    (``jax_checkpoint.read_orbax``, ``read_msgpack``) and held bit for bit against the
+    trained state: the one ``best_*``, an orbax directory, against the flax trees of the
+    run's best params and statistics, its epoch and loss against its name and the run's
+    best loss; ``resume.msgpack`` against the final params and statistics, optax's tree of
+    the optimizer's state (``adam_to_optax``), the last epoch and the best loss. Raises
+    where one differs or the directory holds anything else. Returns the MB of each."""
+    from blindno_torch.convert import adam_to_optax, to_flax
+    from blindno_torch.train import checkpoint, jax_checkpoint
+
+    names = sorted(os.listdir(ckpt_dir))
+    bests = [n for n in names if n.startswith("best_")]
+    if len(bests) != 1 or names != sorted(bests + [checkpoint.RESUME]) \
+            or not jax_checkpoint.is_orbax(os.path.join(ckpt_dir, bests[0])):
+        raise RuntimeError(f"{label}: {ckpt_dir} holds {names}, want one orbax best_* "
+                           f"directory and {checkpoint.RESUME}")
+    best_path, resume_path = (os.path.join(ckpt_dir, n) for n in (bests[0], checkpoint.RESUME))
+    best, resume = jax_checkpoint.read_orbax(best_path), jax_checkpoint.read_msgpack(resume_path)
+    want_best = to_flax({**res.best_params, **res.best_batch_stats})
+    want_resume = to_flax({**res.params, **res.batch_stats})
+    model, optimizer = trained
+    opt_state = adam_to_optax(optimizer.state_dict(), res.params,
+                              [k for k, p in model.named_parameters() if p.requires_grad])
+    checks = {
+        "best params": trees_equal(best["params"], want_best[0]),
+        "best statistics": trees_equal(best["batch_stats"], want_best[1]),
+        "best epoch and loss": (f"best_{best['test_loss']:.6f}_e{best['epoch']}" == bests[0]
+                                and best["test_loss"] == res.best_test_loss),
+        "resume params": trees_equal(resume["params"], want_resume[0]),
+        "resume statistics": trees_equal(resume["batch_stats"], want_resume[1]),
+        "resume Adam state": trees_equal(resume["opt_state"], opt_state),
+        "resume epoch and loss": (resume["epoch"] == res.history[-1]["epoch"]
+                                  and resume["best_loss"] == res.best_test_loss),
+    }
+    if not all(checks.values()):
+        raise RuntimeError(f"{label}: the checkpoints read back differ from the trained state: "
+                           f"{checks}")
+    disk = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(best_path) for f in fs)
+    return {"best_mb": disk / 1e6, "resume_mb": os.path.getsize(resume_path) / 1e6}
+
+
 def fit_cli(w, spec, model, m, m_test, epochs, per_forward, smi_line, layer="fno2d_layer",
             resumed=False, tta=False):
     """``model`` of the suite ``spec`` through the CLI on the archives in ``w`` (``m`` train
@@ -2421,11 +2500,50 @@ def fit_cli(w, spec, model, m, m_test, epochs, per_forward, smi_line, layer="fno
     return counts1[layer] + counts2[layer]
 
 
+def writer_times(res, trained, directory):
+    """Seconds of the port's writers, ``checkpoint.save_best`` (the orbax directory) and
+    ``save_resume`` (``resume.msgpack``, optax's Adam state made by ``adam_to_optax``
+    inside the timed call, as the loop makes it), on the state of a training run (its
+    ``TrainResult`` ``res``, ``trained`` its model and Adam), each beside ``torch.save``
+    of the same state as an earlier port version wrote it (its tensors as they lie, on
+    the card), each into a fresh directory under ``directory``, and the MB each wrote."""
+    from blindno_torch.convert import adam_to_optax
+    from blindno_torch.train import checkpoint
+
+    model, opt = trained
+    trainable = [k for k, p in model.named_parameters() if p.requires_grad]
+    loss = res.best_test_loss
+    writers = {
+        "save_best": lambda d: checkpoint.save_best(d, res.best_params, res.best_batch_stats,
+                                                    1, loss),
+        "torch_save_best": lambda d: torch.save(
+            {"params": res.best_params, "batch_stats": res.best_batch_stats, "epoch": 1,
+             "test_loss": loss}, os.path.join(d, "best.pt")),
+        "save_resume": lambda d: checkpoint.save_resume(
+            d, res.params, res.batch_stats, adam_to_optax(opt.state_dict(), res.params, trainable),
+            1, loss),
+        "torch_save_resume": lambda d: torch.save(
+            {"params": res.params, "batch_stats": res.batch_stats, "opt_state": opt.state_dict(),
+             "epoch": 1, "best_loss": loss}, os.path.join(d, "resume.pt")),
+    }
+    out = {}
+    for name, write in writers.items():
+        d = os.path.join(directory, name)
+        os.makedirs(d)
+        t0 = time.perf_counter()
+        write(d)
+        out[f"{name}_s"] = time.perf_counter() - t0
+        out[f"{name}_mb"] = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(d)
+                                for f in fs) / 1e6
+    return out
+
+
 def phase_fit(smi_line):
     """The main path, training and evaluation through the suites CLI
     (``blindno_torch.suites.run``) at the fpe2d suite's config. Returns its
     ``fno2d_layer`` launches and the loaded train archive, which phase ``epoch_scan``
     trains on."""
+    from blindno_torch.convert import adam_from_optax
     from blindno_torch.data.datasets import load_fpe2d
     from blindno_torch.eval.field_eval import predict_fields, predict_fields_tta
     from blindno_torch.suites import registry
@@ -2454,7 +2572,8 @@ def phase_fit(smi_line):
         fields["archive_mb"] = os.path.getsize(os.path.join(w, "data", spec.train_file)) / 1e6
         ckpt_dir = os.path.join(w, "ckpt", "fpe2d_nio")
 
-        models, epoch_starts, saves, syncs = [], [], [], []
+        models, epoch_starts, syncs = [], [], []
+        saves = {"save_best": [], "save_resume": []}
         factory = spec.models["nio"]
         real_trace = loop.trace
 
@@ -2470,7 +2589,8 @@ def phase_fit(smi_line):
             stack.enter_context(patched(loop, "train_step", sync_free(loop.train_step, syncs)))
             for name in ("save_best", "save_resume"):
                 stack.enter_context(patched(checkpoint, name,
-                                            timed_calls(saves)(getattr(checkpoint, name))))
+                                            timed_calls(saves[name])(getattr(checkpoint, name))))
+            made = stack.enter_context(recorded_optimizers())
             # keep each model the CLI builds, to read its state after the restore
             spec.models["nio"] = lambda **kw: models.append(factory(**kw)) or models[-1]
             try:
@@ -2479,8 +2599,8 @@ def phase_fit(smi_line):
                 starts1 = list(epoch_starts)
                 expect_launches("fit: 2 epochs", counts1,
                                 fno2d_layer=6 * steps * FIT["epochs"] + 6 * eval_forwards)
-                saved = torch.load(os.path.join(ckpt_dir, checkpoint.RESUME), map_location="cpu",
-                                   weights_only=True)
+                written = [check_written("fit: 2 epochs", ckpt_dir, res1, made[-1])]
+                saved = checkpoint.load_resume(ckpt_dir)  # the port's reader, to the host
 
                 # 2. a third epoch, resumed: the state right after the restore (when the
                 # optimizer has just been loaded) must be the saved one bit for bit
@@ -2495,7 +2615,10 @@ def phase_fit(smi_line):
                     restored["buffers"] = all(torch.equal(b.cpu(), saved["batch_stats"][k])
                                               for k, b in model.named_buffers())
                     got = opt.state_dict()["state"]
-                    want = saved["opt_state"]["state"]
+                    want = adam_from_optax(
+                        saved["opt_state"],
+                        [k for k, p in model.named_parameters() if p.requires_grad],
+                        opt.state_dict()["param_groups"])["state"]
                     restored["adam"] = got.keys() == want.keys() and all(
                         torch.equal(got[i][k].cpu(), want[i][k]) for i in want for k in want[i])
                     restored["moments_on_card"] = all(s["exp_avg"].is_cuda for s in opt.state.values())
@@ -2505,6 +2628,7 @@ def phase_fit(smi_line):
                     counts2, res2, wall2, t_2 = run("--stage", "train", "--epochs",
                                                     str(FIT["epochs"] + 1))
                 starts2 = list(epoch_starts)
+                written.append(check_written("fit: resumed epoch", ckpt_dir, res2, made[-1]))
             finally:
                 spec.models["nio"] = factory
         if syncs:
@@ -2519,9 +2643,8 @@ def phase_fit(smi_line):
         losses = [v for h in hist for v in (h["train_loss"], h["test_loss"], *h["field_rel_l2"])]
         if not (res1.finished and res2.finished and np.isfinite(losses).all()):
             raise RuntimeError(f"fit: unfinished or non-finite run: {hist}")
-        bests = [f for f in os.listdir(ckpt_dir) if f.startswith("best_")]
-        if len(bests) != 1:
-            raise RuntimeError(f"fit: want one best_* checkpoint, found {os.listdir(ckpt_dir)}")
+        # the writers beside torch.save of the same state, on the resumed run's
+        writers = writer_times(res2, made[-1], os.path.join(w, "writers"))
 
         # 3. the eval stage, with the symmetry average
         counts3, report, wall3, _ = run("--stage", "eval")
@@ -2579,7 +2702,8 @@ def phase_fit(smi_line):
              loop_overhead=1.0 - float(np.mean(loop_sps)) / bare_sps,
              epoch_wall_s=epoch_wall, resumed_epoch_wall_s=t_2 + wall2 - starts2[0],
              data_load_s=[starts1[0] - t_1, starts2[0] - t_2], stage_wall_s=[wall1, wall2, wall3],
-             eval_s=eval_s, checkpoint_save_s=saves, peak_memory_gb=peak_gb, nvidia_smi=smi_line)
+             eval_s=eval_s, checkpoint_save_s=saves, checkpoints_read_back_bit_for_bit=written,
+             writers=writers, peak_memory_gb=peak_gb, nvidia_smi=smi_line)
 
         # 7. the fpe2d suite's UNet through the CLI on the same archive
         unet_launches = fit_cli(w, spec, "unet", m, FIT["m_test"], FIT["unet_epochs"], 6,
@@ -3152,7 +3276,14 @@ def _stopped(pid):
 
 @contextlib.contextmanager
 def stopped(pids):
-    """The processes ``pids`` stopped by SIGSTOP for the block and resumed after it."""
+    """The processes ``pids`` stopped by SIGSTOP for the block and resumed after it. No
+    child process may start inside the block: on the H100 host (Ubuntu 24.04) the
+    ``/sbin/ldconfig`` that ``ctypes.util.find_library`` runs, a shell script there, hung
+    up the whole process group while members of it were stopped. So the zstd library
+    that the checkpoint code finds that way (every save and read) is loaded first."""
+    from blindno_torch.train import jax_checkpoint
+
+    jax_checkpoint.zstd_library()
     for pid in pids:
         with contextlib.suppress(ProcessLookupError):  # a worker that died: its futures raise
             os.kill(pid, signal.SIGSTOP)
@@ -3413,7 +3544,10 @@ def warm_restart_epoch(workdir, suite, model):
     file) for one epoch past the directory's: the port warm-restarts from JAX's
     ``best_*`` as JAX's loop does. It must start at that epoch + 1 with the directory's
     test loss as its best, Adam's step advanced to the schedule's, and leave the JAX
-    directory or a new ``best_*`` by ``save_best``'s rule. Returns its phase fields and
+    directory or a new orbax ``best_*`` by ``save_best``'s rule, and ``resume.msgpack``:
+    both read back by the port's reader bit for bit against the trained state
+    (:func:`check_written`), and the state read back from ``resume.msgpack`` served on the
+    card within SERVE_TOL of the CPU (:func:`served_resume`). Returns its phase fields and
     launches."""
     import shutil
 
@@ -3429,10 +3563,12 @@ def warm_restart_epoch(workdir, suite, model):
     jax_dir = copy_committed(w, suite, model)
     jax_best = checkpoint.load_best(os.path.dirname(jax_dir))
     epoch = jax_best["epoch"] + 1
-    counts, res, train_s, _ = cli_stage(w, suite, model, "--stage", "train", "--epochs",
-                                        str(epoch), "--device", "cuda")
+    with recorded_optimizers() as made:
+        counts, res, train_s, _ = cli_stage(w, suite, model, "--stage", "train", "--epochs",
+                                            str(epoch), "--device", "cuda")
     ckpt = os.path.dirname(jax_dir)
-    resume = torch.load(os.path.join(ckpt, checkpoint.RESUME), weights_only=True)
+    written = check_written(f"warm restart of {suite} {model}", ckpt, res, made[-1])
+    resume = checkpoint.load_resume(ckpt)
     with np.load(os.path.join(w, "data", spec.train_file)) as z:
         m = len(z[next(iter(z.files))])
     cfg = spec.train_cfg
@@ -3442,18 +3578,56 @@ def warm_restart_epoch(workdir, suite, model):
     improved = loss < jax_best["test_loss"]
     bests = sorted(f for f in os.listdir(ckpt) if f.startswith("best_"))
     want_bests = [f"best_{loss:.6f}_e{epoch}"] if improved else [os.path.basename(jax_dir)]
-    adam_steps = {float(s["step"]) for s in resume["opt_state"]["state"].values()}
+    adam_steps = {int(resume["opt_state"][i]["count"]) for i in ("0", "1")}
     if (record["epoch"] != epoch or resume["epoch"] != epoch
             or resume["best_loss"] != min(loss, jax_best["test_loss"])
-            or adam_steps != {float(steps)} or bests != want_bests or not np.isfinite(loss)):
+            or adam_steps != {steps} or bests != want_bests or not np.isfinite(loss)):
         raise RuntimeError(
             f"warm restart of {suite} {model} from {jax_dir}: epoch {record['epoch']} "
             f"(want {epoch}), resume epoch {resume['epoch']}, best {resume['best_loss']} "
             f"(JAX's {jax_best['test_loss']}, the epoch's {loss}), Adam steps {adam_steps} "
             f"(want {steps}), best_* {bests} (want {want_bests})")
+    served, served_counts = served_resume(f"warm restart of {suite} {model}", suite, model,
+                                          resume)
+    counts = {k: v + served_counts[k] for k, v in counts.items()}
     return dict(jax_epoch=jax_best["epoch"], jax_test_loss=jax_best["test_loss"],
                 epoch=epoch, test_loss=loss, train_loss=record["train_loss"],
-                adam_step=steps, jax_dir_kept=not improved, stage_s=train_s), counts
+                adam_step=steps, jax_dir_kept=not improved, stage_s=train_s,
+                checkpoints_read_back_bit_for_bit=written, served_resume=served), counts
+
+
+RESUME_SETS = 4  # the seeded sets on which a warm restart's resume state is served
+
+
+def served_resume(label, suite, model_name, resume):
+    """``resume``, a state that the port's reader read back from ``resume.msgpack``,
+    loaded strictly into ``model_name`` of ``suite`` on the card and on the CPU and served
+    on RESUME_SETS seeded sets (:func:`jax_ckpt_case`'s snapshots) through
+    ``predict_fields``: its FNO-layer launches counted exactly, each field within
+    SERVE_TOL of its scale from the CPU's. Returns its fields and launches."""
+    from blindno_torch.eval.field_eval import predict_fields
+    from blindno_torch.suites import registry
+
+    grid = registry.SUITES[suite].grid
+    rng = np.random.default_rng(list(label.encode()))
+    x = rng.standard_normal((RESUME_SETS, JAX_CKPT_SETS[grid.shape[-1]][1],
+                             *grid.shape[:-1])).astype(np.float32)
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = registry.SUITES[suite].models[model_name](device=device)
+        model.load_state_dict({**resume["params"], **resume["batch_stats"]})
+        model.eval()
+        if device == "cuda":
+            counts, out[device] = counted(lambda: predict_fields(model, x, grid, batch=len(x)))
+            expect_launches(f"{label}: resume state served", counts, **fno_layer_calls(model))
+        else:
+            out[device] = predict_fields(model, x, grid, batch=len(x), device="cpu")
+    got, want = out["cuda"], out["cpu"]
+    errs = [check_close(f"{label}: resume state served, field {f}, vs the CPU",
+                        torch.from_numpy(got[..., f]), torch.from_numpy(want[..., f]), SERVE_TOL,
+                        float(np.abs(want[..., f]).max())) / float(np.abs(want[..., f]).max())
+            for f in range(want.shape[-1])]
+    return dict(sets=list(x.shape), launches=counts, max_rel_err_vs_cpu=max(errs)), counts
 
 
 def jax_ckpt_names():
@@ -3537,10 +3711,38 @@ def read_committed(paths):
                    "zstd_share": sum(zstd) / seconds}
 
 
+def write_committed(trees, directory):
+    """Each tree of ``trees`` (as :func:`read_committed` reads them) written by the port's
+    writer (``write_orbax``) into a directory of its own under ``directory``, and what it
+    took: MB on disk, seconds and MB/s, and the seconds within them of the manifests' and
+    nodes' CRC-32C and of the zstd calls (each array's chunk and each manifest and node
+    compressed); the rest is Python's coding and the file writes. Returns the
+    directories and the figures."""
+    from blindno_torch.train import jax_checkpoint
+
+    paths = [os.path.join(directory, f"best_{i}") for i in range(len(trees))]
+    crc, zstd = [], []
+    with patched(jax_checkpoint, "crc32c", timed_calls(crc)(jax_checkpoint.crc32c)), \
+            patched(jax_checkpoint, "zstd_compress",
+                    timed_calls(zstd)(jax_checkpoint.zstd_compress)):
+        t0 = time.perf_counter()
+        for path, tree in zip(paths, trees):
+            jax_checkpoint.write_orbax(path, tree)
+        seconds = time.perf_counter() - t0
+    disk = sum(os.path.getsize(os.path.join(r, f)) for d in paths for r, _, fs in os.walk(d)
+               for f in fs)
+    return paths, {"disk_mb": disk / 1e6, "write_s": seconds,
+                   "write_mb_per_s": disk / 1e6 / seconds, "crc32c_s": sum(crc),
+                   "crc32c_share": sum(crc) / seconds, "zstd_s": sum(zstd),
+                   "zstd_share": sum(zstd) / seconds}
+
+
 def phase_jax_ckpt(smi_line, workers, refs):
     """Every committed ``runs/ckpt/*/best_*`` (JAX's orbax directories) read by the port's
     own reader, without JAX (``blindno_torch/train/jax_checkpoint.py``), timed with the CPU
-    workers ``workers`` stopped (:func:`read_committed`). Then each loaded strictly into
+    workers ``workers`` stopped (:func:`read_committed`); each tree then written by the
+    port's writer (:func:`write_committed`) and read back, bit for bit the tree read, the
+    workers still stopped. Then each loaded strictly into
     its port model on the card and served on one seeded batch through ``predict_fields``,
     its ``fno2d_layer`` or ``fno1d_layer`` launches counted exactly, each field within
     SERVE_TOL of its scale from the same weights on the CPU (``refs``' futures, run in the
@@ -3549,16 +3751,19 @@ def phase_jax_ckpt(smi_line, workers, refs):
     from blindno_torch.convert import from_flax_checkpoint
     from blindno_torch.eval.field_eval import predict_fields
     from blindno_torch.suites import registry
-    from blindno_torch.train import jax_checkpoint
 
     names = jax_ckpt_names()
     cases = {name: jax_ckpt_case(name) for name in names}
-    # before the workers stop: ctypes.util.find_library runs /sbin/ldconfig, and on the
-    # H100 host (Ubuntu 24.04, where it is a shell script) that child hung up the whole
-    # process group while members of it were stopped
-    jax_checkpoint.zstd_library()
-    with stopped(workers):
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "blindno_torch", "_build")
+    os.makedirs(build, exist_ok=True)
+    with stopped(workers), tempfile.TemporaryDirectory(dir=build) as w:
         trees, read = read_committed([cases[name][2] for name in names])
+        paths, write = write_committed(trees, w)
+        back, reread = read_committed(paths)
+    unequal = [name for name, a, b in zip(names, back, trees) if not trees_equal(a, b)]
+    if unequal:
+        raise RuntimeError(f"jax_ckpt: the port's writer's directories of {unequal} read "
+                           "back unlike the committed ones")
     raws = dict(zip(names, trees))
     launches = {"fno1d_layer": 0, "fno2d_layer": 0}
     served = {}
@@ -3587,7 +3792,8 @@ def phase_jax_ckpt(smi_line, workers, refs):
                             launches=counts, max_rel_err_vs_cpu=max(errs), cpu_s=cpu_s)
         del model
     serve_s = time.perf_counter() - t0
-    emit("jax_ckpt", **read, serve_s=serve_s, served=served,
+    emit("jax_ckpt", **read, write=write, read_back=reread, read_back_bit_for_bit=True,
+         serve_s=serve_s, served=served,
          launches=launches, tol=f"{SERVE_TOL} of each field's scale", nvidia_smi=smi_line)
     return launches
 

@@ -26,7 +26,7 @@ import blindno.models.nio2d as jax_nio2d
 from blindno.data.datasets import load_fpe2d as jax_load_fpe2d
 from blindno.models.nio2d import NIOFP2D as JNIOFP2D
 from blindno.nn.cnn import Encoder2D as JEncoder2D
-from blindno_torch.convert import from_flax
+from blindno_torch.convert import adam_to_optax, from_flax
 from blindno_torch.data.datasets import SetToFieldData, load_fpe2d
 from blindno_torch.models.blindno_unet import PermInvUNetAttn
 from blindno_torch.models.nio1d import NIOFP1D
@@ -34,9 +34,10 @@ from blindno_torch.models.nio2d import NIOFP2D
 from blindno_torch.nn.cnn import Encoder1D, Encoder2D
 from blindno_torch.train import loop
 from blindno_torch.train.checkpoint import RESUME
+from blindno_torch.train.jax_checkpoint import read_msgpack
 from blindno_torch.train.loop import TrainConfig, make_augment, train_model
 from blindno_torch.train.scan import GroupTables
-from blindno_torch.train.step import make_capturable, make_optimizer, portable_state
+from blindno_torch.train.step import make_capturable, make_optimizer
 from test_torch_loop import (L, L_MIN, M, PARITY_CFG, SMALL, _draw_source, _jax_loop, _rel,
                              fpe2d_archive)
 from test_torch_nio3d import seeded_variables
@@ -184,8 +185,8 @@ def _fixed_draws(n_train, steps_seed=5):
 def test_a_checkpoint_resumes_across_modes(first, then, tmp_path):
     """Epoch 1 under ``epoch_scan=first`` with a resume checkpoint, then epochs 2-3
     resumed under ``epoch_scan=then``: the history of epochs 2-3 and the final state
-    equal an unbroken 3-epoch run's bit for bit. The checkpoint's optimizer state is the
-    per-step loop's format either way (Adam's step counts float32 tensors on the host)."""
+    equal an unbroken 3-epoch run's bit for bit. The checkpoint's optimizer state is
+    optax's either way (both counts 0-d int32 arrays at Adam's step)."""
     data, grid = _data_2d()
     n_train = int(0.8 * M)
     cfg = TrainConfig(epochs=3, batch_size=4, lr=1e-3, save_interval=1, augment="d4_scalar",
@@ -194,10 +195,9 @@ def test_a_checkpoint_resumes_across_modes(first, then, tmp_path):
     ck = dict(ckpt_dir=str(tmp_path / "ck"))
     part = train_model(_nio2d(), data, grid, dataclasses.replace(cfg, epochs=1, epoch_scan=first, **ck),
                        device="cpu", draws=_fixed_draws(n_train))
-    saved = torch.load(tmp_path / "ck" / RESUME, weights_only=True)
-    steps = [s["step"] for s in saved["opt_state"]["state"].values()]
-    assert all(s.dtype == torch.float32 and s.device.type == "cpu" and float(s) == 2 for s in steps)
-    assert not any(g["capturable"] for g in saved["opt_state"]["param_groups"])
+    adam = read_msgpack(str(tmp_path / "ck" / RESUME))["opt_state"]
+    counts = [adam["0"]["count"], adam["1"]["count"]]
+    assert all(c.dtype == np.int32 and c.shape == () and int(c) == 2 for c in counts)
     rest = train_model(_nio2d(), data, grid, dataclasses.replace(cfg, epoch_scan=then, **ck),
                        device="cpu", draws=_fixed_draws(n_train))
     assert [h["epoch"] for h in part.history + rest.history] == [1, 2, 3]
@@ -239,24 +239,28 @@ def test_group_tables_gather_what_the_branches_make(kind, spatial, fields):
             assert torch.equal(a, b)
 
 
-def test_portable_state_is_the_host_adams_format():
-    """A capturable Adam's state dict as the per-step loop writes it: ``capturable``
-    False, ``lr`` the float given, the same moments and step counts; the optimizer's
-    own state is left as it is. A capturable Adam needs its parameters on a card."""
-    model = torch.nn.Linear(3, 2)
+def _same_tree(got, want):
+    if isinstance(want, dict):
+        return got.keys() == want.keys() and all(_same_tree(got[k], want[k]) for k in want)
+    return got.dtype == want.dtype and got.shape == want.shape and got.tobytes() == want.tobytes()
+
+
+def test_a_capturable_adams_state_maps_to_optax_as_the_host_adams():
+    """What the loop saves of the program's optimizer: a capturable Adam's state dict
+    (``capturable`` True, ``lr`` a tensor, as the program leaves it) maps through
+    ``adam_to_optax`` to the host Adam's optax state bit for bit. A capturable Adam
+    needs its parameters on a card."""
+    model = _nio2d()
     opt = make_optimizer(model, lr=1e-3)
-    model(torch.ones(1, 3)).sum().backward()
+    for p in opt.param_groups[0]["params"]:
+        p.grad = torch.ones_like(p)
     opt.step()
-    want = opt.state_dict()
+    params = dict(model.named_parameters())
+    names = [k for k, p in params.items() if p.requires_grad]
+    want = adam_to_optax(opt.state_dict(), params, names)
     with pytest.raises(ValueError, match="CUDA"):
         make_capturable(opt)
-    lr = torch.tensor(1e-3)
     for group in opt.param_groups:
-        group["capturable"], group["lr"] = True, lr
-    got = portable_state(opt, 1e-3)
-    assert got["param_groups"] == want["param_groups"]
-    for i, s in want["state"].items():
-        assert got["state"][i].keys() == s.keys()
-        assert all(torch.equal(got["state"][i][k], v) and got["state"][i][k].dtype == v.dtype
-                   for k, v in s.items())
-    assert all(g["lr"] is lr and g["capturable"] for g in opt.param_groups)
+        group["capturable"], group["lr"] = True, torch.tensor(1e-3)
+    got = adam_to_optax(opt.state_dict(), params, names)
+    assert int(got["0"]["count"]) == 1 and _same_tree(got, want)

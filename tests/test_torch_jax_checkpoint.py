@@ -230,7 +230,7 @@ def test_save_best_leaves_the_names_jax_leaves(loss, epoch, tmp_path):
     state = from_flax_checkpoint(raw)
     path = ck.save_best(d, state["params"], state["batch_stats"], epoch, loss)
     assert sorted(os.listdir(d)) == sorted(os.listdir(jd)) == [os.path.basename(path)]
-    assert os.path.isfile(path)
+    assert jc.is_orbax(path)
     _assert_same_state(ck.load_best(d)["params"], state["params"])
 
 
@@ -294,9 +294,9 @@ def test_warm_restart_from_a_jax_directory(jax_archives, tmp_path, monkeypatch, 
     with open(os.path.join(w, "logs", f"{name}_summary.json")) as fh:
         (record,) = json.load(fh)["history"]
     assert record["epoch"] == 401
-    resume = torch.load(os.path.join(w, "ckpt", name, ck.RESUME), weights_only=True)
+    resume = ck.load_resume(os.path.join(w, "ckpt", name))
     assert resume["epoch"] == 401
-    assert all(s["step"] == steps + 1 for s in resume["opt_state"]["state"].values())
+    assert all(int(resume["opt_state"][i]["count"]) == steps + 1 for i in ("0", "1"))
     jax_dir = os.path.basename(_committed_best(name))
     bests = sorted(f for f in os.listdir(os.path.join(w, "ckpt", name)) if f.startswith("best_"))
     if record["test_loss"] < want["test_loss"]:  # a new best: the JAX directory goes
@@ -340,7 +340,7 @@ def test_resume_msgpack_restores_bit_for_bit_and_steps_as_optax(tmp_path, monkey
     state = from_flax(*map(jax.device_get, (params, stats)))
     adam = jax.device_get(opt_state[0])
     restored = ck.load_resume(d)
-    assert restored["path"] == os.path.join(d, ck.JAX_RESUME)
+    assert restored["path"] == os.path.join(d, ck.RESUME)
     _assert_same_state({**restored["params"], **restored["batch_stats"]}, state)
     assert (restored["epoch"], restored["best_loss"]) == (3, 0.4375)
 
@@ -352,7 +352,7 @@ def test_resume_msgpack_restores_bit_for_bit_and_steps_as_optax(tmp_path, monkey
     grid = np.linspace(0, 1, 80, dtype=np.float32)[:, None]
     cfg = loop.TrainConfig(epochs=3, batch_size=2, ckpt_dir=d, log_path=None)
     res = loop.train_model(model, data, grid, cfg, device="cpu")
-    assert f"resumed from {os.path.join(d, ck.JAX_RESUME)} at epoch 4" in capsys.readouterr().out
+    assert f"resumed from {os.path.join(d, ck.RESUME)} at epoch 4" in capsys.readouterr().out
     assert res.best_test_loss == 0.4375
     _assert_same_state({**res.params, **res.batch_stats}, state)
     opt = made[0]
@@ -376,11 +376,13 @@ def test_resume_msgpack_restores_bit_for_bit_and_steps_as_optax(tmp_path, monkey
         err = torch.linalg.norm(trained[name].detach() - want[name])
         assert err <= STEP_TOL * torch.linalg.norm(want[name]), name
 
-    # a resume.pt of a later epoch wins, one of an earlier epoch does not
-    ck.save_resume(d, *loop._state(model), opt.state_dict(), epoch=2, best_loss=0.5)
-    assert ck.load_resume(d)["path"] == os.path.join(d, ck.JAX_RESUME)
-    ck.save_resume(d, *loop._state(model), opt.state_dict(), epoch=3, best_loss=0.5)
-    assert ck.load_resume(d)["path"] == os.path.join(d, ck.RESUME)  # the tie goes to it
+    # an earlier port version's resume.pt of a later epoch wins, one of an earlier or the
+    # same epoch does not
+    for epoch, wins in ((2, ck.RESUME), (3, ck.RESUME), (4, ck.OLD_RESUME)):
+        torch.save({"params": dict(model.named_parameters()), "batch_stats": {},
+                    "opt_state": opt.state_dict(), "epoch": epoch, "best_loss": 0.5},
+                   os.path.join(d, ck.OLD_RESUME))
+        assert ck.load_resume(d)["path"] == os.path.join(d, wins)
 
 
 def test_adam_from_optax_checks_the_counts():

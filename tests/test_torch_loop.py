@@ -41,7 +41,7 @@ from blindno_torch.convert import from_flax
 from blindno_torch.data.datasets import FPE2D_SCALES, load_fpe2d
 from blindno_torch.models.nio2d import NIOFP2D
 from blindno_torch.nn.cnn import Encoder2D
-from blindno_torch.train.checkpoint import RESUME, load_best
+from blindno_torch.train.checkpoint import RESUME, load_best, load_resume
 from blindno_torch.train.loop import TrainConfig, train_model
 from test_nio2d_torch_parity import _randomize_bn
 from test_torch_nio3d import seeded_variables
@@ -348,7 +348,7 @@ def test_train_loop_resumes_where_it_stopped(tmp_path):
     cfg = _cfg(tmp_path)
     res1 = train_model(small_model(), data, grid, cfg, device="cpu")
     assert [h["epoch"] for h in res1.history] == [1, 2]
-    saved = torch.load(os.path.join(cfg.ckpt_dir, RESUME), weights_only=True)
+    saved = load_resume(cfg.ckpt_dir)
     # the resumed run starts from exactly the saved state
     restored = {}
     original = loop.checkpoint.load_resume
@@ -393,7 +393,7 @@ def test_train_loop_stop_file_preempts_with_resume_state(tmp_path):
     cfg = _cfg(tmp_path, epochs=4, save_interval=3, stop_file=str(stop))
     res = train_model(small_model(), data, grid, cfg, device="cpu")
     assert not res.finished and res.history == []
-    assert torch.load(os.path.join(cfg.ckpt_dir, RESUME), weights_only=True)["epoch"] == 1
+    assert load_resume(cfg.ckpt_dir)["epoch"] == 1
     stop.unlink()
     res = train_model(small_model(), data, grid, cfg, device="cpu")
     assert res.finished and [h["epoch"] for h in res.history] == [3, 4]

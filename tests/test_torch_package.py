@@ -40,10 +40,16 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     # every subpackage is walked, the training, data, suites and logging ones included
     walked = {f.relative_to(ROOT / "blindno_torch").parts[0] for f in files[:-1]}
     assert {"data", "eval", "models", "nn", "ops", "suites", "tools", "train", "utils"} <= walked
-    assert {"loop.py", "checkpoint.py", "datasets.py", "run.py", "registry.py",
-            "logging.py", "field_eval.py"} <= {f.name for f in files}
+    assert {"loop.py", "checkpoint.py", "jax_checkpoint.py", "datasets.py", "run.py",
+            "registry.py", "logging.py", "field_eval.py"} <= {f.name for f in files}
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & FORBIDDEN) for f in files}
     assert not {f: r for f, r in bad.items() if r}
+    # the JAX formats' reader and writer: numpy, the standard library and ctypes alone
+    formats = ROOT / "blindno_torch" / "train" / "jax_checkpoint.py"
+    assert {"read_orbax", "write_orbax", "read_msgpack", "write_msgpack"} <= {
+        n.name for n in ast.parse(formats.read_text()).body if isinstance(n, ast.FunctionDef)}
+    assert set(_imported_roots(formats)) <= {"__future__", "base64", "ctypes", "functools",
+                                              "json", "numpy", "os", "struct", "time", "uuid"}
 
 
 def test_default_device_needs_cuda_or_an_explicit_cpu(monkeypatch):

@@ -38,7 +38,7 @@ from blindno_torch.nn.fno import FNO1d, FNO2d
 from blindno_torch.nn.torch_layers import BatchNorm1d, BatchNorm2d
 from blindno_torch.parallel import dryrun
 from blindno_torch.parallel.mesh import RankPool, data_parallel_size, mesh_layout
-from blindno_torch.train.checkpoint import RESUME, load_best
+from blindno_torch.train.checkpoint import RESUME, load_best, load_resume
 from blindno_torch.train.loop import TrainConfig, train_model
 from test_nio2d_torch_parity import _randomize_bn
 from test_torch_suites1d import _fpe1d_archive
@@ -380,7 +380,7 @@ def test_train_model_dp_tp_reproduces_the_single_process_run(ranks, tmp_path):
     """``train_model`` on four ranks at tp=2 (a 2 x 2 mesh; 2 epochs of 2 steps of
     batch 8) against one process: every epoch's losses within rtol 2e-4. Rank 0 alone
     writes the log (one record an epoch) and the checkpoints, unsharded: ``best_*``
-    loads into a single-process model, and ``resume.pt`` holds whole Adam moments."""
+    loads into a single-process model, and ``resume.msgpack`` holds whole Adam moments."""
     data = _fpe1d_data()
     state = _np(NIOFP1D(**SMALL_1D).state_dict())
     cfg = TrainConfig(epochs=2, batch_size=8, save_interval=1, lr=1e-3)
@@ -403,10 +403,10 @@ def test_train_model_dp_tp_reproduces_the_single_process_run(ranks, tmp_path):
     assert sum(f.startswith("best_") for f in ckpt) == 1
     best = load_best(tmp_path / "ck")
     NIOFP1D(**SMALL_1D).load_state_dict({**best["params"], **best["batch_stats"]})
-    resume = torch.load(tmp_path / "ck" / RESUME, weights_only=True)
-    params = [p for p in model.parameters() if p.requires_grad]
-    for i, s in resume["opt_state"]["state"].items():
-        assert s["exp_avg"].shape == s["exp_avg_sq"].shape == params[i].shape
+    adam = load_resume(tmp_path / "ck")["opt_state"]["0"]
+    mu, nu = from_flax(adam["mu"], None), from_flax(adam["nu"], None)
+    for name, p in model.named_parameters():
+        assert mu[name].shape == nu[name].shape == p.shape
 
 
 def test_train_model_low_precision_across_ranks_matches_one_process(ranks):
@@ -443,7 +443,7 @@ def test_stop_file_stops_every_rank(ranks, tmp_path):
     out = ranks(dryrun.train_model_ranks, 4, (NIOFP1D, SMALL_1D),
                 _np(NIOFP1D(**SMALL_1D).state_dict()), _fpe1d_data(), GRID_1D, cfg)
     assert all(not r.finished and r.history == [] for r in out)
-    assert torch.load(tmp_path / "ck" / RESUME, weights_only=True)["epoch"] == 1
+    assert load_resume(tmp_path / "ck")["epoch"] == 1
 
 
 def test_torchrun_trains_through_the_cli(tmp_path):

@@ -283,7 +283,7 @@ def test_cli_trains_resumes_and_evaluates(cli_workdir, suite, model):
         torch.set_num_threads(threads)
     assert np.isfinite([res.history[0]["train_loss"], res.history[0]["test_loss"]]).all()
     ckpt = os.listdir(os.path.join(w, "ckpt", f"{suite}_{model}"))
-    assert "resume.pt" in ckpt and sum(f.startswith("best_") for f in ckpt) == 1
+    assert "resume.msgpack" in ckpt and sum(f.startswith("best_") for f in ckpt) == 1
     assert set(report) == REPORT_KEYS | {"figures"} and report["n_test"] == M_TEST
     _assert_figures(report, w, suite, model, M_TEST)
     assert np.isfinite([report["mean_rel_l2_sum"], report["mean_rel_l2_sum_tta"]]).all()
