@@ -23,12 +23,13 @@ from blindno_torch.parallel.mesh import replicate
 from blindno_torch.parallel.tp import shard_fno_layers, unshard_fno_layers
 
 
-def prepare(model, mesh, optimizer=None):
+def prepare(model, mesh, optimizer=None, group=None):
     """``model`` (on this rank's device) made one rank's part of the ``mesh``: its state
-    broadcast from rank 0, its BatchNorms synced over ``data`` when that axis has more
-    than one rank, and its FNO layers sharded over ``model`` (with ``optimizer``'s Adam
-    moments). Returns ``model``."""
-    replicate(model)
+    broadcast from rank 0 over ``group``, the mesh's ranks (the world unless given), its
+    BatchNorms synced over ``data`` when that axis has more than one rank, and its FNO
+    layers sharded over ``model`` (with ``optimizer``'s Adam moments). Returns
+    ``model``."""
+    replicate(model, group)
     if mesh.size(0) > 1:
         for m in model.modules():
             if isinstance(m, _FlaxRunningVar):
@@ -37,10 +38,10 @@ def prepare(model, mesh, optimizer=None):
     return model
 
 
-def distribute(model, mesh, optimizer=None) -> DistributedDataParallel:
+def distribute(model, mesh, optimizer=None, group=None) -> DistributedDataParallel:
     """:func:`prepare`'s model wrapped in ``DistributedDataParallel`` over ``data``.
     Buffers are not broadcast in the forward: the synced BatchNorm keeps them equal."""
-    model = prepare(model, mesh, optimizer)
+    model = prepare(model, mesh, optimizer, group)
     with warnings.catch_warnings():  # newer torch renames the option; the old name holds
         warnings.simplefilter("ignore", FutureWarning)
         return DistributedDataParallel(model, process_group=mesh.get_group("data"),

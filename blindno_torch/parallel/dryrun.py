@@ -192,6 +192,17 @@ def train_model_ranks(factory, state, data, grid, cfg, device="cpu", draws=None,
                 programs=programs, train_s=time.perf_counter() - t0)
 
 
+def raised(fn, *args):
+    """Rank function: ``fn(*args)``, returning the exception it raised (None where it
+    returned) in place of raising it, so that a caller reads what every rank raised where
+    the pool would stop at the first."""
+    try:
+        fn(*args)
+    except Exception as exc:
+        return exc
+    return None
+
+
 COLLECTIVES = ("allreduce", "allgather", "all_reduce", "all_gather")
 
 

@@ -8,11 +8,13 @@ group (torchrun's ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK``, or an explicit
 ``devices.reshape(n // n_model, n_model)`` does, and the training loop adds the
 collectives itself (:mod:`blindno_torch.parallel.tp`,
 :class:`blindno_torch.nn.torch_layers.BatchNorm2d`, ``DistributedDataParallel``).
-:func:`run_ranks` spawns a group of ranks on one host, for the CPU tests, the dry run
-and ``chip_smoke.py``.
+Where JAX's ``data_mesh`` leaves devices out of its mesh, :class:`TrainingRanks` leaves
+the ranks past the training ones idle until the run ends. :func:`run_ranks` spawns a
+group of ranks on one host, for the CPU tests, the dry run and ``chip_smoke.py``.
 """
 from __future__ import annotations
 
+import datetime
 import io
 import multiprocessing
 import os
@@ -42,14 +44,15 @@ def is_distributed() -> bool:
 
 
 def init_distributed(backend: str | None = None, init_method: str | None = None,
-                     device=None) -> torch.device:
+                     device=None, timeout: float | None = None) -> torch.device:
     """Join the process group (once) and return this rank's device.
 
     The rank and world size come from torchrun's ``RANK`` and ``WORLD_SIZE``; the store
     is ``init_method`` (e.g. ``file:///tmp/store``), else torchrun's ``env://``. The
     device is ``device`` (CUDA unless the caller asks otherwise), and on CUDA the card
     ``LOCAL_RANK % device_count``, made current. The backend is ``backend``, else
-    ``nccl`` on CUDA and ``gloo`` on the CPU."""
+    ``nccl`` on CUDA and ``gloo`` on the CPU; ``timeout``, in seconds, bounds a
+    collective and the store's waits (torch's default unless given)."""
     dev = default_device(device)
     if dev.type == "cuda":
         local = int(os.environ.get("LOCAL_RANK", os.environ.get("RANK", 0)))
@@ -58,7 +61,9 @@ def init_distributed(backend: str | None = None, init_method: str | None = None,
     if not dist.is_initialized():
         dist.init_process_group(backend or ("nccl" if dev.type == "cuda" else "gloo"),
                                 init_method=init_method or "env://",
-                                rank=int(os.environ.get("RANK", 0)), world_size=world_size())
+                                rank=int(os.environ.get("RANK", 0)), world_size=world_size(),
+                                **({} if timeout is None else
+                                   {"timeout": datetime.timedelta(seconds=timeout)}))
     return dev
 
 
@@ -81,12 +86,15 @@ def mesh_layout(world: int, n_model: int = 1) -> np.ndarray:
     return np.arange(world).reshape(world // n_model, n_model)
 
 
-def data_model_mesh(n_model: int = 1, device_type: str = "cuda"):
-    """The process group's ranks as a ``DeviceMesh`` with axes ``("data", "model")``,
-    laid out by :func:`mesh_layout`."""
+def data_model_mesh(n_model: int = 1, device_type: str = "cuda", n_ranks: int | None = None):
+    """The process group's first ``n_ranks`` ranks (all of them unless given) as a
+    ``DeviceMesh`` with axes ``("data", "model")``, laid out by :func:`mesh_layout`. Every
+    rank of the group makes it, in the same order of meshes: a rank past ``n_ranks``
+    joins the creation of its groups and gets none, and no coordinate
+    (``get_coordinate()`` is None)."""
     from torch.distributed.device_mesh import DeviceMesh
 
-    return DeviceMesh(device_type, mesh_layout(world_size(), n_model),
+    return DeviceMesh(device_type, mesh_layout(n_ranks or world_size(), n_model),
                       mesh_dim_names=("data", "model"))
 
 
@@ -101,15 +109,15 @@ def shard_batch(x, mesh):
     return x[i * rows:(i + 1) * rows]
 
 
-def replicate(module):
-    """Broadcast every parameter and buffer of ``module`` from rank 0, in place, one flat
-    broadcast per dtype; returns ``module``."""
+def replicate(module, group=None):
+    """Broadcast every parameter and buffer of ``module`` from rank 0 over ``group`` (the
+    world unless given), in place, one flat broadcast per dtype; returns ``module``."""
     items = list(module.parameters()) + list(module.buffers())
     with torch.no_grad():
         for dtype in sorted({t.dtype for t in items}, key=str):  # one order on every rank
             same = [t for t in items if t.dtype == dtype]
             flat = torch.cat([t.reshape(-1) for t in same])
-            dist.broadcast(flat, 0)
+            dist.broadcast(flat, 0, group=group)
             for t, part in zip(same, flat.split([t.numel() for t in same])):
                 t.copy_(part.view_as(t))
     return module
@@ -120,10 +128,80 @@ def is_main_process() -> bool:
     return not dist.is_initialized() or dist.get_rank() == 0
 
 
-def barrier():
-    """Wait for every rank; nothing to wait for in a single process."""
+def barrier(group=None):
+    """Wait for every rank of ``group`` (the world unless given); nothing to wait for in a
+    single process."""
     if dist.is_initialized():
-        dist.barrier()
+        dist.barrier(group)
+
+
+class TrainingRanks:
+    """One run's split of the process group, as JAX's ``data_mesh`` splits its devices
+    (``blindno/parallel/mesh.py:19-28``): the first ``n_train`` ranks train on a
+    ``(data, model)`` mesh of their own (:func:`data_model_mesh`), and the ranks past them
+    are idle until the run ends, when rank 0 hands them its result. Every rank of the
+    group makes one for each run, in the same order.
+
+    An idle rank copies nothing to its device, joins no collective of the training and
+    polls the group's store until rank 0 says the run ended (:meth:`end`) or a training
+    rank says it failed (:meth:`fail`): no process-group timeout ends the wait, however
+    long the run. It then takes rank 0's result through a gloo group of rank 0 and the
+    idle ranks (:meth:`result`), so no NCCL communicator joins them.
+
+    ``group`` is the group of every training rank on a training rank: the world where
+    none idles, else the ``data`` axis (ranks idle only where tp is 1)."""
+
+    POLL_S = 0.05
+    # the store's key of the ranks that joined the group's runs, and the prefix of each
+    # run's keys
+    KEY = "blindno_torch/train_model/joined"
+
+    def __init__(self, n_train: int, n_model: int, device_type: str):
+        world, self.rank = world_size(), dist.get_rank()
+        self.store = dist.distributed_c10d._get_default_store()
+        # this run's keys, the same on every rank: a count of the ranks that joined the
+        # group's runs, and a barrier, so that no rank joins the next run before every
+        # rank joined this one
+        joined = self.store.add(self.KEY, 1)
+        self.key = f"{self.KEY}/{(joined - 1) // world}"
+        self.store.add(self.key, 1)
+        self._poll(lambda: int(self.store.add(self.key, 0)) == world)
+        self.idle = self.rank >= n_train
+        self.mesh = data_model_mesh(n_model, device_type, n_train)
+        self.group = None if n_train == world or self.idle else self.mesh.get_group("data")
+        self.results = (dist.new_group([0, *range(n_train, world)], backend="gloo")
+                        if n_train < world else None)
+
+    def _poll(self, done):
+        while not done():
+            time.sleep(self.POLL_S)
+
+    def fail(self, exc: BaseException):
+        """On a training rank that raised ``exc``: tell the idle ranks."""
+        self.store.set(f"{self.key}/failed", f"rank {self.rank}: {type(exc).__name__}: {exc}")
+
+    def end(self, result):
+        """On a training rank whose run ended. Rank 0 tells the idle ranks, hands them
+        ``result()`` (picklable, its tensors on the CPU; called only where ranks idle) and
+        waits until every one has it."""
+        if self.rank != 0:
+            return
+        self.store.set(f"{self.key}/ended", "1")
+        if self.results is not None:
+            dist.broadcast_object_list([result()], 0, group=self.results)
+            dist.barrier(self.results)
+
+    def result(self):
+        """On an idle rank: wait for the run's end, and return rank 0's result. Raises
+        ``RuntimeError`` naming the failure where a training rank failed."""
+        ended, failed = f"{self.key}/ended", f"{self.key}/failed"
+        self._poll(lambda: self.store.check([ended]) or self.store.check([failed]))
+        if not self.store.check([ended]):
+            raise RuntimeError(f"the training ranks failed: {self.store.get(failed).decode()}")
+        box = [None]
+        dist.broadcast_object_list(box, 0, group=self.results)
+        dist.barrier(self.results)
+        return box[0]
 
 
 # ------------------------------------------------------------------ the rank launcher
@@ -165,12 +243,13 @@ def _worker(jobs, workdir, initializer):
     if initializer is not None:
         initializer()
     while (job := jobs.get()) is not None:
-        tag, payload, rank, world, device, backend = job
+        tag, payload, rank, world, device, backend, group_timeout = job
         fn, args = pickle.loads(payload)
         out = os.path.join(workdir, f"{tag}.{rank}")
         os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
         try:
-            init_distributed(backend, f"file://{os.path.join(workdir, f'{tag}.store')}", device)
+            init_distributed(backend, f"file://{os.path.join(workdir, f'{tag}.store')}", device,
+                             group_timeout)
             torch.save(fn(*args), out + ".tmp")
             os.replace(out + ".tmp", out + ".pt")
         except BaseException:
@@ -201,15 +280,17 @@ class RankPool:
             p.start()
 
     def run(self, fn, world: int, *args, device="cpu", backend: str | None = None,
-            timeout: float = 300.0):
+            timeout: float = 300.0, group_timeout: float | None = None):
         """``fn(*args)`` in ``world`` ranks and their results, rank by rank.
 
         ``fn`` must be importable without JAX (a spawned worker imports its module) and
         its arguments and result picklable; pass arrays as numpy. Each rank runs on
         ``device`` (on CUDA the card ``rank % device_count``) over ``backend``
-        (:func:`init_distributed`'s default unless given). Raises ``RuntimeError`` with
-        the traceback of the first rank that fails and ``TimeoutError`` after
-        ``timeout`` seconds; either way every worker is stopped first."""
+        (:func:`init_distributed`'s default unless given), in a process group whose
+        ``timeout`` is ``group_timeout`` seconds (torch's default unless given). Raises
+        ``RuntimeError`` with the traceback of the first rank that fails and
+        ``TimeoutError`` after ``timeout`` seconds; either way every worker is stopped
+        first."""
         if world > len(self.procs):
             raise ValueError(f"{world} ranks asked of a pool of {len(self.procs)}")
         tag, self.runs = f"run{self.runs}", self.runs + 1
@@ -217,7 +298,8 @@ class RankPool:
         pickler = _JobPickler(buffer, os.path.join(self.workdir, f"{tag}.arg"))
         pickler.dump((fn, args))
         for rank in range(world):
-            self.queues[rank].put((tag, buffer.getvalue(), rank, world, device, backend))
+            self.queues[rank].put((tag, buffer.getvalue(), rank, world, device, backend,
+                                   group_timeout))
         files = [os.path.join(self.workdir, f"{tag}.{r}") for r in range(world)]
         deadline = time.monotonic() + timeout
         try:

@@ -22,7 +22,10 @@ over the rest)::
         -m blindno_torch.suites.run --suite fpe2d --model nio --stage train --workdir W --tp 2
 
 Each rank takes the card ``LOCAL_RANK``; with ``--device cpu`` the ranks run over gloo.
-The other stages run in one process.
+At ``--tp 1`` a rank count that does not divide the batch trains as JAX's ``data_mesh``
+does, on the most ranks that divide it (``--nproc-per-node 3`` on a batch of 32 trains on
+two): the others idle until the run ends and exit 0, and rank 0 alone prints and writes
+the summary. The other stages run in one process.
 """
 from __future__ import annotations
 
@@ -78,16 +81,18 @@ def stage_train(spec, args):
         **({"tp": args.tp} if args.tp else {}),
     )
     dev = init_distributed(device=args.device) if is_distributed() else default_device(args.device)
+    main = is_main_process()  # asked before the group goes: then every process is its own
     try:
         model = spec.models[args.model](generator=torch.Generator().manual_seed(args.seed),
                                         device=dev)
-        if is_main_process():
+        if main:
             print(f"[{spec.name}/{args.model}] training {cfg.epochs} epochs on {dev}...")
+        # every rank returns once the run's result is in, the idle ones too
         res = train_model(model, data, spec.grid, cfg, device=dev)
     finally:
         if torch.distributed.is_initialized():
             torch.distributed.destroy_process_group()
-    if not is_main_process():
+    if not main:
         return res
     print(f"[{spec.name}/{args.model}] best test rel-L2 (sum over fields): {res.best_test_loss:.6f}")
     summary_path = os.path.join(args.workdir, "logs", f"{spec.name}_{args.model}_summary.json")

@@ -19,10 +19,11 @@ names and as ``resume.pt``: :func:`load_best` and :func:`load_resume` still read
 both kinds the smallest loss wins, and :func:`save_best` removes the others, files or
 directories, as JAX's does.
 
-Among several ranks, only rank 0 writes, and every rank waits for it at a barrier: the
-state it is handed is the whole, unsharded one (``blindno_torch.parallel.tp.gather_state``),
-as JAX's ``jax.device_get`` writes it, so a checkpoint loads into a single-process model
-and a run resumes at any ``tp``.
+Among several ranks, only rank 0 writes, and every training rank waits for it at a
+barrier of the group that the writers' ``group=`` names (the world unless given): the
+state it is handed is the whole, unsharded one
+(``blindno_torch.parallel.tp.gather_state``), as JAX's ``jax.device_get`` writes it, so a
+checkpoint loads into a single-process model and a run resumes at any ``tp``.
 """
 from __future__ import annotations
 
@@ -78,13 +79,14 @@ def _flax_sorted(tree: dict) -> dict:
 
 
 def _main_writes(save):
-    """``save`` run by rank 0 alone (or the only process); every rank then waits at a
-    barrier, so no rank reads or replaces a file that is still being written."""
+    """``save`` run by rank 0 alone (or the only process); every rank of ``group`` (the
+    training ranks; the world unless given) then waits at a barrier, so no rank reads or
+    replaces a file that is still being written."""
 
     @functools.wraps(save)
-    def wrapper(*args, **kwargs):
+    def wrapper(*args, group=None, **kwargs):
         path = save(*args, **kwargs) if is_main_process() else None
-        barrier()
+        barrier(group)
         return path
 
     return wrapper

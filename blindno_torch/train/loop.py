@@ -25,13 +25,16 @@ the loop trains data- and tensor-parallel as JAX's does on a ``(data, model)`` m
 elements and set subsamples from the same seed and takes its rows of each batch, the
 step losses and eval sums are reduced over ``data``, and rank 0's findings (the losses,
 the stop file) decide for every rank. Checkpoints hold the whole, unsharded state, and
-only rank 0 writes them and the log.
+only rank 0 writes them and the log. At tp=1 the data axis is JAX's ``data_mesh`` rule,
+the most ranks that divide the batch: the ranks past it idle until the run ends and
+return rank 0's result (:class:`blindno_torch.parallel.mesh.TrainingRanks`), as JAX leaves
+those devices out of its mesh.
 """
 from __future__ import annotations
 
 import os
 import time
-from dataclasses import dataclass, field as dc_field
+from dataclasses import dataclass, field as dc_field, replace
 from typing import Any, Callable
 
 import numpy as np
@@ -43,7 +46,7 @@ from blindno_torch.convert import adam_from_optax, adam_to_optax
 from blindno_torch.data.datasets import SetToFieldData, eval_batches, train_test_split
 from blindno_torch.eval.metrics import relative_l2_per_field
 from blindno_torch.parallel import distribute, undistribute
-from blindno_torch.parallel.mesh import (data_model_mesh, data_parallel_size, init_distributed,
+from blindno_torch.parallel.mesh import (TrainingRanks, data_parallel_size, init_distributed,
                                          is_distributed, world_size)
 from blindno_torch.parallel.tp import gather_state
 from blindno_torch.train import checkpoint
@@ -64,7 +67,8 @@ class TrainConfig:
     masks its keys, where JAX's step gives NaN
     (:func:`~blindno_torch.train.step.float16_refusal`), and ``epoch_scan`` in a process
     group whose collectives a CUDA graph cannot capture (gloo's, on a card); ``tp`` must
-    divide the ranks, and the rest of them (the ``data`` axis) the batch."""
+    divide the ranks, and with ``tp`` > 1 the rest of them (the ``data`` axis) the batch,
+    as JAX's mesh rules ask (:func:`_check_world`)."""
 
     epochs: int = 400
     batch_size: int = 32
@@ -202,18 +206,21 @@ def _split(model, state: dict):
 
 
 def _check_world(cfg: TrainConfig) -> int:
-    """The ``data`` axis' size; raises ``ValueError`` unless ``tp`` divides the ranks and
-    the data axis divides the batch. Idle ranks would hang the group, so the port
-    refuses where JAX would leave the extra devices out of its mesh."""
+    """The ``data`` axis' size, by JAX's rules (``blindno/train/loop.py:275-283``). At
+    tp=1, ``data_mesh(batch_size=...)``'s: the most ranks that divide the batch, the
+    others left idle. With tp > 1 every rank trains, and ``ValueError`` is raised unless
+    ``tp`` divides the ranks and the data axis the batch, where JAX refuses too."""
     world = world_size()
     if cfg.tp < 1 or world % cfg.tp:
         raise ValueError(f"tp={cfg.tp}: {world} rank(s) not divisible by tp (the model axis)")
+    if cfg.tp == 1:
+        return data_parallel_size(world, cfg.batch_size)
     n_data = world // cfg.tp
     if cfg.batch_size % n_data:
         fit = data_parallel_size(n_data, cfg.batch_size)
         raise ValueError(f"batch_size={cfg.batch_size} not divisible by the data axis "
-                         f"({n_data} = {world} ranks / tp={cfg.tp}); run {fit * cfg.tp} "
-                         f"ranks (data axis {fit})")
+                         f"({n_data} = {world} ranks / tp={cfg.tp}), which JAX refuses too; "
+                         f"run {fit * cfg.tp} ranks (data axis {fit})")
     return n_data
 
 
@@ -230,16 +237,25 @@ def _check_scan_backend(device):
             "a rank, or train with epoch_scan=False")
 
 
-def _from_rank0(values, device) -> np.ndarray:
-    """``values`` as rank 0 holds them, on every rank: what rank 0 found decides for all
-    (a rank that decided alone would leave the others waiting in a collective)."""
+def _from_rank0(values, device, group) -> np.ndarray:
+    """``values`` as rank 0 holds them, on every rank of ``group``: what rank 0 found
+    decides for all (a rank that decided alone would leave the others waiting in a
+    collective)."""
     t = torch.tensor(values, dtype=torch.float64, device=device)
-    dist.broadcast(t, 0)
+    dist.broadcast(t, 0, group=group)
     return t.cpu().numpy()
 
 
 def _copy(tree: dict) -> dict:
     return {k: v.detach().clone() for k, v in tree.items()}
+
+
+def _on(res: TrainResult, device) -> TrainResult:
+    """``res`` with its tensors on ``device``."""
+    move = lambda tree: {k: v.to(device) for k, v in tree.items()}
+    return replace(res, params=move(res.params), batch_stats=move(res.batch_stats),
+                   best_params=move(res.best_params),
+                   best_batch_stats=move(res.best_batch_stats))
 
 
 def _segment_seed(seed: int, start_epoch: int) -> int:
@@ -278,6 +294,11 @@ def train_model(model, data: SetToFieldData, grid, cfg: TrainConfig, *,
     returns the epoch's batches as train-split positions (steps, batch_size), each
     step's group element (or ``None`` without augmentation) and each step's set
     subsample ``(indices, mask)`` (or ``None``, for the model to draw).
+
+    In a process group, a rank past the ranks that train (:func:`_check_world`) is idle:
+    it copies no data to its device and joins no collective of the training, and once the
+    run ends it returns rank 0's result on its device, its ``model`` holding the final
+    state. It raises ``RuntimeError`` where a training rank fails.
     """
     _check_config(cfg)
     check_compute_dtype(model, cfg.compute_dtype, cfg.amp_policy)
@@ -295,8 +316,29 @@ def train_model(model, data: SetToFieldData, grid, cfg: TrainConfig, *,
             f"augment={cfg.augment!r} needs square (B, L, H, W) inputs, "
             f"got {data.inputs.shape}")
     dev = init_distributed(device=device) if distributed else default_device(device)
-    if cfg.epoch_scan and distributed:
+    if not distributed:
+        return _train(model, data, grid, cfg, dev, None, n_data, aug_fns, progress, draws)
+    if cfg.epoch_scan:
         _check_scan_backend(dev)
+    ranks = TrainingRanks(n_data * cfg.tp, cfg.tp, dev.type)
+    if ranks.idle:
+        res = _on(ranks.result(), dev)
+        model.to(dev).load_state_dict({**res.params, **res.batch_stats})
+        model.eval()
+        return res
+    try:
+        res = _train(model, data, grid, cfg, dev, ranks, n_data, aug_fns, progress, draws)
+    except BaseException as exc:
+        ranks.fail(exc)
+        raise
+    ranks.end(lambda: _on(res, "cpu"))
+    return res
+
+
+def _train(model, data, grid, cfg, dev, ranks, n_data, aug_fns, progress, draws):
+    """:func:`train_model` on a training rank (``ranks``, its ``TrainingRanks``) or in one
+    process (``ranks`` None), on ``dev`` with a data axis of ``n_data``."""
+    distributed = ranks is not None
     model.to(dev)
     n = data.inputs.shape[0]
     train_idx, test_idx = train_test_split(n, cfg.train_frac, cfg.split_seed)
@@ -359,11 +401,11 @@ def train_model(model, data: SetToFieldData, grid, cfg: TrainConfig, *,
 
     # on the card the epoch program runs on a stream of its own, and DDP is built on it
     stream = torch.cuda.Stream(dev) if cfg.epoch_scan and dev.type == "cuda" else None
-    net, rows, share = model, slice(None), cfg.batch_size
+    net, rows, share, train_group = model, slice(None), cfg.batch_size, None
     if distributed:
-        mesh = data_model_mesh(cfg.tp, dev.type)
+        mesh, train_group = ranks.mesh, ranks.group
         with on_stream(stream):
-            net = distribute(model, mesh, opt)
+            net = distribute(model, mesh, opt, train_group)
         data_group = mesh.get_group("data")
         share = cfg.batch_size // n_data
         rows = slice(mesh.get_local_rank("data") * share, (mesh.get_local_rank("data") + 1) * share)
@@ -388,7 +430,7 @@ def train_model(model, data: SetToFieldData, grid, cfg: TrainConfig, *,
             if distributed:
                 dist.all_reduce(sums, group=data_group)
                 # float32, the dtype one process divides and sums them in
-                sums = _from_rank0(sums.tolist(), dev).astype(np.float32)
+                sums = _from_rank0(sums.tolist(), dev, train_group).astype(np.float32)
             else:
                 sums = sums.cpu().numpy()
         model.train()
@@ -413,7 +455,7 @@ def train_model(model, data: SetToFieldData, grid, cfg: TrainConfig, *,
 
     def stop_requested():
         found = os.path.exists(cfg.stop_file)
-        return bool(_from_rank0([float(found)], dev)[0]) if distributed else found
+        return bool(_from_rank0([float(found)], dev, train_group)[0]) if distributed else found
 
     logger = MetricsLogger(cfg.log_path)
     best_params, best_stats = map(_copy, _state(model, distributed))
@@ -456,7 +498,7 @@ def train_model(model, data: SetToFieldData, grid, cfg: TrainConfig, *,
                 train_loss = torch.stack(losses).mean()
             if distributed:
                 dist.all_reduce(train_loss, group=data_group)
-                train_loss = _from_rank0([train_loss.item() / n_data], dev)[0]
+                train_loss = _from_rank0([train_loss.item() / n_data], dev, train_group)[0]
             train_loss = float(train_loss)
             dt = time.perf_counter() - t0
 
@@ -492,9 +534,10 @@ def train_model(model, data: SetToFieldData, grid, cfg: TrainConfig, *,
                     best_params, best_stats = map(_copy, _state(model, distributed))
                     if cfg.ckpt_dir:
                         checkpoint.save_best(cfg.ckpt_dir, best_params, best_stats, epoch,
-                                             best_loss)
+                                             best_loss, group=train_group)
                 if cfg.ckpt_dir:
-                    checkpoint.save_resume(cfg.ckpt_dir, *resume_state(), epoch, best_loss)
+                    checkpoint.save_resume(cfg.ckpt_dir, *resume_state(), epoch, best_loss,
+                                           group=train_group)
                 if (cfg.early_stop_patience is not None
                         and epoch - best_epoch >= cfg.early_stop_patience):
                     logger.log({"event": "early_stop", "epoch": epoch,
@@ -503,7 +546,8 @@ def train_model(model, data: SetToFieldData, grid, cfg: TrainConfig, *,
 
             if cfg.stop_file and stop_requested():
                 if cfg.ckpt_dir:
-                    checkpoint.save_resume(cfg.ckpt_dir, *resume_state(), epoch, best_loss)
+                    checkpoint.save_resume(cfg.ckpt_dir, *resume_state(), epoch, best_loss,
+                                           group=train_group)
                 logger.log({"event": "preempted", "epoch": epoch})
                 finished = False
                 break

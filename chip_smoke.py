@@ -128,7 +128,12 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``. It
    whole under ``torch.cuda.set_sync_debug_mode("error")``, bit for bit a one-process
    ``epoch_scan`` run, its ``fno2d_layer`` executions exact, its replayed steps/s and
    host ms a step beside the one-process run's; and (case ``f``) DP 2 over NCCL on two
-   cards where the host has them;
+   cards where the host has them; then (case ``g``) ``train_model`` of NIOFP2D at the
+   ``bench.py`` config and batch of 4 for an epoch of ``fit``'s archive on 3 gloo ranks,
+   whose data axis of 2 leaves rank 2 idle (JAX's ``data_mesh`` rule): every rank's result
+   bit for bit the same run's on 2 ranks, 6 ``fno2d_layer`` launches a step and eval batch
+   on ranks 0 and 1 and none on rank 2, against the one-process run; and (case ``h``)
+   the same with ``epoch_scan`` over NCCL on three cards where the host has them;
 14. serves and trains ``NIOFP2D`` at the ``bench.py`` config with ``padding_frac=2.0``
    on its FNO2d heads (phase ``padded``: each layer at (4, 12, 183, 183), past what one
    block holds, so the kernel's first stage takes its tiled layout): served through
@@ -2740,15 +2745,17 @@ def scan_gaps(scanned, eager):
     return float(np.max(np.abs(a - b) / np.abs(b))), state
 
 
-def check_scan_gaps(label, hist, state, hist_tol, held):
+def check_scan_gaps(label, hist, state, hist_tol, held, tol=None):
     """Raise unless the history's gap is within ``hist_tol`` and each tensor that
-    ``held(key)`` names within ``unet_tol``; return the worst gaps."""
-    bad = {k: e for k, e in state.items() if held(k) and not e <= unet_tol(k)}
+    ``held(key)`` names within ``tol(key)`` (:func:`unet_tol` unless given); return the
+    worst gaps."""
+    tol = tol or unet_tol
+    bad = {k: e for k, e in state.items() if held(k) and not e <= tol(k)}
     if not hist <= hist_tol or bad:
-        raise RuntimeError(f"{label}: epoch_scan=True lies beyond its bounds from the per-step "
-                           f"loop: history {hist:.3g} (bound {hist_tol:.3g}), tensors {bad}")
+        raise RuntimeError(f"{label}: the run lies beyond its bounds from the run it is held "
+                           f"to: history {hist:.3g} (bound {hist_tol:.3g}), tensors {bad}")
     worst = lambda part: max(part.items(), key=lambda kv: kv[1])
-    conv = {k: e for k, e in state.items() if unet_tol(k) == ENCODER_TOL}
+    conv = {k: e for k, e in state.items() if tol(k) == ENCODER_TOL}
     return dict(history=hist, worst_conv_stack=worst(conv),
                 worst_rest=worst({k: e for k, e in state.items() if k not in conv}))
 
@@ -3009,6 +3016,14 @@ PARALLEL_RANKS = 4
 PARALLEL_SCAN = ("e_nccl_1rank_epoch_scan", 1)
 PARALLEL_SCAN_TWO_CARDS = ("f_nccl_dp2_epoch_scan_two_cards", 2)
 PARALLEL_SCAN_EPOCHS = 4
+# the ranks past the data axis (case, ranks, backend): train_model of NIOFP2D at bench.py's
+# config and batch of 4, whose data axis on 3 ranks is 2 (JAX's data_mesh rule): ranks 0
+# and 1 train on 2 rows each and rank 2 idles. For an epoch of fit's first 20 sets (4 steps
+# and an eval batch, so that the three gloo runs take seconds) over gloo on the one card,
+# then with epoch_scan over NCCL on three cards where there are three
+PARALLEL_IDLE = ("g_gloo_3ranks_data2", 3, "gloo")
+PARALLEL_IDLE_CARDS = ("h_nccl_3ranks_epoch_scan_three_cards", 3, "nccl")
+PARALLEL_IDLE_SETS = 20
 
 
 def phase_parallel(smi_line, ranks, data):
@@ -3074,13 +3089,14 @@ def phase_parallel(smi_line, ranks, data):
         print(f"parallel: case (d) did not run: it needs two CUDA devices, and "
               f"torch.cuda.device_count() is {torch.cuda.device_count()}", flush=True)
     scan_launches, scan = parallel_epoch_scan(ranks, data)
+    idle_launches, idle = parallel_idle_ranks(ranks, data)
     emit("parallel", model="NIOFP2D", config=bench_train.CONFIG, batch=bench_train.BATCH,
          loss_single=single[0][0], cases=results,
          bit_for_bit="a_nccl_1rank", tp_slice=TP_SLICE, tp_slice_launches=tp_launches,
          timed_steps=PARALLEL_STEPS,
          tol=f"relative L2: {TRAIN_TOL}, encoder gradients and parameters {ENCODER_TOL}",
-         epoch_scan=scan, nvidia_smi=smi_line)
-    return launches + scan_launches
+         epoch_scan=scan, idle_ranks=idle, nvidia_smi=smi_line)
+    return launches + scan_launches + idle_launches
 
 
 def check_program(label, record, launches, steps, executed, ranked):
@@ -3187,6 +3203,151 @@ def parallel_epoch_scan(ranks, data):
                    executed_fno2d_layer_calls_a_run=executed,
                    bit_for_bit=PARALLEL_SCAN[0], tol_two_cards=f"history {TRAIN_TOL} relative; "
                    f"state {TRAIN_TOL} relative L2 a tensor, {ENCODER_TOL} in the conv stack")
+    return launches, figures
+
+
+def parallel_idle_ranks(ranks, data):
+    """Phase parallel's cases of ranks past the data axis (``PARALLEL_IDLE``):
+    ``train_model`` of NIOFP2D at the ``bench.py`` config and batch for one epoch on the
+    first PARALLEL_IDLE_SETS sets of ``data`` (``fit``'s archive loaded), from phase
+    ``train``'s seeded weights, on 3 ranks in ``ranks``, whose data axis of 2 leaves rank 2
+    idle; deterministic cuDNN convolutions throughout.
+
+    (g) Over gloo on the card: every rank's result, the idle rank's too, equal bit for bit
+    to the same run on 2 gloo ranks; each training rank launches ``fno2d_layer`` 6 times a
+    step and eval batch, the idle rank never. Its one-step epoch (the first 5 sets) within
+    :func:`train_tol` of the one-process run's, the history within TRAIN_TOL. Over more
+    steps Adam carries rounding-level differences past those bounds (its first update is
+    the gradient's sign times the rate, so a gradient within rounding of 0 moves its
+    weight either way), so the whole epoch's gaps from the one-process run are figures,
+    beside the gaps of a one-process run from weights one ulp up.
+
+    (h) Over NCCL on three cards with ``epoch_scan=True``, where there are three, on the
+    whole archive (16 steps: the step is captured after DDP's eager ones): the idle rank's
+    result bit for bit rank 0's, each training rank's layer executions exact (its eager
+    steps', evals' and capture's calls, and the capture's times its replays), the idle
+    rank's none.
+
+    Returns the executed ``fno2d_layer`` calls of the runs, and the figures."""
+    import dataclasses
+
+    from blindno_torch.data.datasets import SetToFieldData
+    from blindno_torch.models.nio2d import NIOFP2D
+    from blindno_torch.parallel.dryrun import train_model_ranks
+    from blindno_torch.suites import registry
+    from blindno_torch.tools import bench_train
+    from blindno_torch.train import loop, scan
+
+    grid = registry.SUITES["fpe2d"].grid
+    cfg = loop.TrainConfig(epochs=1, batch_size=bench_train.BATCH["b"], save_interval=1)
+    sets = lambda m: SetToFieldData(data.inputs[:m], data.targets[:m])
+    epoch, one_step = sets(PARALLEL_IDLE_SETS), sets(cfg.batch_size + 1)
+    n_train = int(cfg.train_frac * PARALLEL_IDLE_SETS)
+    steps = n_train // cfg.batch_size
+    evals = -(-(PARALLEL_IDLE_SETS - n_train) // cfg.batch_size)
+    per_rank = 6 * (steps + evals)  # 6 layer calls a step and an eval batch
+    state = {k: v.numpy().copy() for k, v in bench_train.fresh_model("cpu").state_dict().items()}
+    factory = (NIOFP2D, dict(**bench_train.CONFIG, device="cpu"))
+    launches = 0
+
+    def single(run_data, nudged=False):
+        """The one-process run on the card, its launches checked, and its wall s; where
+        ``nudged``, from weights each one ulp up."""
+        nonlocal launches
+        model = bench_train.fresh_model("cpu")
+        model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+        if nudged:
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.copy_(torch.nextafter(p, torch.full_like(p, np.inf)))
+        t0 = time.perf_counter()
+        with deterministic_convolutions():
+            counts, res = counted(lambda: loop.train_model(model, run_data, grid, cfg))
+        m = run_data.inputs.shape[0]
+        want = 6 * (int(cfg.train_frac * m) // cfg.batch_size
+                    + -(-(m - int(cfg.train_frac * m)) // cfg.batch_size))
+        expect_launches("parallel idle ranks, one process", counts, fno2d_layer=want)
+        launches += counts["fno2d_layer"]
+        return res, time.perf_counter() - t0
+
+    def run(world, backend, run_data, run_cfg=cfg):
+        t0 = time.perf_counter()
+        with deterministic_convolutions():
+            out = ranks.run(train_model_ranks, world, factory, state, run_data, grid, run_cfg,
+                            "cuda", None, True, device="cuda", backend=backend, timeout=300)
+        return out, time.perf_counter() - t0
+
+    def gaps(label, res, one, held):
+        """The gaps of ``res`` from the one-process run ``one``; checked where ``held``."""
+        if not res.finished:
+            raise RuntimeError(f"{label}: the run did not finish")
+        return check_scan_gaps(label, *scan_gaps(res, one), TRAIN_TOL if held else np.inf,
+                               lambda k: held, train_tol)
+
+    name, world, backend = PARALLEL_IDLE
+    (out, wall), (two, two_wall) = run(world, backend, epoch), run(2, backend, epoch)
+    for rank, r in enumerate(out + two):
+        label = (f"parallel {name} rank {rank}" if rank < world
+                 else f"parallel {name}'s 2-rank run, rank {rank - world}")
+        expect_launches(label, r["launches"], fno2d_layer=0 if rank == world - 1 else per_rank)
+        if not same_run(r["result"], two[0]["result"]):
+            raise RuntimeError(f"{label}: differs from the 2-rank run: {r['result'].history} "
+                               f"against {two[0]['result'].history}")
+        launches += r["launches"]["fno2d_layer"]
+    (stepped, step_wall), (one_stepped, _) = run(world, backend, one_step), single(one_step)
+    launches += sum(r["launches"]["fno2d_layer"] for r in stepped)
+    (one, one_wall), (nudged, _) = single(epoch), single(epoch, nudged=True)
+    figures = {name: dict(
+        ranks=world, backend=backend, data_axis=2, wall_s=wall, two_ranks_wall_s=two_wall,
+        one_process_wall_s=one_wall, train_model_s=[r["train_s"] for r in out],
+        two_ranks_train_model_s=[r["train_s"] for r in two],
+        launches_fno2d_layer=[r["launches"]["fno2d_layer"] for r in out],
+        history=[(h["train_loss"], h["test_loss"]) for h in out[0]["result"].history],
+        history_one_process=[(h["train_loss"], h["test_loss"]) for h in one.history],
+        bit_for_bit="the 2-rank run, every rank",
+        one_step_gaps_from_one_process=gaps(f"parallel {name}, one step",
+                                            stepped[0]["result"], one_stepped, True),
+        one_step_wall_s=step_wall,
+        epoch_gaps_from_one_process=gaps(name, out[0]["result"], one, False),
+        epoch_gaps_of_one_process_nudged_one_ulp=gaps(name, nudged, one, False))}
+    if torch.cuda.device_count() >= 3:
+        # the whole archive: its 16 steps an epoch outlast DDP's eager ones, so the step is
+        # captured and replayed
+        name, world, backend = PARALLEL_IDLE_CARDS
+        m = data.inputs.shape[0]
+        steps = int(cfg.train_frac * m) // cfg.batch_size
+        per_rank = 6 * (steps + -(-(m - int(cfg.train_frac * m)) // cfg.batch_size))
+        out, wall = run(world, backend, data, dataclasses.replace(cfg, epoch_scan=True))
+        for rank, r in enumerate(out):
+            label = f"parallel {name} rank {rank}"
+            if rank == world - 1:
+                expect_launches(label, r["launches"], fno2d_layer=0)
+                if r["programs"] or not same_run(r["result"], out[0]["result"]):
+                    raise RuntimeError(f"{label}: the idle rank built {r['programs']} or "
+                                       f"returned another result than rank 0's")
+                continue
+            (record,) = r["programs"]
+            cap = record["captured"]["fno2d_layer"]
+            executed = r["launches"]["fno2d_layer"] - cap + cap * record["replays"]
+            if not (record["eager_steps"] == scan.DDP_WARMUP_STEPS and cap == 6
+                    and record["replays"] == steps - scan.DDP_WARMUP_STEPS
+                    and executed == per_rank):
+                raise RuntimeError(f"{label}: the program took {record}, {executed} layer "
+                                   f"calls executed, want {per_rank}")
+            launches += executed
+        figures[name] = dict(ranks=world, backend=backend, wall_s=wall, sets=m,
+                             train_model_s=[r["train_s"] for r in out],
+                             history=[(h["train_loss"], h["test_loss"])
+                                      for h in out[0]["result"].history])
+    else:
+        print(f"parallel: case {PARALLEL_IDLE_CARDS[0]} did not run: it needs three CUDA "
+              f"devices, and torch.cuda.device_count() is {torch.cuda.device_count()}",
+              flush=True)
+    figures.update(model="NIOFP2D", batch=cfg.batch_size, epochs=cfg.epochs,
+                   sets=PARALLEL_IDLE_SETS, steps_per_epoch=steps, eval_batches=evals,
+                   fno2d_layer_calls_a_training_rank=per_rank,
+                   tol=f"one step: history {TRAIN_TOL} relative; state {TRAIN_TOL} relative "
+                   f"L2 a tensor, {ENCODER_TOL} in the encoder")
     return launches, figures
 
 

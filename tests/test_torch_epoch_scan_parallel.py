@@ -1,6 +1,8 @@
 """``TrainConfig(epoch_scan=True)`` across ranks on the CPU: the epoch program
 (``blindno_torch/train/scan.py``) run uncaptured in gloo ranks, on a ``(data, model)``
-mesh of DP 2 (two ranks) or 2 x 2 at tp=2 (four), as ``device="cpu"`` asks.
+mesh of DP 2 (two ranks, or three whose third idles: a batch of 2 or 4 leaves a data axis
+of 2, as JAX's ``data_mesh`` leaves it on its 8 virtual devices) or 2 x 2 at tp=2 (four),
+as ``device="cpu"`` asks. The idle rank's result is held as the training ranks' are.
 
 - Against the port's per-step loop on the same ranks, with no augmentation and with
   ``d4_scalar`` (and bfloat16 input storage), a small UNet: bit for bit,
@@ -51,8 +53,8 @@ from test_torch_nio3d import seeded_variables
 from test_torch_parallel import GRID_1D, RUN_TIMEOUT, SMALL_1D, _fpe1d_data, _np
 from test_torch_train import ENCODER_GRAD_TOL, STEP_TOL, _grid
 
-# mesh -> (ranks, tp)
-MESHES = {"dp2": (2, 1), "dp2_tp2": (4, 2)}
+# mesh -> (ranks, tp); in dp2_idle1 the third rank idles (neither batch divides by 3)
+MESHES = {"dp2": (2, 1), "dp2_tp2": (4, 2), "dp2_idle1": (3, 1)}
 
 
 @pytest.fixture(scope="module")

@@ -450,17 +450,35 @@ def test_torchrun_trains_through_the_cli(tmp_path):
     """``python -m torch.distributed.run --standalone --nproc-per-node 2 -m
     blindno_torch.suites.run --suite fpe1d --model nio --stage train --tp 2 --device cpu``
     on a tiny archive: one epoch, the checkpoints and the summary written."""
+    _torchrun_train(tmp_path, 2, 2)
+
+
+def test_torchrun_trains_on_three_ranks_at_a_batch_that_two_divide(tmp_path):
+    """The same at ``--nproc-per-node 3`` and ``--tp 1``: the fpe1d suite's batch of 32
+    leaves a data axis of 2, as JAX's ``data_mesh`` leaves it on three devices. Rank 2
+    idles and exits 0 with the others; the checkpoints are written once, and rank 0 alone
+    prints the result."""
+    out = _torchrun_train(tmp_path, 3, 1)
+    assert out.count("best test rel-L2") == 1, out[-3000:]
+
+
+def _torchrun_train(tmp_path, nproc, tp):
+    """The train stage through torchrun on ``nproc`` CPU ranks at ``--tp tp``, one epoch on
+    a tiny fpe1d archive (40 sets: one step of 32): rc 0, one ``best_*``, the resume state
+    and the summary written. Returns the run's standard output."""
     rng = np.random.default_rng(0)
     os.makedirs(tmp_path / "data")
     np.savez(tmp_path / "data" / "fpe1d_train.npz", **_fpe1d_archive(40, rng))
     np.savez(tmp_path / "data" / "fpe1d_test.npz", **_fpe1d_archive(5, rng))
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = {**os.environ, "PYTHONPATH": root, "OMP_NUM_THREADS": "1"}
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
-           "-m", "blindno_torch.suites.run", "--suite", "fpe1d", "--model", "nio", "--stage",
-           "train", "--tp", "2", "--device", "cpu", "--workdir", str(tmp_path), "--epochs", "1"]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           str(nproc), "-m", "blindno_torch.suites.run", "--suite", "fpe1d", "--model", "nio",
+           "--stage", "train", "--tp", str(tp), "--device", "cpu", "--workdir", str(tmp_path),
+           "--epochs", "1"]
     proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr[-3000:]
     ckpt = os.listdir(tmp_path / "ckpt" / "fpe1d_nio")
     assert RESUME in ckpt and sum(f.startswith("best_") for f in ckpt) == 1
     assert os.path.exists(tmp_path / "logs" / "fpe1d_nio_summary.json")
+    return proc.stdout
